@@ -1,0 +1,179 @@
+"""Typed configuration of the PyTorch port.
+
+A copy of the function-changing fields of the JAX package's configs
+(`diff_sal_tpu/config.py`), with the same names and defaults. The JAX
+configs also carry flags that pick a TPU lowering of the same function
+(`cls_stream`, `tokens3d`, `flat_dots`, `qkv_conv`, `fuse_kv`, `lane_pad`,
+`fold_proj`, `stem_mode`, `pool_mode`, `skip_pool`, `attn_softmax`,
+`use_pallas_attention`, the decoder's `upembed_phase`, `pool_reduce`,
+`conv_wg_dots`, `head_lowres`, `fused_attn`, `fused_tail`): the port builds
+each function once and has none of them. Fields that only training or
+unported paths read (dropout, drop-path, dequantization, DPM-Solver
+settings) come with those paths.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class DataTransformConfig:
+    """Pixel-space transform of saliency maps (reference
+    `cfgs/diffusion.yml:1-8`); the fields the inverse transform reads."""
+
+    logit_transform: bool = False
+    rescaled: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionConfig:
+    """Forward-process definition (reference `cfgs/diffusion.yml:24-28`)."""
+
+    beta_schedule: str = "cosine"
+    beta_start: float = 0.0001
+    beta_end: float = 0.02
+    num_diffusion_timesteps: int = 1000
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingConfig:
+    """Inference sampler knobs (reference `cfgs/diffusion.yml:63-77`)."""
+
+    sample_type: str = "ddim"  # ddim | ddpm
+    timesteps: int = 1
+    eta: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MViTConfig:
+    """MViTv2 video encoder (reference `models/mvit.py:795-1152`)."""
+
+    embed_dims: int = 96
+    num_layers: int = 16
+    num_heads: int = 1
+    downscale_indices: Tuple[int, ...] = (1, 3, 14)
+    spatial_size: Tuple[int, int] = (224, 384)
+    temporal_size: int = 16
+    in_channels: int = 3
+    out_scales: Tuple[int, ...] = (0, 1, 2, 3)
+    pool_kernel: Tuple[int, int, int] = (3, 3, 3)
+    dim_mul: int = 2
+    head_mul: int = 2
+    adaptive_kv_stride: Tuple[int, int, int] = (1, 8, 8)
+    rel_pos_embed: bool = True
+    residual_pooling: bool = True
+    with_cls_token: bool = True
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    # rel-pos table lengths come from the 224x224 pretrain grid
+    rel_pos_spatial_size: int = 224
+    # MLP activation: "tanh" approximation (default) | "exact" erf GELU
+    gelu: str = "tanh"
+    # int8 MLP weights: only "none" is ported so far
+    mlp_quant: str = "none"
+
+    @classmethod
+    def small(cls, **kw) -> "MViTConfig":
+        return cls(num_layers=16, downscale_indices=(1, 3, 14), **kw)
+
+    @classmethod
+    def tiny(cls, **kw) -> "MViTConfig":
+        return cls(num_layers=10, downscale_indices=(1, 3, 8), **kw)
+
+    @classmethod
+    def dryrun(cls, **kw) -> "MViTConfig":
+        return cls(num_layers=7, downscale_indices=(1, 3, 5), **kw)
+
+    @classmethod
+    def base(cls, **kw) -> "MViTConfig":
+        return cls(num_layers=24, downscale_indices=(2, 5, 21), **kw)
+
+    @classmethod
+    def large(cls, **kw) -> "MViTConfig":
+        return cls(embed_dims=144, num_layers=48, num_heads=2,
+                   downscale_indices=(2, 8, 44), **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class AudioAttnConfig:
+    """AudioAttnNet's effective 1-layer pre-norm transformer over the raw
+    512-d VGGish tokens (reference `models/audio_attention.py:93-143`)."""
+
+    dim: int = 512
+    depth: int = 1
+    heads: int = 2
+    dim_head: int = 64
+    mlp_dim: int = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class VGGishConfig:
+    """VGGish conv trunk (reference `models/vggish.py:96-128`)."""
+
+    layers: Tuple = (64, "M", 128, "M", 256, 256, "M", 512, 512, "M")
+    in_channels: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SalUNetConfig:
+    """Saliency-UNet diffusion decoder (reference `cfgs/audio_visual.py:50-82`)."""
+
+    img_size: Tuple[int, int] = (224, 384)
+    image_based: bool = True
+    mid_num_stages: int = 4
+    temporal_list: Tuple[int, ...] = (5, 5, 5, 5)
+    ori_embed_dim: int = 768
+    down_embed_dim: int = 96
+    patch_size: Tuple[int, ...] = (0, 3, 3, 3)
+    up_channel: Tuple[int, ...] = (768, 384, 192, 96)
+    num_heads: Tuple[int, ...] = (2, 2, 2, 2)
+    mlp_ratio: Tuple[float, ...] = (2.0, 2.0, 2.0, 2.0)
+    kernel_kv: Tuple[int, ...] = (2, 4, 8, 16)
+    stride_kv: Tuple[int, ...] = (2, 4, 8, 16)
+    audio_dim: int = 512
+    noise_ch: int = 96
+    # MLP activation: "tanh" (default) | "exact"
+    gelu: str = "tanh"
+    # skip the last stage's frames 5-8, which ReduceTemp never reads: exact
+    skip_dead_frames: bool = True
+    # cut frames 5-8 at every stage (eval): APPROXIMATE, the stage-1..3 av
+    # gates then average 5 frames instead of 9 (JAX `config.py:373-389`)
+    skip_dead_frames_all: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Top-level VideoSaliencyModel composition (reference
+    `models/diff_model.py:8-114`)."""
+
+    visual: Optional[MViTConfig] = dataclasses.field(default_factory=MViTConfig.small)
+    audio: Optional[VGGishConfig] = None
+    spatiotemp: Optional[AudioAttnConfig] = None
+    decoder: SalUNetConfig = dataclasses.field(default_factory=SalUNetConfig)
+    # compute dtype of the heavy math; parameters always live in float32
+    compute_dtype: str = "float32"
+    # statistics for uint8 rgb input: "imagenet" | "stavis"
+    uint8_norm: str = "imagenet"
+
+    @classmethod
+    def visual_only(cls, **kw) -> "ModelConfig":
+        return cls(visual=MViTConfig.small(), audio=None, spatiotemp=None, **kw)
+
+    @classmethod
+    def audio_visual(cls, **kw) -> "ModelConfig":
+        return cls(visual=MViTConfig.small(), audio=VGGishConfig(),
+                   spatiotemp=AudioAttnConfig(), **kw)
+
+
+def from_fields(obj):
+    """This module's config equal to any dataclass config of the same class
+    name (e.g. one of the JAX package's), recursively, keeping only the
+    fields this module defines."""
+    if not dataclasses.is_dataclass(obj):
+        return obj
+    cls = globals()[type(obj).__name__]
+    names = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{f.name: from_fields(getattr(obj, f.name))
+                  for f in dataclasses.fields(obj) if f.name in names})

@@ -1,0 +1,140 @@
+// K4: multi-scale bilinear resize-and-sum, a gather pass.
+//
+// Replaces the TPU kernel diff_sal_tpu/ops/resize.py:235 bilinear_resize_sum
+// (body _resize_sum_kernel :206), which contracts each input with two dense
+// interpolation matrices on the MXU. On the H100 the function is bound by
+// the bytes of its output: (B, H, W, C) written once against ~16
+// multiply-adds per element. So each thread owns one output pixel and VEC
+// consecutive channels (16 bytes), reads the 2x2 half-pixel taps of each of
+// the n <= 4 inputs with 16-byte loads (the small inputs stay in L2),
+// accumulates in f32 and writes its 16 bytes once. Neighbouring threads take
+// neighbouring channel groups, so loads and stores are coalesced.
+//
+// Tap tables (built on the host from the same half-pixel rule as the dense
+// matrices): idx (n, 2, H + W) int32 = [lo | hi], wts (n, 2, H + W) f32 =
+// [w_lo | w_hi]; entries [0, H) are rows and [H, H + W) are columns.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+template <typename T>
+struct Vec;
+
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ static void load(const __nv_bfloat16* p, float* f) {
+    uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float2 v = __bfloat1622float2(h[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+  __device__ static void store(__nv_bfloat16* p, const float* f) {
+    uint4 raw;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = raw;
+  }
+};
+
+template <>
+struct Vec<float> {
+  static constexpr int N = 4;
+  __device__ static void load(const float* p, float* f) {
+    float4 v = *reinterpret_cast<const float4*>(p);
+    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+  }
+  __device__ static void store(float* p, const float* f) {
+    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+  }
+};
+
+struct Inputs {
+  const void* x[4];
+  int h[4];
+  int w[4];
+};
+
+template <typename T>
+__global__ void resize_sum_kernel(Inputs in, const int* __restrict__ idx,
+                                  const float* __restrict__ wts, T* __restrict__ out,
+                                  int n, int B, int H, int W, int C) {
+  constexpr int V = Vec<T>::N;
+  const int groups = C / V;
+  const long long total = (long long)B * H * W * groups;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= total) return;
+  const int g = (int)(tid % groups);
+  long long pix = tid / groups;
+  const int x = (int)(pix % W);
+  pix /= W;
+  const int y = (int)(pix % H);
+  const int b = (int)(pix / H);
+  const int L = H + W;
+
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+
+  for (int k = 0; k < n; ++k) {
+    const int* ik = idx + k * 2 * L;
+    const float* wk = wts + k * 2 * L;
+    const int ylo = ik[y], yhi = ik[L + y];
+    const int xlo = ik[H + x], xhi = ik[L + H + x];
+    const float wyl = wk[y], wyh = wk[L + y];
+    const float wxl = wk[H + x], wxh = wk[L + H + x];
+    const int h = in.h[k], w = in.w[k];
+    const T* base = static_cast<const T*>(in.x[k]) + (long long)b * h * w * C + g * V;
+    float t[V];
+    Vec<T>::load(base + ((long long)ylo * w + xlo) * C, t);
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] += wyl * wxl * t[i];
+    Vec<T>::load(base + ((long long)ylo * w + xhi) * C, t);
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] += wyl * wxh * t[i];
+    Vec<T>::load(base + ((long long)yhi * w + xlo) * C, t);
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] += wyh * wxl * t[i];
+    Vec<T>::load(base + ((long long)yhi * w + xhi) * C, t);
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] += wyh * wxh * t[i];
+  }
+  Vec<T>::store(out + (((long long)b * H + y) * W + x) * C + g * V, acc);
+}
+
+template <typename T>
+void launch(Inputs in, const int* idx, const float* wts, void* out, int n, int B,
+            int H, int W, int C, cudaStream_t stream) {
+  const long long total = (long long)B * H * W * (C / Vec<T>::N);
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  resize_sum_kernel<T><<<blocks, threads, 0, stream>>>(
+      in, idx, wts, static_cast<T*>(out), n, B, H, W, C);
+}
+
+}  // namespace
+
+extern "C" int dsal_resize_sum(const void* x0, const void* x1, const void* x2,
+                               const void* x3, const int* idx, const float* wts,
+                               void* out, int h0, int h1, int h2, int h3, int w0,
+                               int w1, int w2, int w3, int n, int B, int H, int W,
+                               int C, int is_bf16, void* stream) {
+  Inputs in;
+  in.x[0] = x0; in.x[1] = x1; in.x[2] = x2; in.x[3] = x3;
+  in.h[0] = h0; in.h[1] = h1; in.h[2] = h2; in.h[3] = h3;
+  in.w[0] = w0; in.w[1] = w1; in.w[2] = w2; in.w[3] = w3;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    launch<__nv_bfloat16>(in, idx, wts, out, n, B, H, W, C, s);
+  else
+    launch<float>(in, idx, wts, out, n, B, H, W, C, s);
+  return (int)cudaGetLastError();
+}

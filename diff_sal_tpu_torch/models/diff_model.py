@@ -1,0 +1,102 @@
+"""VideoSaliencyModel: MViT visual encoder, frozen VGGish + AudioAttnNet
+audio path and the SalUNet denoiser (JAX package `models/diff_model.py`;
+reference `models/diff_model.py:8-114`).
+
+`encode_visual`, `encode_audio` and `denoise` are separate entry points,
+so a sampler encodes once and calls only the denoiser per step. Inputs are
+channel-last: rgb (B, 16, 224, 384, 3) float or uint8, audio (B, 9, 112,
+192, 1), x_t (B, 224, 384, 1), t (B,).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from diff_sal_tpu_torch.config import ModelConfig
+from diff_sal_tpu_torch.data.transforms import normalize_rgb_u8
+from diff_sal_tpu_torch.models.audio_attention import AudioAttnNet
+from diff_sal_tpu_torch.models.layers import FusedLayerNorm
+from diff_sal_tpu_torch.models.mvit import MViT
+from diff_sal_tpu_torch.models.sal_unet import SalUNet
+from diff_sal_tpu_torch.models.vggish import VGGish
+
+
+class VideoSaliencyModel(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        if cfg.visual is None:
+            raise NotImplementedError("the visual=None random-pyramid mode is not ported yet")
+        self.cfg = cfg
+        self.visual_net = MViT(cfg.visual)
+        self.audio_net = VGGish(cfg.audio) if cfg.audio else None
+        self.spatiotemp_net = AudioAttnNet(cfg.spatiotemp) if cfg.spatiotemp else None
+        self.decoder_net = SalUNet(cfg.decoder, with_audio=cfg.audio is not None)
+
+    @property
+    def compute_dtype(self) -> Optional[torch.dtype]:
+        name = self.cfg.compute_dtype
+        return None if name in (None, "float32") else getattr(torch, name)
+
+    def encode_visual(self, rgb: torch.Tensor) -> List[torch.Tensor]:
+        """rgb (B, T, H, W, 3) -> coarse-first 4-scale pyramid; uint8 input
+        is normalized on the device first."""
+        if rgb.dtype == torch.uint8:
+            rgb = normalize_rgb_u8(rgb, stats=self.cfg.uint8_norm)
+        return self.visual_net(rgb, self.compute_dtype)
+
+    def encode_audio(self, audio: torch.Tensor) -> torch.Tensor:
+        """audio (B, Ta, 112, 192, 1) -> (B, Ta, 7, 12, 512); the VGGish trunk
+        is frozen."""
+        B, Ta = audio.shape[:2]
+        feat = self.audio_net.forward_feat(audio.reshape((B * Ta,) + tuple(audio.shape[2:])),
+                                           self.compute_dtype)
+        feat = feat.reshape((B, Ta) + tuple(feat.shape[1:]))
+        if self.spatiotemp_net is not None:
+            feat = self.spatiotemp_net(feat, self.compute_dtype)
+        return feat
+
+    def denoise(self, x: torch.Tensor, t: torch.Tensor, feat_list: List[torch.Tensor],
+                audio_feat: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.decoder_net(x, t, feat_list, audio_feat, self.compute_dtype)
+
+
+def build_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> VideoSaliencyModel:
+    """The model in eval mode with seeded random weights (`init_weights`),
+    on `device`: the card unless the caller asks for the CPU."""
+    return init_weights(VideoSaliencyModel(cfg), seed).eval().to(device)
+
+
+def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Seeded random initialisation, drawn on the CPU from one
+    torch.Generator (device-independent): fan-in-scaled normal weights,
+    zero biases, unit norm scales, trunc-normal(0.02) cls token and rel-pos
+    tables, identity BatchNorm statistics."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf.startswith("rel_pos") or leaf == "cls_token":
+                v = torch.randn(p.shape, generator=g).clamp_(-2, 2) * 0.02
+            elif p.dim() == 1:
+                v = torch.ones(p.shape) if _is_norm_scale(model, name) else torch.zeros(p.shape)
+            else:
+                fan_in = int(np.prod(p.shape[1:]))
+                v = torch.randn(p.shape, generator=g) / np.sqrt(fan_in)
+            p.copy_(v.to(p.device))
+        for name, b in model.named_buffers():
+            if name.endswith("running_var"):
+                b.fill_(1.0)
+            elif name.endswith("running_mean") or name.endswith("num_batches_tracked"):
+                b.zero_()
+    return model
+
+
+def _is_norm_scale(model: nn.Module, name: str) -> bool:
+    mod_name, leaf = name.rsplit(".", 1)
+    mod = model.get_submodule(mod_name)
+    norms = (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm2d, FusedLayerNorm)
+    return leaf == "weight" and isinstance(mod, norms)
