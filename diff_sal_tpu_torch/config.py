@@ -7,9 +7,11 @@ configs also carry flags that pick a TPU lowering of the same function
 `fold_proj`, `stem_mode`, `pool_mode`, `skip_pool`, `attn_softmax`,
 `use_pallas_attention`, the decoder's `upembed_phase`, `pool_reduce`,
 `conv_wg_dots`, `head_lowres`, `fused_attn`, `fused_tail`): the port builds
-each function once and has none of them. Fields that only training or
-unported paths read (dropout, drop-path, dequantization, DPM-Solver
-settings) come with those paths.
+each function once and has none of them. The training step's fields
+(dequantization, losses, optimizer, dropout, drop-path, the train-time
+dead-frame cut, EMA) are here; fields that only unported paths read
+(DPM-Solver settings, the trainer's epochs and logging, the mesh) come
+with those paths.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ class DataTransformConfig:
     `cfgs/diffusion.yml:1-8`); the fields the inverse transform reads."""
 
     logit_transform: bool = False
+    uniform_dequantization: bool = False
+    gaussian_dequantization: bool = True
     rescaled: bool = False
 
 
@@ -35,6 +39,55 @@ class DiffusionConfig:
     beta_start: float = 0.0001
     beta_end: float = 0.02
     num_diffusion_timesteps: int = 1000
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Training-loss switches (reference `cfgs/diffusion.yml:39-51`); the
+    default is MSE only."""
+
+    loss_kl: bool = False
+    kl_weight: float = 1.0
+    loss_mse: bool = True
+    mse_weight: float = 1.0
+    loss_ce: bool = False
+    ce_weight: float = 1.0
+    loss_cc: bool = False
+    cc_weight: float = -0.1
+    loss_sim: bool = False
+    sim_weight: float = -0.1
+    loss_nss: bool = False
+    nss_weight: float = -0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Adam + MultiStepLR + global-norm clip (reference
+    `cfgs/diffusion.yml:53-60`, `util/utils.py:116-123`)."""
+
+    optimizer: str = "adam"
+    lr: float = 1e-4
+    beta1: float = 0.9
+    weight_decay: float = 0.0
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    # MultiStepLR milestones are fractions of total epochs: [0.5E, 0.75E], gamma 0.1
+    milestone_fracs: Tuple[float, ...] = (0.5, 0.75)
+    gamma: float = 0.1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainingConfig:
+    """Train-step knobs (reference `cfgs/diffusion.yml:30-37`)."""
+
+    batch_size: int = 48
+    training_target: str = "x0"  # "x0" | "noise"
+    # reference quirk: one shared scalar t per batch (diffusion_trainer.py:111-114)
+    shared_timestep_per_batch: bool = True
+    seed: int = 0
+    # parameter EMA, off as in the reference (cfgs/diffusion.yml:21)
+    ema: bool = False
+    ema_rate: float = 0.9999
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +159,7 @@ class AudioAttnConfig:
     heads: int = 2
     dim_head: int = 64
     mlp_dim: int = 256
+    dropout: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +188,10 @@ class SalUNetConfig:
     stride_kv: Tuple[int, ...] = (2, 4, 8, 16)
     audio_dim: int = 512
     noise_ch: int = 96
+    # ResnetBlock dropout of the noise encoder (train only)
+    dropout: float = 0.1
+    # DropPath on each stage's MLP branch (train only)
+    drop_path_rate: Tuple[float, ...] = (0.15, 0.15, 0.15, 0.15)
     # MLP activation: "tanh" (default) | "exact"
     gelu: str = "tanh"
     # skip the last stage's frames 5-8, which ReduceTemp never reads: exact
@@ -141,6 +199,9 @@ class SalUNetConfig:
     # cut frames 5-8 at every stage (eval): APPROXIMATE, the stage-1..3 av
     # gates then average 5 frames instead of 9 (JAX `config.py:373-389`)
     skip_dead_frames_all: bool = True
+    # apply the every-stage cut inside the training step too (JAX
+    # `config.py:390-404`): approximate in the same way, default on
+    skip_dead_frames_train: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +226,23 @@ class ModelConfig:
     def audio_visual(cls, **kw) -> "ModelConfig":
         return cls(visual=MViTConfig.small(), audio=VGGishConfig(),
                    spatiotemp=AudioAttnConfig(), **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentConfig:
+    """Everything one training or evaluation run reads."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig.visual_only)
+    data_transform: DataTransformConfig = dataclasses.field(default_factory=DataTransformConfig)
+    diffusion: DiffusionConfig = dataclasses.field(default_factory=DiffusionConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
+    sampling: SamplingConfig = dataclasses.field(default_factory=SamplingConfig)
+
+
+def audio_visual_experiment(**kw) -> ExperimentConfig:
+    return ExperimentConfig(model=ModelConfig.audio_visual(), **kw)
 
 
 def from_fields(obj):

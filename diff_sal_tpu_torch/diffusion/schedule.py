@@ -91,3 +91,16 @@ def make_schedule(beta_schedule: str = "cosine", beta_start: float = 0.0001,
         posterior_mean_coef1=t(betas * np.sqrt(alphas_hat) / (1.0 - alphas_hat)),
         posterior_mean_coef2=t((1.0 - alphas_hat_prev) * np.sqrt(alphas) / (1.0 - alphas_hat)),
     )
+
+
+def q_sample(schedule: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward noising x_t = sqrt(a-bar_t) x0 + sqrt(1 - a-bar_t) eps, for a
+    scalar or a (B,) t (JAX `schedule.py:130`; reference
+    diffusion_trainer.py:122-137)."""
+    dev = x_start.device
+    t = torch.as_tensor(t, device=dev).long()
+    shape = (-1,) + (1,) * (x_start.ndim - 1) if t.ndim else ()
+    a = schedule.sqrt_alphas_hat.to(dev)[t].reshape(shape)
+    b = schedule.sqrt_one_minus_alphas_hat.to(dev)[t].reshape(shape)
+    return a * x_start + b * noise

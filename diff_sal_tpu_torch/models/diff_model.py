@@ -3,9 +3,13 @@ audio path and the SalUNet denoiser (JAX package `models/diff_model.py`;
 reference `models/diff_model.py:8-114`).
 
 `encode_visual`, `encode_audio` and `denoise` are separate entry points,
-so a sampler encodes once and calls only the denoiser per step. Inputs are
-channel-last: rgb (B, 16, 224, 384, 3) float or uint8, audio (B, 9, 112,
-192, 1), x_t (B, 224, 384, 1), t (B,).
+so a sampler encodes once and calls only the denoiser per step; `forward`
+is the whole model, the counterpart of the JAX module's `__call__`, which
+the training step calls with `train=True`. Inputs are channel-last: rgb
+(B, 16, 224, 384, 3) float or uint8, audio (B, 9, 112, 192, 1), x_t (B,
+224, 384, 1), t (B,). The VGGish trunk is frozen: its parameters do not
+require grad and it runs under no_grad (JAX `diff_model.py:110` stops
+its gradient).
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ class VideoSaliencyModel(nn.Module):
             raise NotImplementedError("the visual=None random-pyramid mode is not ported yet")
         self.cfg = cfg
         self.visual_net = MViT(cfg.visual)
-        self.audio_net = VGGish(cfg.audio) if cfg.audio else None
+        self.audio_net = VGGish(cfg.audio).requires_grad_(False) if cfg.audio else None
         self.spatiotemp_net = AudioAttnNet(cfg.spatiotemp) if cfg.spatiotemp else None
         self.decoder_net = SalUNet(cfg.decoder, with_audio=cfg.audio is not None)
 
@@ -48,7 +52,8 @@ class VideoSaliencyModel(nn.Module):
             rgb = normalize_rgb_u8(rgb, stats=self.cfg.uint8_norm)
         return self.visual_net(rgb, self.compute_dtype)
 
-    def encode_audio(self, audio: torch.Tensor) -> torch.Tensor:
+    def encode_audio(self, audio: torch.Tensor, train: bool = False,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """audio (B, Ta, 112, 192, 1) -> (B, Ta, 7, 12, 512); the VGGish trunk
         is frozen."""
         B, Ta = audio.shape[:2]
@@ -56,18 +61,34 @@ class VideoSaliencyModel(nn.Module):
                                            self.compute_dtype)
         feat = feat.reshape((B, Ta) + tuple(feat.shape[1:]))
         if self.spatiotemp_net is not None:
-            feat = self.spatiotemp_net(feat, self.compute_dtype)
+            feat = self.spatiotemp_net(feat, self.compute_dtype, train, generator)
         return feat
 
     def denoise(self, x: torch.Tensor, t: torch.Tensor, feat_list: List[torch.Tensor],
-                audio_feat: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.decoder_net(x, t, feat_list, audio_feat, self.compute_dtype)
+                audio_feat: Optional[torch.Tensor] = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.decoder_net(x, t, feat_list, audio_feat, self.compute_dtype, train,
+                                generator)
+
+    def forward(self, data: dict, t: torch.Tensor, train: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """data {"rgb", "input": x_t[, "audio"]}, t (B,) -> the denoiser's
+        output (B, H, W, 1). `train` defaults to the module's training
+        mode; dropout and DropPath masks come from `generator`."""
+        train = self.training if train is None else train
+        audio_feat = None
+        if self.audio_net is not None and data.get("audio") is not None:
+            audio_feat = self.encode_audio(data["audio"], train, generator)
+        feat_list = self.encode_visual(data["rgb"])
+        return self.denoise(data["input"], t, feat_list, audio_feat, train, generator)
 
 
-def build_model(cfg: ModelConfig, seed: int = 0, device="cuda") -> VideoSaliencyModel:
-    """The model in eval mode with seeded random weights (`init_weights`),
-    on `device`: the card unless the caller asks for the CPU."""
-    return init_weights(VideoSaliencyModel(cfg), seed).eval().to(device)
+def build_model(cfg: ModelConfig, seed: int = 0, device="cuda",
+                train: bool = False) -> VideoSaliencyModel:
+    """The model with seeded random weights (`init_weights`) in eval mode,
+    or in train mode when asked, on `device`: the card unless the caller
+    asks for the CPU."""
+    return init_weights(VideoSaliencyModel(cfg), seed).train(train).to(device)
 
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:

@@ -4,6 +4,11 @@ Parameters live in float32 under the reference's torch names; the
 compute dtype `dt` (None = float32) is applied by explicit casts at each
 product, mirroring flax's `dtype=` policy: inputs and weights are cast to
 `dt`, the result stays in `dt`. Normalisation statistics are float32.
+
+Train mode (`train=True` at the call, as flax's `deterministic=False` /
+`use_running_average=False`): dropout and DropPath draw their masks from
+an explicit `torch.Generator` (or take given masks), BatchNorm uses batch
+statistics and updates its running ones as flax does.
 """
 
 from __future__ import annotations
@@ -16,11 +21,48 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from diff_sal_tpu_torch.ops import layernorm as ln_ops
+from diff_sal_tpu_torch.ops.kernels import acc_dtype
 from diff_sal_tpu_torch.ops.mlp import gelu
 from diff_sal_tpu_torch.ops import resize as resize_ops
 
 Dtype = Optional[torch.dtype]
 Pad = Union[int, Sequence[Tuple[int, int]]]
+
+
+def uniform(shape, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """U[0, 1) of `shape` in f32 from `generator` (the default generator if
+    None), on x's device."""
+    dev = generator.device if generator is not None else x.device
+    return torch.rand(shape, generator=generator, device=dev).to(x.device)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None,
+            keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """flax `nn.Dropout`: where(keep, x / (1 - rate), 0) with keep ~
+    Bernoulli(1 - rate) per element (or the given boolean `keep`);
+    identity at eval or rate 0."""
+    if not train or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    if keep is None:
+        keep = uniform(x.shape, x, generator) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def drop_path(x: torch.Tensor, rate: float, train: bool,
+              generator: Optional[torch.Generator] = None,
+              mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Stochastic depth on the leading axis, timm semantics (JAX
+    `layers.py:50-59`): mask = floor(keep + U) in x's dtype, x / keep *
+    mask; `mask` replaces the draw when given. Identity at eval or rate 0."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    if mask is None:
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.floor(keep + uniform(shape, x, generator).to(x.dtype))
+    return x / keep * mask
 
 
 def _dt(x: torch.Tensor, w: torch.Tensor, dt: Dtype) -> torch.dtype:
@@ -87,9 +129,10 @@ def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
     """Sinusoidal embedding, freq_i = exp(-ln(10000) * i / (half - 1)),
     output [sin | cos] (reference sal_unet.py:15-33)."""
     half = dim // 2
+    f = acc_dtype(t.dtype)
     freqs = torch.exp(-math.log(10000.0)
-                      * torch.arange(half, dtype=torch.float32, device=t.device) / (half - 1))
-    args = t.float()[:, None] * freqs[None, :]
+                      * torch.arange(half, dtype=f, device=t.device) / (half - 1))
+    args = t.to(f)[:, None] * freqs[None, :]
     emb = torch.cat([torch.sin(args), torch.cos(args)], dim=1)
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
@@ -120,7 +163,7 @@ class GroupNorm(nn.GroupNorm):
     def forward(self, x: torch.Tensor, dt: Dtype = None) -> torch.Tensor:
         d = dt or x.dtype
         B, C = x.shape[0], x.shape[-1]
-        xf = x.float().reshape(B, -1, self.num_groups, C // self.num_groups)
+        xf = x.to(acc_dtype(x.dtype)).reshape(B, -1, self.num_groups, C // self.num_groups)
         mean = xf.mean(dim=(1, 3), keepdim=True)
         var = xf.var(dim=(1, 3), unbiased=False, keepdim=True)
         y = ((xf - mean) * torch.rsqrt(var + self.eps)).reshape(x.shape)
@@ -128,30 +171,52 @@ class GroupNorm(nn.GroupNorm):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """BatchNorm in eval mode (running statistics) on channel-last input;
-    torch's BatchNorm2d names and buffers, f32 math, output in `dt`."""
+    """BatchNorm on channel-last input with torch's BatchNorm2d names and
+    buffers, f32 math, output in `dt`. At eval it normalizes with the
+    running statistics. With `train=True` it normalizes with the batch's
+    mean and biased variance (E[x^2] - mean^2, clamped at 0, as flax's
+    fast variance) and updates the running ones as flax does, ra = 0.9 ra
+    + 0.1 batch, with the biased variance (torch's own update uses the
+    unbiased one, so `F.batch_norm` is not used). `num_batches_tracked` is
+    left as loaded."""
+
+    MOMENTUM = 0.9  # flax's `momentum`: the weight of the running value
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__(channels, eps=eps)
 
-    def forward(self, x: torch.Tensor, dt: Dtype = None) -> torch.Tensor:
-        a = self.weight * torch.rsqrt(self.running_var + self.eps)
-        y = (x.float() - self.running_mean) * a + self.bias
+    def forward(self, x: torch.Tensor, dt: Dtype = None, train: bool = False) -> torch.Tensor:
+        xf = x.to(acc_dtype(x.dtype))
+        if not train:
+            a = self.weight * torch.rsqrt(self.running_var + self.eps)
+            return ((xf - self.running_mean) * a + self.bias).to(dt or x.dtype)
+        dims = tuple(range(x.ndim - 1))
+        mean = xf.mean(dims)
+        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(dt or x.dtype)
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2 on the last axis (dropout is identity at eval)."""
+    """fc1 -> GELU -> dropout -> fc2 -> dropout on the last axis (dropout
+    only with `train=True`)."""
 
     def __init__(self, dim: int, hidden: int, out: Optional[int] = None,
-                 act: str = "tanh"):
+                 act: str = "tanh", dropout: float = 0.0):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, out or dim)
         self.act = act
+        self.dropout = dropout
 
-    def forward(self, x: torch.Tensor, dt: Dtype = None) -> torch.Tensor:
-        return dense(gelu(dense(x, self.fc1, dt), self.act), self.fc2, dt)
+    def forward(self, x: torch.Tensor, dt: Dtype = None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = dropout(gelu(dense(x, self.fc1, dt), self.act), self.dropout, train, generator)
+        return dropout(dense(h, self.fc2, dt), self.dropout, train, generator)
 
 
 class ConvBNRelu(nn.Sequential):
@@ -162,11 +227,11 @@ class ConvBNRelu(nn.Sequential):
     def __init__(self, cin: int, cout: int):
         super().__init__(nn.Conv2d(cin, cout, 3, padding=1), BatchNorm(cout))
 
-    def forward(self, tasks, out_hw, dt: Dtype = None):
+    def forward(self, tasks, out_hw, dt: Dtype = None, train: bool = False):
         x = resize_ops.bilinear_resize_sum([t.contiguous() for t in tasks], out_hw)
         conv, bn = self[0], self[1]
         y = conv2d(x, conv.weight, conv.bias, dt, padding=1)
-        return torch.relu(bn(y, dt))
+        return torch.relu(bn(y, dt, train))
 
 
 class MLPHead(nn.Module):
@@ -177,5 +242,5 @@ class MLPHead(nn.Module):
         self.linear_pred = nn.Conv2d(cin, num_classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        p = self.linear_pred
-        return torch.sigmoid(conv2d(x.float(), p.weight, p.bias, torch.float32))
+        p, f = self.linear_pred, acc_dtype(x.dtype)
+        return torch.sigmoid(conv2d(x.to(f), p.weight, p.bias, f))

@@ -29,6 +29,7 @@ from diff_sal_tpu_torch.models.layers import (Dtype, FusedLayerNorm, Mlp, conv3d
                                               dense)
 from diff_sal_tpu_torch.ops import attention as attn_ops
 from diff_sal_tpu_torch.ops import layernorm as ln_ops
+from diff_sal_tpu_torch.ops.kernels import acc_dtype
 from diff_sal_tpu_torch.ops.rel_pos import rel_pos_terms
 
 
@@ -156,8 +157,8 @@ class MultiScaleAttention(nn.Module):
         # no residual (reference mvit.py:640-644)
         k4 = k2.reshape(B, -1, H, hd)
         v4 = v2.reshape(B, -1, H, hd)
-        cs = torch.einsum("bqhd,bkhd->bhqk", (cq.reshape(B, 1, H, hd) * scale).float(),
-                          k4.float())
+        f = acc_dtype(k4.dtype)
+        cs = torch.einsum("bqhd,bkhd->bhqk", (cq.reshape(B, 1, H, hd) * scale).to(f), k4.to(f))
         cp = torch.softmax(cs, dim=-1).to(d)
         out_cls = torch.einsum("bhqk,bkhd->bqhd", cp, v4).reshape(B, 1, C)
         return dense(out, self.proj, d), dense(out_cls, self.proj, d), q_shape

@@ -4,7 +4,11 @@
 Noise-pyramid encoder, four CvT transformer stages with gated audio-video
 cross-attention, temporal reduction, multi-scale resize-and-sum (kernel
 K4) and sigmoid head. At eval every TransformerBlock tail runs through
-kernel K3 and every LayerNorm through K2. Parameter names are the
+kernel K3 and every LayerNorm through K2. With `train=True` (the training
+step) the tail takes the module path with DropPath instead of K3, the
+noise encoder's ResnetBlocks apply dropout, the UpEmbed and `mt_proj`
+BatchNorms use batch statistics, and the dead-frame cut follows
+`skip_dead_frames_train`; random masks come from the `generator` given. Parameter names are the
 reference's (`temb.dense`, `conv_in`, `down1`, `res_encoder`,
 `invpt_decoder.{mid_stages,norm_mts,redu_chan_up,mt_proj}`, `logits`).
 
@@ -32,8 +36,8 @@ import torch.nn as nn
 from diff_sal_tpu_torch.config import SalUNetConfig
 from diff_sal_tpu_torch.models.layers import (BatchNorm, ConvBNRelu, Dtype,
                                               FusedLayerNorm, GroupNorm, MLPHead,
-                                              Mlp, conv2d, conv3d, dense,
-                                              timestep_embedding)
+                                              Mlp, conv2d, conv3d, dense, drop_path,
+                                              dropout, timestep_embedding)
 from diff_sal_tpu_torch.ops import mlp as mlp_ops
 from diff_sal_tpu_torch.ops.resize import bilinear_resize, nearest_upsample
 
@@ -53,10 +57,11 @@ class TimestepMLP(nn.Module):
 
 class ResnetBlock(nn.Module):
     """DDPM resnet block with timestep conditioning (reference
-    sal_unet.py:87-142); dropout is identity at eval."""
+    sal_unet.py:87-142); dropout before conv2 when training."""
 
-    def __init__(self, cin: int, cout: int, temb_ch: int):
+    def __init__(self, cin: int, cout: int, temb_ch: int, rate: float = 0.0):
         super().__init__()
+        self.rate = rate
         self.norm1 = GroupNorm(cin)
         self.conv1 = nn.Conv2d(cin, cout, 3, padding=1)
         self.temb_proj = nn.Linear(temb_ch, cout)
@@ -64,12 +69,13 @@ class ResnetBlock(nn.Module):
         self.conv2 = nn.Conv2d(cout, cout, 3, padding=1)
         self.nin_shortcut = nn.Conv2d(cin, cout, 1) if cin != cout else None
 
-    def forward(self, x, temb, dt: Dtype = None):
+    def forward(self, x, temb, dt: Dtype = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         silu = torch.nn.functional.silu
         h = silu(self.norm1(x, dt))
         h = conv2d(h, self.conv1.weight, self.conv1.bias, dt, padding=1)
         h = h + dense(silu(temb), self.temb_proj, dt)[:, None, None, :].to(h.dtype)
-        h = silu(self.norm2(h, dt))
+        h = dropout(silu(self.norm2(h, dt)), self.rate, train, generator)
         h = conv2d(h, self.conv2.weight, self.conv2.bias, dt, padding=1)
         if self.nin_shortcut is not None:
             x = conv2d(x, self.nin_shortcut.weight, self.nin_shortcut.bias, dt)
@@ -89,8 +95,8 @@ class Downsample(nn.Module):
 
 
 class _ResDown(nn.ModuleList):
-    def __init__(self, cin: int, cout: int, temb_ch: int):
-        super().__init__([ResnetBlock(cin, cout, temb_ch), Downsample(cout)])
+    def __init__(self, cin: int, cout: int, temb_ch: int, rate: float):
+        super().__init__([ResnetBlock(cin, cout, temb_ch, rate), Downsample(cout)])
 
 
 class CvTAttention(nn.Module):
@@ -151,19 +157,23 @@ def scrambled_audio_tokens(ac: torch.Tensor) -> torch.Tensor:
 class TransformerBlock(nn.Module):
     """Gated audio-video fusion + CvT attention + MLP (reference
     transformer.py:76-159). At eval the tail (residual, norm2, MLP,
-    residual) is one K3 launch."""
+    residual) is one K3 launch; training takes the module path, with
+    DropPath on the MLP branch."""
 
     def __init__(self, C: int, num_heads: int, mlp_ratio: float, kernel_kv: int,
-                 stride_kv: int, audio_dim: Optional[int], act: str):
+                 stride_kv: int, audio_dim: Optional[int], act: str,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.act = act
+        self.drop_path_rate = drop_path_rate
         self.align_conv = nn.Conv2d(audio_dim, C, 1) if audio_dim else None
         self.norm = FusedLayerNorm(C)
         self.attn = CvTAttention(C, num_heads, kernel_kv, stride_kv)
         self.norm2 = FusedLayerNorm(C)
         self.mlp = Mlp(C, int(C * mlp_ratio), act=act)
 
-    def forward(self, x, audio, keep_frames: Optional[int] = None, dt: Dtype = None):
+    def forward(self, x, audio, keep_frames: Optional[int] = None, dt: Dtype = None,
+                train: bool = False, generator: Optional[torch.Generator] = None):
         B, T, H, W, C = x.shape
         audio_tokens = None
         if audio is not None:
@@ -187,6 +197,12 @@ class TransformerBlock(nn.Module):
                 audio_tokens = audio_tokens.reshape(B, -1, H * W, C)[:, :T].reshape(B * T, H * W, C)
         tokens = x.reshape(B * T, H * W, C)
         attn_out = self.attn(self.norm(tokens), (H, W), audio_tokens, dt)
+        if train:
+            tokens = attn_out + tokens
+            h = self.mlp(self.norm2(tokens).reshape(-1, C), dt, train, generator)
+            tokens = tokens + drop_path(h.reshape(tokens.shape), self.drop_path_rate, train,
+                                        generator)
+            return tokens.reshape(B, T, H, W, C)
         d = attn_out.dtype
         m = self.mlp
         out = mlp_ops.block_tail(
@@ -212,13 +228,13 @@ class UpEmbed(nn.Module):
             BatchNorm(C), nn.ReLU(),
         )
 
-    def forward(self, x, dt: Dtype = None):
+    def forward(self, x, dt: Dtype = None, train: bool = False):
         B, T, H, W, C = x.shape
         f = bilinear_resize(x.reshape(B * T, H, W, C), (2 * H, 2 * W))
         for ci, bi in ((1, 2), (4, 5)):
             conv = self.proj[ci]
             f = conv2d(f, conv.weight, None, dt, padding=self.dilation, dilation=self.dilation)
-            f = torch.relu(self.proj[bi](f, dt))
+            f = torch.relu(self.proj[bi](f, dt, train))
         return f.reshape(B, T, 2 * H, 2 * W, -1)
 
 
@@ -249,14 +265,16 @@ class TransformerStage(nn.Module):
         self.blocks = nn.ModuleList([TransformerBlock(
             C, cfg.num_heads[idx], cfg.mlp_ratio[idx], cfg.kernel_kv[idx],
             cfg.stride_kv[idx], cfg.audio_dim if with_audio else None, cfg.gelu,
+            cfg.drop_path_rate[idx],
         )])
 
-    def forward(self, x, back_fea, audio, keep_frames, dt: Dtype = None):
+    def forward(self, x, back_fea, audio, keep_frames, dt: Dtype = None, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         if self.patch_embed is not None:
-            x = self.patch_embed[0](x, dt)
+            x = self.patch_embed[0](x, dt, train)
             if self.idx in (1, 2):  # reference transformer.py:265-270
                 x = x + back_fea[self.idx][:, : x.shape[1]]
-        return self.blocks[0](x, audio, keep_frames, dt)
+        return self.blocks[0](x, audio, keep_frames, dt, train, generator)
 
 
 class Decoder(nn.Module):
@@ -277,24 +295,30 @@ class Decoder(nn.Module):
         ])
         self.mt_proj = ConvBNRelu(cfg.ori_embed_dim, cfg.down_embed_dim)
 
-    def keep_frames(self, i: int) -> Optional[int]:
+    def keep_frames(self, i: int, train: bool = False) -> Optional[int]:
+        """Frames kept at stage i (JAX `sal_unet.py:639-650`): the last
+        stage's cut is exact; the every-stage cut applies at eval, and when
+        training only with `skip_dead_frames_train`."""
         cfg = self.cfg
         last = i == cfg.mid_num_stages - 1
-        if cfg.skip_dead_frames and (last or cfg.skip_dead_frames_all):
+        every = cfg.skip_dead_frames_all and (not train or cfg.skip_dead_frames_train)
+        if cfg.skip_dead_frames and (last or every):
             return cfg.temporal_list[i]
         return None
 
-    def forward(self, back_fea: Sequence[torch.Tensor], audio, dt: Dtype = None):
+    def forward(self, back_fea: Sequence[torch.Tensor], audio, dt: Dtype = None,
+                train: bool = False, generator: Optional[torch.Generator] = None):
         x = back_fea[0]
         n = self.cfg.mid_num_stages
         h, w = x.shape[2], x.shape[3]
         out_hw = (h * 2 ** (n - 1) * 2, w * 2 ** (n - 1) * 2)
         tasks = []
         for i in range(n):
-            x = self.mid_stages[i](x, back_fea, audio, self.keep_frames(i), dt)
+            x = self.mid_stages[i](x, back_fea, audio, self.keep_frames(i, train), dt, train,
+                                   generator)
             task = self.redu_chan_up[i](self.norm_mts[i](x), dt)
             tasks.append(task[:, 0])
-        return self.mt_proj(tasks, out_hw, dt)
+        return self.mt_proj(tasks, out_hw, dt, train)
 
 
 class SalUNet(nn.Module):
@@ -311,30 +335,32 @@ class SalUNet(nn.Module):
         self.down1 = Downsample(ch, stride=4)
         chans = [ch] + list(reversed(cfg.up_channel[:-1]))
         self.res_encoder = nn.ModuleList([
-            _ResDown(chans[i], chans[i + 1], 4 * ch) for i in range(len(chans) - 1)
+            _ResDown(chans[i], chans[i + 1], 4 * ch, cfg.dropout) for i in range(len(chans) - 1)
         ])
         self.invpt_decoder = Decoder(cfg, with_audio)
         self.logits = MLPHead(cfg.down_embed_dim, 1)
 
-    def noise_pyramid(self, x, temb, dt: Dtype = None) -> List[torch.Tensor]:
+    def noise_pyramid(self, x, temb, dt: Dtype = None, train: bool = False,
+                      generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         """x_t -> coarse-first noisy pyramid (reference sal_unet.py:240-300)."""
         h = conv2d(x, self.conv_in.weight, self.conv_in.bias, dt, padding=1)
         h = self.down1(h, dt)
         outs = []
         for res, down in self.res_encoder:
-            h = down(res(h, temb, dt), dt)
+            h = down(res(h, temb, dt, train, generator), dt)
             outs.append(h[:, None])
         return outs[::-1]
 
     def forward(self, x, t, feat_list: Sequence[torch.Tensor],
-                audio_feat: Optional[torch.Tensor] = None, dt: Dtype = None):
+                audio_feat: Optional[torch.Tensor] = None, dt: Dtype = None,
+                train: bool = False, generator: Optional[torch.Generator] = None):
         temb = self.temb(t)
-        noisy = self.noise_pyramid(x, temb, dt)
+        noisy = self.noise_pyramid(x, temb, dt, train, generator)
         feats = list(feat_list)
         if self.cfg.image_based:
             for i in range(min(len(noisy), len(feats))):
                 if feats[i].shape[2:4] == noisy[i].shape[2:4]:
                     feats[i] = torch.cat([feats[i], noisy[i].to(feats[i].dtype)], dim=1)
-        pred = self.invpt_decoder(feats, audio_feat, dt)
-        pred = self.logits(pred.float())
+        pred = self.invpt_decoder(feats, audio_feat, dt, train, generator)
+        pred = self.logits(pred)
         return bilinear_resize(pred, tuple(self.cfg.img_size))

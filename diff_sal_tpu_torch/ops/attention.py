@@ -1,7 +1,8 @@
-"""Kernel K1: pooled attention with the decomposed (T, H, W) rel-pos bias
-and residual pooling, for MViT's spatial query rows.
+"""Kernels K1 and K5: pooled attention with the decomposed (T, H, W)
+rel-pos bias and residual pooling, for MViT's spatial query rows, and its
+backward.
 
-Replaces the TPU kernel `diff_sal_tpu/ops/attention.py:601
+K1 replaces the TPU kernel `diff_sal_tpu/ops/attention.py:601
 fused_bias_attention_v2` (body `_attn_v2_kernel` :477). Per head:
 
     out = softmax(q k^T * scale + bias) v  (+ q when `residual`)
@@ -23,6 +24,26 @@ f32 accumulation); the softmax is online in f32, the bias comes from
 index math on each key's (t, h, w) and key columns past Lk are masked.
 The (Lq, Lk) score matrix never reaches device memory. head_dim is 96
 at every MViT stage: it is a multiple of 16, so no padding is needed.
+
+K5 replaces the TPU kernel `diff_sal_tpu/ops/attention.py:761 _fba2_bwd`
+(body `_attn_v2_bwd_kernel` :697): dq, dk, dv and drel of K1 from the
+output gradient g. It recomputes the probabilities (the score matrix is
+never stored) and is bound by operations: five (Lq, Lk, D) products per
+head, ~10*Lq*Lk*D flops. The kernel (`csrc/attention_bwd.cu`) has two
+parts. A q-major kernel, one CTA per (batch, head, 64 query rows), walks
+the key tiles three times: the row logsumexp, then delta = rowsum(dp * p),
+then ds, accumulating dq in WMMA fragments and drel as a product of ds
+with the tile's one-hot (key -> t, h, w) matrix, as the TPU kernel does
+(ds as bf16 hi + lo parts, f32 accumulation); it writes dq and drel once
+and leaves logsumexp and delta for the second part. A k-major kernel, one CTA per (batch, head, 64 keys, q split),
+walks its split of the query tiles and accumulates dk and dv in
+registers; the splits (enough CTAs to fill the card where Lk is small)
+go to an f32 workspace and a third small kernel sums them in a fixed
+order, so no atomics touch device memory and results are deterministic.
+
+`bias_attention` is differentiable: on either device it is an autograd
+Function whose forward is K1 (plain on the CPU) and whose backward is K5
+(plain on the CPU).
 """
 
 from __future__ import annotations
@@ -39,9 +60,18 @@ KERNEL = K.Kernel(
     replaces="diff_sal_tpu/ops/attention.py:601 fused_bias_attention_v2 "
              "(_attn_v2_kernel :477)",
 )
+BWD_KERNEL = K.Kernel(
+    "bias_attention_bwd", "attention_bwd.cu", "dsal_bias_attention_bwd",
+    [K.P] * 12 + [K.I] * 9 + [K.F, K.F, K.I, K.P],
+    replaces="diff_sal_tpu/ops/attention.py:761 _fba2_bwd "
+             "(_attn_v2_bwd_kernel :697)",
+)
 
 HEAD_DIMS = (64, 96, 128)
 MAX_REL = 256
+MAX_REL_BWD = 128
+BWD_BLOCK = 64        # rows per CTA and keys per tile of K5
+BWD_TARGET_CTAS = 264  # two waves of 132 SMs for the k-major part of K5
 
 
 def _shapes(q, k, rel, k_shape, num_heads):
@@ -58,6 +88,21 @@ def _shapes(q, k, rel, k_shape, num_heads):
     return B, Lq, H, D, k.shape[1]
 
 
+def _probs(q, k, rel, k_shape, H, scale):
+    """Softmax probabilities (B, H, Lq, Lk) of the biased scores in the
+    accumulation dtype, q*scale rounded in q's dtype first."""
+    B, Lq, _, D, Lk = _shapes(q, k, rel, k_shape, H)
+    kt, kh, kw = k_shape
+    f = K.acc_dtype(q.dtype)
+    qs = q.reshape(B, Lq, H, D) * torch.tensor(scale, dtype=q.dtype)
+    scores = torch.einsum("blhd,bkhd->bhlk", qs.to(f), k.reshape(B, Lk, H, D).to(f))
+    r = rel.to(f)
+    bias = (r[..., :kt, None, None] + r[..., None, kt:kt + kh, None]
+            + r[..., None, None, kt + kh:]).reshape(B, Lq, H, kt * kh * kw)
+    bias = torch.nn.functional.pad(bias, (1, 0))  # zero bias for the cls key
+    return torch.softmax(scores + bias.permute(0, 2, 1, 3), dim=-1)
+
+
 def bias_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          rel: torch.Tensor, k_shape: Tuple[int, int, int],
                          num_heads: int, scale: float,
@@ -67,40 +112,72 @@ def bias_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     product with v, f32 accumulation, residual added before the final
     rounding."""
     B, Lq, H, D, Lk = _shapes(q, k, rel, k_shape, num_heads)
-    kt, kh, kw = k_shape
-    qs = q.reshape(B, Lq, H, D) * torch.tensor(scale, dtype=q.dtype)
-    scores = torch.einsum("blhd,bkhd->bhlk", qs.float(),
-                          k.reshape(B, Lk, H, D).float())
-    r = rel.float()
-    bias = (r[..., :kt, None, None] + r[..., None, kt:kt + kh, None]
-            + r[..., None, None, kt + kh:]).reshape(B, Lq, H, kt * kh * kw)
-    bias = torch.nn.functional.pad(bias, (1, 0))  # zero bias for the cls key
-    probs = torch.softmax(scores + bias.permute(0, 2, 1, 3), dim=-1)
-    out = torch.einsum("bhlk,bkhd->blhd", probs.to(q.dtype).float(),
-                       v.reshape(B, Lk, H, D).float()).reshape(B, Lq, H * D)
+    f = K.acc_dtype(q.dtype)
+    probs = _probs(q, k, rel, k_shape, H, scale)
+    out = torch.einsum("bhlk,bkhd->blhd", probs.to(q.dtype).to(f),
+                       v.reshape(B, Lk, H, D).to(f)).reshape(B, Lq, H * D)
     if residual:
-        out = out + q.float()
+        out = out + q.to(f)
     return out.to(q.dtype)
 
 
-def bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   rel: torch.Tensor, k_shape: Tuple[int, int, int],
-                   num_heads: int, scale: float,
-                   residual: bool = True) -> torch.Tensor:
-    """Kernel K1 on CUDA (bf16 only), the plain version on the CPU."""
+def bias_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             rel: torch.Tensor, g: torch.Tensor,
+                             k_shape: Tuple[int, int, int], num_heads: int,
+                             scale: float, residual: bool = True):
+    """K5's plain version: (dq, dk, dv, drel) of K1 for the output gradient
+    g, rounding where the TPU kernel rounds: probabilities recomputed in
+    f32, p rounded to q's dtype for dv, ds = p * (dp - rowsum(dp * p)) in
+    f32 and rounded for dq and dk, f32 accumulation, dq scaled by `scale`
+    (plus g when `residual`), drel = ds summed over the keys sharing each
+    t, h and w (the cls key left out) in f32; every output in its input's
+    dtype."""
+    B, Lq, H, D, Lk = _shapes(q, k, rel, k_shape, num_heads)
+    kt, kh, kw = k_shape
+    dt, f = q.dtype, K.acc_dtype(q.dtype)
+    p = _probs(q, k, rel, k_shape, H, scale)
+    g4 = g.reshape(B, Lq, H, D).to(f)
+    k4 = k.reshape(B, Lk, H, D).to(f)
+    dv = torch.einsum("bhlk,blhd->bkhd", p.to(dt).to(f), g4)
+    dp = torch.einsum("blhd,bkhd->bhlk", g4, v.reshape(B, Lk, H, D).to(f))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds_lo = ds.to(dt).to(f)
+    dq = torch.einsum("bhlk,bkhd->blhd", ds_lo, k4) * scale
+    if residual:
+        dq = dq + g4
+    dk = torch.einsum("bhlk,blhd->bkhd", ds_lo, q.reshape(B, Lq, H, D).to(f)) * scale
+    d5 = ds[..., 1:].reshape(B, H, Lq, kt, kh, kw)
+    drel = torch.cat([d5.sum((4, 5)), d5.sum((3, 5)), d5.sum((3, 4))], dim=-1)
+    return (dq.reshape(B, Lq, H * D).to(dt), dk.reshape(B, Lk, H * D).to(k.dtype),
+            dv.reshape(B, Lk, H * D).to(v.dtype), drel.permute(0, 2, 1, 3).to(rel.dtype))
+
+
+def _check_cuda_inputs(name, q, k, v, rel, k_shape, num_heads, max_rel, extra=()):
+    B, Lq, H, D, Lk = _shapes(q, k, rel, k_shape, num_heads)
+    kt, kh, kw = k_shape
+    for what, t in (("q", q), ("k", k), ("v", v), ("rel", rel)) + tuple(extra):
+        K.check(t.dtype == torch.bfloat16, f"{name}: {what} must be bf16, got {t.dtype}")
+        K.check(t.device == q.device and t.is_contiguous() and t.data_ptr() % 16 == 0,
+                f"{name}: {what} must be contiguous, 16-byte aligned, on {q.device}")
+    K.check(tuple(v.shape) == tuple(k.shape), f"{name}: v shape != k shape")
+    K.check(k.shape[0] == B, f"{name}: batch mismatch")
+    K.check(D in HEAD_DIMS, f"{name}: head_dim {D} not in {HEAD_DIMS}")
+    K.check(kt + kh + kw <= max_rel, f"{name}: kt+kh+kw > {max_rel}")
+    return B, Lq, H, D, Lk
+
+
+def bias_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       rel: torch.Tensor, k_shape: Tuple[int, int, int],
+                       num_heads: int, scale: float,
+                       residual: bool = True) -> torch.Tensor:
+    """Kernel K1 on CUDA (bf16 only), the plain version on the CPU; no
+    autograd."""
     if q.device.type == "cpu":
         return bias_attention_plain(q, k, v, rel, k_shape, num_heads, scale, residual)
     K.require_cuda(q, "bias_attention")
-    B, Lq, H, D, Lk = _shapes(q, k, rel, k_shape, num_heads)
+    B, Lq, H, D, Lk = _check_cuda_inputs("bias_attention", q, k, v, rel, k_shape,
+                                         num_heads, MAX_REL)
     kt, kh, kw = k_shape
-    for name, t in (("q", q), ("k", k), ("v", v), ("rel", rel)):
-        K.check(t.dtype == torch.bfloat16, f"bias_attention: {name} must be bf16, got {t.dtype}")
-        K.check(t.device == q.device and t.is_contiguous() and t.data_ptr() % 16 == 0,
-                f"bias_attention: {name} must be contiguous, 16-byte aligned, on {q.device}")
-    K.check(tuple(v.shape) == tuple(k.shape), "bias_attention: v shape != k shape")
-    K.check(k.shape[0] == B, "bias_attention: batch mismatch")
-    K.check(D in HEAD_DIMS, f"bias_attention: head_dim {D} not in {HEAD_DIMS}")
-    K.check(kt + kh + kw <= MAX_REL, f"bias_attention: kt+kh+kw > {MAX_REL}")
     out = torch.empty_like(q)
     # q * scale is rounded in q's dtype, with the scale itself in that dtype,
     # as the TPU kernel computes it
@@ -110,3 +187,64 @@ def bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         B, Lq, Lk, H, D, kt, kh, kw, scale_q, int(residual), K.stream(),
     )
     return out
+
+
+def bwd_splits(B: int, H: int, Lq: int, Lk: int) -> int:
+    """Number of query splits of K5's k-major part: enough CTAs for two
+    waves on the card, at most one query tile per split."""
+    ctas = B * H * -(-Lk // BWD_BLOCK)
+    return max(1, min(-(-BWD_TARGET_CTAS // ctas), -(-Lq // BWD_BLOCK)))
+
+
+def bias_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       rel: torch.Tensor, g: torch.Tensor,
+                       k_shape: Tuple[int, int, int], num_heads: int,
+                       scale: float, residual: bool = True):
+    """(dq, dk, dv, drel) of K1: kernel K5 on CUDA (bf16 only), the plain
+    version on the CPU."""
+    if q.device.type == "cpu":
+        return bias_attention_bwd_plain(q, k, v, rel, g, k_shape, num_heads, scale, residual)
+    K.require_cuda(q, "bias_attention_bwd")
+    B, Lq, H, D, Lk = _check_cuda_inputs("bias_attention_bwd", q, k, v, rel, k_shape,
+                                         num_heads, MAX_REL_BWD, (("g", g),))
+    K.check(tuple(g.shape) == tuple(q.shape), "bias_attention_bwd: g shape != q shape")
+    kt, kh, kw = k_shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq, drel = torch.empty_like(q), torch.empty_like(rel)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty((B, H, Lq), **f32)
+    delta = torch.empty((B, H, Lq), **f32)
+    splits = bwd_splits(B, H, Lq, Lk)
+    work = torch.empty((2, splits) + tuple(k.shape), **f32)
+    scale_q = float(torch.tensor(scale, dtype=q.dtype))
+    BWD_KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), drel.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), work.data_ptr(),
+        B, Lq, Lk, H, D, kt, kh, kw, splits, scale_q, float(scale), int(residual),
+        K.stream(),
+    )
+    return dq, dk, dv, drel
+
+
+class _BiasAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, rel, k_shape, num_heads, scale, residual):
+        ctx.save_for_backward(q, k, v, rel)
+        ctx.args = (k_shape, num_heads, scale, residual)
+        return bias_attention_fwd(q, k, v, rel, k_shape, num_heads, scale, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, rel = ctx.saved_tensors
+        grads = bias_attention_bwd(q, k, v, rel, g.contiguous(), *ctx.args)
+        return grads + (None, None, None, None)
+
+
+def bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   rel: torch.Tensor, k_shape: Tuple[int, int, int],
+                   num_heads: int, scale: float,
+                   residual: bool = True) -> torch.Tensor:
+    """K1 forward, K5 backward (plain versions on the CPU): the autograd
+    Function records its backward whenever an input requires grad."""
+    return _BiasAttention.apply(q, k, v, rel, tuple(k_shape), num_heads, scale, residual)

@@ -151,8 +151,9 @@ def registry() -> Dict[str, Kernel]:
     """Every kernel of the port, by name."""
     from diff_sal_tpu_torch.ops import attention, layernorm, mlp, resize
 
-    return {k.name: k for k in (attention.KERNEL, layernorm.KERNEL,
-                                mlp.KERNEL, resize.KERNEL)}
+    return {k.name: k for k in (attention.KERNEL, layernorm.KERNEL, mlp.KERNEL,
+                                resize.KERNEL, attention.BWD_KERNEL,
+                                layernorm.BWD_KERNEL)}
 
 
 def build_all() -> Dict[str, float]:
@@ -175,6 +176,13 @@ def reset_launch_counts():
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in registry().items()}
+
+
+def acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """The dtype the plain versions and the models' f32 islands accumulate
+    in: f32, or f64 for f64 inputs (gradient checks, and a whole step run
+    in f64 as the reference for f32 rounding)."""
+    return torch.float64 if dt == torch.float64 else torch.float32
 
 
 def require_cuda(t: torch.Tensor, what: str):

@@ -17,6 +17,12 @@ fragments held in registers (the (R, Hd) hidden never reaches device
 memory). The weights are read from L2 by every CTA rather than held
 resident; the TPU kernel's "weights too big" fallback has no counterpart
 here, since one kernel serves all four decoder widths (C = 96..768).
+
+K3 has no backward, in the JAX package or here: the decoder takes it only
+at eval (JAX `sal_unet.py:387-391`, `fused_tail and not train`) and runs
+the module path when training. `block_tail` raises when grad mode is on
+and an input requires grad, rather than return a result that silently
+has no gradient.
 """
 
 from __future__ import annotations
@@ -69,6 +75,10 @@ def block_tail(skip: torch.Tensor, attn: torch.Tensor, ln_w: torch.Tensor,
     weights), the plain version on the CPU."""
     if act_mode not in ACT_MODES:
         raise ValueError(f"unknown activation mode {act_mode!r}")
+    args = (skip, attn, ln_w, ln_b, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        raise RuntimeError("block_tail (kernel K3) is eval-only and has no backward; "
+                           "call it under torch.no_grad() or take the module path")
     if skip.device.type == "cpu":
         return block_tail_plain(skip, attn, ln_w, ln_b, w1, b1, w2, b2, eps, act_mode)
     K.require_cuda(skip, "block_tail")

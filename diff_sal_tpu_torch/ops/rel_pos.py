@@ -16,6 +16,7 @@ import functools
 import numpy as np
 import torch
 
+from diff_sal_tpu_torch.ops.kernels import acc_dtype
 from diff_sal_tpu_torch.ops.resize import _linear_weights
 
 
@@ -34,9 +35,9 @@ def _rel_coords(q_size: int, k_size: int) -> np.ndarray:
 def resize_rel_pos(rel_pos: torch.Tensor, q_size: int, k_size: int) -> torch.Tensor:
     """(q_size, k_size, C) table from a learned (L, C) table, in f32."""
     max_rel_dist = int(2 * max(q_size, k_size) - 1)
-    table = rel_pos.float()
+    table = rel_pos.to(acc_dtype(rel_pos.dtype))
     if table.shape[0] != max_rel_dist:
-        m = torch.from_numpy(_linear_weights(table.shape[0], max_rel_dist)).to(table.device)
+        m = torch.from_numpy(_linear_weights(table.shape[0], max_rel_dist)).to(table)
         table = m @ table
     coords = torch.from_numpy(_rel_coords(q_size, k_size)).to(table.device)
     return table[coords]

@@ -16,6 +16,11 @@ element. The kernel (`csrc/resize.cu`) is a gather pass: one thread per
 loads, sums in f32 and writes the output once. Tap rows, columns and
 weights come from the same `_linear_weights` rule (lo, hi, 1-frac, frac),
 so it matches the matrix form to rounding.
+
+K4 is differentiable: an autograd Function whose backward is plain math,
+as in the JAX package (`op_bwd`, resize.py:310): d x_i = Ah_i^T g Aw_i^T in
+f32, cast to x_i's dtype. The TPU has no kernel there, so neither does the
+port.
 """
 
 from __future__ import annotations
@@ -59,8 +64,8 @@ def _linear_weights(in_size: int, out_size: int) -> np.ndarray:
     return w
 
 
-def _matrix(in_size: int, out_size: int, device) -> torch.Tensor:
-    return torch.from_numpy(_linear_weights(in_size, out_size)).to(device)
+def _matrix(in_size: int, out_size: int, device, dtype=torch.float32) -> torch.Tensor:
+    return torch.from_numpy(_linear_weights(in_size, out_size)).to(device, dtype)
 
 
 def bilinear_resize(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -69,11 +74,12 @@ def bilinear_resize(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     out_h, out_w = out_hw
     in_h, in_w = x.shape[-3], x.shape[-2]
     lead = x.shape[:-3]
-    xf = x.float().reshape((-1,) + tuple(x.shape[-3:]))
+    f = K.acc_dtype(x.dtype)
+    xf = x.to(f).reshape((-1,) + tuple(x.shape[-3:]))
     if in_h != out_h:
-        xf = torch.einsum("oh,bhwc->bowc", _matrix(in_h, out_h, x.device), xf)
+        xf = torch.einsum("oh,bhwc->bowc", _matrix(in_h, out_h, x.device, f), xf)
     if in_w != out_w:
-        xf = torch.einsum("ow,bhwc->bhoc", _matrix(in_w, out_w, x.device), xf)
+        xf = torch.einsum("ow,bhwc->bhoc", _matrix(in_w, out_w, x.device, f), xf)
     return xf.reshape(tuple(lead) + (out_h, out_w, x.shape[-1])).to(x.dtype)
 
 
@@ -102,7 +108,7 @@ def bilinear_resize_sum_plain(xs: Sequence[torch.Tensor],
     """K4's plain version: the f32 sum of the resized maps, cast once."""
     acc = None
     for x in xs:
-        r = bilinear_resize(x.float(), out_hw)
+        r = bilinear_resize(x.to(K.acc_dtype(x.dtype)), out_hw)
         acc = r if acc is None else acc + r
     return acc.to(xs[0].dtype)
 
@@ -122,11 +128,9 @@ def _tap_tables(shapes: Tuple[Tuple[int, int], ...], out_hw, device):
     return (torch.from_numpy(idx).to(device), torch.from_numpy(wts).to(device))
 
 
-def bilinear_resize_sum(xs: Sequence[torch.Tensor],
-                        out_hw: Tuple[int, int]) -> torch.Tensor:
-    """sum_i bilinear_resize(x_i, out_hw) for n <= 4 channel-last maps
-    (B, h_i, w_i, C) of one dtype; kernel K4 on CUDA, the plain version on
-    the CPU."""
+def bilinear_resize_sum_fwd(xs: Sequence[torch.Tensor],
+                            out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Kernel K4 on CUDA, the plain version on the CPU; no autograd."""
     xs = list(xs)
     if xs[0].device.type == "cpu":
         return bilinear_resize_sum_plain(xs, out_hw)
@@ -154,3 +158,33 @@ def bilinear_resize_sum(xs: Sequence[torch.Tensor],
         len(xs), B, H, W, C, int(dt == torch.bfloat16), K.stream(),
     )
     return out
+
+
+def bilinear_resize_sum_bwd(g: torch.Tensor, shapes, dtypes):
+    """d x_i = Ah_i^T g Aw_i^T in f32, cast to x_i's dtype (JAX `op_bwd`)."""
+    f = K.acc_dtype(g.dtype)
+    H, W = g.shape[1], g.shape[2]
+    return tuple(
+        torch.einsum("ow,bhoc->bhwc", _matrix(w, W, g.device, f),
+                     torch.einsum("oh,bowc->bhwc", _matrix(h, H, g.device, f), g.to(f))).to(dt)
+        for (h, w), dt in zip(shapes, dtypes))
+
+
+class _ResizeSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out_hw, *xs):
+        ctx.shapes = [(x.shape[1], x.shape[2]) for x in xs]
+        ctx.dtypes = [x.dtype for x in xs]
+        return bilinear_resize_sum_fwd(xs, out_hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) + bilinear_resize_sum_bwd(g, ctx.shapes, ctx.dtypes)
+
+
+def bilinear_resize_sum(xs: Sequence[torch.Tensor],
+                        out_hw: Tuple[int, int]) -> torch.Tensor:
+    """sum_i bilinear_resize(x_i, out_hw) for n <= 4 channel-last maps
+    (B, h_i, w_i, C) of one dtype: K4 forward (plain on the CPU), plain
+    backward."""
+    return _ResizeSum.apply(tuple(out_hw), *xs)

@@ -1,5 +1,5 @@
-"""The port's four Hopper kernels against their plain PyTorch versions, on
-the card. Every test here needs a CUDA device and nvcc: the `cuda` marker
+"""The port's six Hopper kernels against their plain PyTorch versions, on
+the card, and autograd through them. Every test here needs a CUDA device and nvcc: the `cuda` marker
 names them and the `card` fixture skips them where
 `torch.cuda.is_available()` is false. This file imports no JAX (the card's
 machine has none); run it there with
@@ -10,7 +10,8 @@ Tolerances compare in the working dtype on the same inputs. In bf16 the
 kernel and the plain version round the same f32 values at other points
 (the flash softmax, the order of sums), so they may differ by one bf16 ulp
 of the output: |d| <= 1e-2 + 1e-2 * |plain| covers one ulp at any
-magnitude. In f32 the difference is the order of f32 sums: 1e-5.
+magnitude. In f32 the difference is the order of f32 sums: 1e-5; K6's
+parameter gradients sum ~1000 rows in another order: 1e-4 relative.
 """
 
 import dataclasses
@@ -106,6 +107,85 @@ def test_resize_sum_kernel(card, dtype, C):
            t_resize.bilinear_resize_sum_plain(xs, (112, 192)), dtype)
 
 
+def _close_bf16(out, plain):
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), plain.float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("Lq,k_shape,H", [(1500, (8, 7, 12), 1), (700, (8, 14, 24), 2),
+                                         (672, (8, 14, 24), 8)])
+def test_bias_attention_bwd_kernel(card, Lq, k_shape, H, residual):
+    """MViT blocks 0, 1 and 14 of the train step (Lk = 673, 2689, 2689),
+    Lq cut down and ragged against the 64-row tiles."""
+    g = torch.Generator().manual_seed(Lq + H)
+    D, B = 96, 2
+    kt, kh, kw = k_shape
+    Lk = 1 + kt * kh * kw
+    q, k, v, go = (_randn(g, B, n, H * D) for n in (Lq, Lk, Lk, Lq))
+    rel = _randn(g, B, Lq, H, kt + kh + kw, scale=0.5)
+    args = (q, k, v, rel, go, k_shape, H, D ** -0.5, residual)
+    before = t_attn.BWD_KERNEL.launches
+    got = t_attn.bias_attention_bwd(*args)
+    assert t_attn.BWD_KERNEL.launches == before + 1
+    ref = t_attn.bias_attention_bwd_plain(*args)
+    for name, a, b in zip(("dq", "dk", "dv", "drel"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        _close_bf16(a, b)
+
+
+@pytest.mark.parametrize("C", [96, 192, 384, 512, 768])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_bwd_kernel(card, C, dtype):
+    g = torch.Generator().manual_seed(C + 1)
+    x = _randn(g, 3, 333, C, dtype=dtype, scale=2.0) + 1.0
+    go = _randn(g, 3, 333, C, dtype=dtype)
+    w = _randn(g, C, dtype=torch.float32) + 1
+    before = t_ln.BWD_KERNEL.launches
+    dx, dw, db = t_ln.layer_norm_bwd(x, go, w, 1e-6)
+    assert t_ln.BWD_KERNEL.launches == before + 1
+    rx, rw, rb = t_ln.layer_norm_bwd_plain(x, go, w, 1e-6)
+    _check(dx, rx, dtype)
+    for a, b in ((dw, rw), (db, rb)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_layer_norm_bwd_kernel_real_dim(card):
+    g = torch.Generator().manual_seed(2)
+    x = torch.nn.functional.pad(_randn(g, 100, 96, dtype=torch.float32), (0, 32))
+    go, w = _randn(g, 100, 128, dtype=torch.float32), _randn(g, 96, dtype=torch.float32)
+    got = t_ln.layer_norm_bwd(x, go, w, 1e-6, real_dim=96)
+    ref = t_ln.layer_norm_bwd_plain(x, go, w, 1e-6, real_dim=96)
+    assert got[1].shape == (96,) and got[2].shape == (96,)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_kernel_wrappers_record_a_backward_or_raise(card):
+    """On CUDA tensors that require grad, K1, K2 and K4 return a result
+    with a grad_fn whose backward runs K5, K6 and the plain resize
+    backward; K3 raises."""
+    g = torch.Generator().manual_seed(3)
+    rg = lambda t: t.requires_grad_()  # noqa: E731
+    q, k, v = (rg(_randn(g, 1, n, 96)) for n in (64, 13, 13))
+    rel = rg(_randn(g, 1, 64, 1, 8))
+    x = rg(_randn(g, 10, 96))
+    w, b = rg(_randn(g, 96, dtype=torch.float32)), rg(_randn(g, 96, dtype=torch.float32))
+    xs = [rg(_randn(g, 1, 3, 4, 16))]
+    outs = [t_attn.bias_attention(q, k, v, rel, (1, 3, 4), 1, 0.1),
+            t_ln.layer_norm(x, w, b), t_resize.bilinear_resize_sum(xs, (6, 8))]
+    assert all(o.grad_fn is not None for o in outs)
+    K.reset_launch_counts()
+    sum(o.float().sum() for o in outs).backward()
+    counts = K.launch_counts()
+    assert counts["bias_attention_bwd"] == 1 and counts["layer_norm_bwd"] == 1, counts
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all())
+               for t in (q, k, v, rel, x, w, b, xs[0]))
+    with pytest.raises(RuntimeError, match="eval-only"):
+        t_mlp.block_tail(rg(_randn(g, 32, 96)), _randn(g, 32, 96), w, b, _randn(g, 192, 96),
+                         _randn(g, 192, dtype=torch.float32), _randn(g, 96, 192), b)
+
+
 def test_kernels_refuse_what_they_do_not_take(card):
     g = torch.Generator().manual_seed(1)
     q = _randn(g, 1, 10, 96, dtype=torch.float32)
@@ -143,6 +223,62 @@ def test_small_av_model_on_card_matches_cpu(card):
     K.reset_launch_counts()
     out = sample_saliency(gpu, *args, rgb.to(card), audio.to(card), noise=noise)
     counts = K.launch_counts()
-    assert all(n > 0 for n in counts.values()), counts
+    assert all(counts[n] > 0 for n in ("bias_attention", "layer_norm", "block_tail",
+                                       "bilinear_resize_sum")), counts
+    assert counts["bias_attention_bwd"] == counts["layer_norm_bwd"] == 0, counts
     assert torch.isfinite(out).all()
     assert float((out.cpu() - ref).abs().max()) <= 3e-2
+
+
+def test_small_av_train_step_on_card_matches_plain_on_cpu(card):
+    """One training step of the small AV model (128x96, so every
+    sub-network gets a gradient) in bf16: through the kernels on the card
+    (K1, K2, K4 forward; K5, K6 and K4's plain backward) against the plain
+    versions on the CPU, same weights, batch and draws. At random weights
+    bf16 rounding alone moves these gradients by ~0.2 in relative L2 (the
+    CPU's bf16 against its f32), so the check is the loss (2e-2 relative)
+    and the direction of the gradient of each sub-network (cosine >= 0.9),
+    with the same set of parameters receiving a gradient."""
+    from diff_sal_tpu_torch.config import (AudioAttnConfig, ExperimentConfig, ModelConfig,
+                                           MViTConfig, SalUNetConfig, VGGishConfig)
+    from diff_sal_tpu_torch.diffusion.schedule import make_schedule
+    from diff_sal_tpu_torch.models.diff_model import VideoSaliencyModel, build_model
+    from diff_sal_tpu_torch.train.optim import make_optimizer
+    from diff_sal_tpu_torch.train.train_step import make_train_step
+
+    hw = (128, 96)
+    cfg = ModelConfig(visual=MViTConfig.tiny(spatial_size=hw), audio=VGGishConfig(),
+                      spatiotemp=AudioAttnConfig(), compute_dtype="bfloat16",
+                      decoder=SalUNetConfig(img_size=hw, dropout=0.0, drop_path_rate=(0.0,) * 4))
+    sd = build_model(cfg, seed=5, device="cpu").state_dict()
+    g = torch.Generator().manual_seed(6)
+    batch = {"rgb": torch.randn(2, 16, *hw, 3, generator=g),
+             "salmap": torch.rand(2, *hw, 1, generator=g),
+             "audio": torch.randn(2, 9, hw[0] // 2, hw[1] // 2, 1, generator=g)}
+    draws = {"deq": torch.randn(2, *hw, 1, generator=g),
+             "noise": torch.randn(2, *hw, 1, generator=g), "t": torch.tensor(300)}
+
+    def step(device):
+        m = VideoSaliencyModel(cfg).train()
+        m.load_state_dict(sd)
+        m.to(device)
+        ecfg = ExperimentConfig(model=cfg)
+        met = make_train_step(m, make_schedule(), ecfg)(make_optimizer(m, ecfg.optim, 10, 2),
+                                                         batch, draws=draws)
+        return float(met["total"]), {n: p.grad.float().cpu() for n, p in m.named_parameters()
+                                     if p.grad is not None}
+
+    l_cpu, g_cpu = step("cpu")
+    K.reset_launch_counts()
+    l_card, g_card = step(card)
+    counts = K.launch_counts()
+    assert counts["block_tail"] == 0 and all(
+        counts[n] > 0 for n in ("bias_attention", "layer_norm", "bilinear_resize_sum",
+                                "bias_attention_bwd", "layer_norm_bwd")), counts
+    assert abs(l_card - l_cpu) <= 2e-2 * abs(l_cpu), (l_card, l_cpu)
+    assert set(g_card) == set(g_cpu)
+    for sub in ("visual_net.", "spatiotemp_net.", "decoder_net."):
+        a = torch.cat([g_card[n].flatten() for n in g_card if n.startswith(sub)])
+        b = torch.cat([g_cpu[n].flatten() for n in g_cpu if n.startswith(sub)])
+        assert bool(torch.isfinite(a).all())
+        assert float(torch.nn.functional.cosine_similarity(a, b, dim=0)) >= 0.9, sub

@@ -1,0 +1,315 @@
+"""The training slice as a whole: one step of the port's `train_step`
+against one step of the JAX package's, f32 on the CPU.
+
+The model is the small AV config at 128x96 (MViT tiny, VGGish,
+AudioAttnNet, SalUNet; audio (B, 9, 64, 48, 1)): at that size the
+coarsest video grid is (4, 3), so the CvT key pooling keeps more than one
+key and every sub-network, AudioAttnNet included, gets a gradient (at
+64x96 one key is left and the audio branch's gradient is zero by
+construction, tests/test_train.py:138-141). Decoder dropout and DropPath
+are 0 on both sides; JAX runs without Pallas attention. The weights are
+carried across by `bridge.py`, and JAX's dequantization noise, shared
+timestep and x_T noise are recomputed from its `split(rng, 4)` and handed
+to the port. One JAX jit per module-scoped fixture (two in this file, one in
+test_torch_train_step_full_frames.py, so no more than two of these
+compiles run at once on the test workers); the raw gradients come out
+of the JAX step through an optax stage that stores them in the optimizer
+state.
+
+Tolerances. The loss: rtol 1e-5 (same f32 function, other summation
+order). The gradients cannot agree to 1e-4 here: at random weights the
+step is ill-conditioned, and f32 rounding alone moves each leaf's
+gradient by ~1e-3. The fixture shows it: it runs the port's step once
+more in f64 (every op in f64, the schedule's f32 coefficients shared),
+and the leaf test prints, per leaf, port f32 vs JAX f32, port f32 vs port
+f64 and JAX f32 vs port f64 (relative L2 and max|d| / max|g|). With the
+train-time dead-frame cut the three read relative L2 medians 1.3e-3,
+1.9e-3, 1.5e-3 (worst 3.0e-3, 3.5e-3, 2.4e-3); with all nine frames
+3.6e-3, 1.3e-3, 3.6e-3 (worst 5.3e-3, 2.5e-3, 5.6e-3). So the limits
+rest on the port's own f32-vs-f64 gap, its worst leaf taken as the floor
+(which must stay under 5e-3 relative L2 and 3e-2 max|d| / max|g|): the
+JAX gradient, against the port's f32 one and against its f64 one, within
+four times the floor on every leaf (two f32 errors, each up to twice the
+port's own). A wrong term shows as an error of order 1 in some leaf. A
+leaf whose gradient is zero up to rounding (the key-side biases, which a
+softmax ignores, and the bias before a batch-statistics BatchNorm) is
+held to 1e-6 of the largest gradient. The global gradient norm: rtol
+1e-4. The BatchNorm running statistics: 1e-5 * max|stat| + 1e-6. The
+parameters after Adam's first step: each element moves by lr * g / (|g|
++ eps) of its clipped gradient g, so where both sides' clipped gradients
+have the same sign and exceed 100 * eps the moves agree to 1% of lr, and
+the parameters to 2e-6; elsewhere the direction is noise and they may
+differ by up to 2 * lr.
+
+The step in bf16 (the `bf16_steps` fixture, `compute_dtype="bfloat16"`
+on both sides; parameters, losses and optimizer state stay f32): at
+random weights bf16 rounding moves the gradients far from the f64 ones,
+for JAX as for the port, and these tests show that gap is the model's and
+not the port's. Per sub-network the port's bf16 gradients may be no
+further from f64 than JAX's are, up to a quarter more (two bf16 paths
+that round at the same points but sum in other orders), and their
+directions must agree with JAX's (cosine >= 0.9). They read, relative L2
+to f64 for the port and for JAX: MViT 0.255 and 0.270, AudioAttnNet
+0.222 and 0.214, the decoder 0.212 and 0.219, cosine 0.96-0.97 between
+the two. The loss: the two bf16 losses and the f64 one within 1e-2
+relative.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from diff_sal_tpu import config as jc
+from diff_sal_tpu.diffusion.schedule import make_schedule as j_make_schedule
+from diff_sal_tpu.train.optim import make_optimizer as j_make_optimizer
+from diff_sal_tpu.train.train_step import create_train_state
+from diff_sal_tpu.train.train_step import make_train_step as j_make_train_step
+from diff_sal_tpu_torch import bridge
+from diff_sal_tpu_torch import config as pc
+from diff_sal_tpu_torch.diffusion.schedule import make_schedule
+from diff_sal_tpu_torch.train.optim import make_optimizer
+from diff_sal_tpu_torch.train.train_step import make_train_step
+from test_torch_models import full_model_variables, port_model
+
+HW = (128, 96)
+B = 2
+LR = 1e-4
+
+
+def experiment(sdf_train: bool, compute_dtype: str = "float32") -> jc.ExperimentConfig:
+    model = jc.ModelConfig(
+        visual=jc.MViTConfig.tiny(spatial_size=HW),
+        audio=jc.VGGishConfig(),
+        spatiotemp=jc.AudioAttnConfig(),
+        decoder=jc.SalUNetConfig(img_size=HW, dropout=0.0, drop_path_rate=(0.0,) * 4,
+                                 skip_dead_frames_train=sdf_train),
+        compute_dtype=compute_dtype,
+    )
+    return jc.ExperimentConfig(model=model, optim=jc.OptimConfig(lr=LR))
+
+
+def _stash_grads() -> optax.GradientTransformation:
+    """An optax stage that passes the gradients on and keeps them as its
+    state, so the raw gradients leave the jitted step."""
+    return optax.GradientTransformation(
+        lambda p: jax.tree.map(jnp.zeros_like, p), lambda u, s, p=None: (u, u))
+
+
+@pytest.fixture(scope="module")
+def steps():
+    """skip_dead_frames_train on, the default; its other setting is
+    tests/test_torch_train_step_full_frames.py."""
+    return run_both(True)
+
+
+@pytest.fixture(scope="module")
+def bf16_steps():
+    return run_both(True, "bfloat16")
+
+
+def run_both(sdf_train: bool, compute_dtype: str = "float32"):
+    """One JAX step and one port step from the same weights, batch and
+    draws, and the port's step once more in f64: (JAX metrics, gradients
+    and state after, as port state-dict entries; the port's model after
+    its step; its metrics; its state before; the f64 step's loss and
+    gradients)."""
+    cfg = experiment(sdf_train, compute_dtype)
+    jmodel, variables = full_model_variables(cfg.model, seed=31)
+    rng = np.random.RandomState(32)
+    batch = {"rgb": rng.randn(B, 16, *HW, 3).astype(np.float32),
+             "salmap": rng.rand(B, *HW, 1).astype(np.float32),
+             "audio": rng.randn(B, 9, HW[0] // 2, HW[1] // 2, 1).astype(np.float32)}
+    key = jax.random.PRNGKey(33)
+    sched = j_make_schedule()
+    tx = optax.chain(_stash_grads(), j_make_optimizer(cfg.optim, steps_per_epoch=4, n_epochs=2))
+    state = create_train_state(jmodel, variables, tx)
+    new_state, metrics = jax.jit(j_make_train_step(jmodel, sched, cfg))(
+        state, jax.tree.map(jnp.asarray, batch), key)
+    # the draws JAX made inside the step (train_step.py:85-96)
+    k_deq, k_t, k_noise, _ = jax.random.split(key, 4)
+    shape = (B, *HW, 1)
+    draws = {"deq": jax.random.normal(k_deq, shape), "noise": jax.random.normal(k_noise, shape),
+             "t": jax.random.randint(k_t, (), 0, sched.num_timesteps)}
+    jax_out = {
+        "metrics": {k: float(v) for k, v in metrics.items()},
+        "grads": bridge.state_dict_from_flax(
+            {"params": jax.device_get(new_state.opt_state[0])}, cfg.model.visual.num_layers),
+        "after": bridge.state_dict_from_flax(
+            {"params": jax.device_get(new_state.params),
+             "batch_stats": jax.device_get(new_state.batch_stats)},
+            cfg.model.visual.num_layers),
+    }
+
+    # one torch thread: the test workers share the CPU, and several
+    # processes of spinning OpenMP threads made these steps 20-70x slower
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return jax_out, *port_steps(cfg, variables, batch, draws)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def port_steps(cfg, variables, batch, draws):
+    """The port's step and its f64 rerun from the same weights, batch and
+    draws: (model after the step, metrics, state before, f64 loss and
+    gradients)."""
+    model = port_model(cfg.model, variables)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = make_optimizer(model, pc.from_fields(cfg.optim), steps_per_epoch=4, n_epochs=2)
+    step = make_train_step(model, make_schedule(), pc.from_fields(cfg))
+    port_metrics = step(opt, {k: torch.from_numpy(v) for k, v in batch.items()},
+                        draws={k: torch.from_numpy(np.asarray(v)) for k, v in draws.items()})
+
+    # the same step in f64: the reference for f32 rounding in the gradients
+    model64 = port_model(dataclasses.replace(cfg.model, compute_dtype="float32"),
+                         variables).double()
+    opt64 = make_optimizer(model64, pc.from_fields(cfg.optim), steps_per_epoch=4, n_epochs=2)
+    metrics64 = make_train_step(model64, make_schedule(), pc.from_fields(cfg))(
+        opt64, {k: torch.from_numpy(v).double() for k, v in batch.items()},
+        draws={k: torch.from_numpy(np.asarray(v)) for k, v in draws.items()})
+    ref64 = {"total": float(metrics64["total"]),
+             "grads": {n: p.grad for n, p in model64.named_parameters() if p.grad is not None}}
+    return model, port_metrics, before, ref64
+
+
+def test_loss_and_metrics_match_jax(steps):
+    jax_out, _, metrics, _, _ = steps
+    for k in ("total", "main", "cc", "sim", "nss", "grad_norm"):
+        np.testing.assert_allclose(float(metrics[k]), jax_out["metrics"][k],
+                                   rtol=1e-4 if k == "grad_norm" else 1e-5, atol=1e-12,
+                                   err_msg=k)
+    assert float(metrics["total"]) > 0 and float(metrics["grad_norm"]) > 0
+
+
+def test_every_gradient_leaf_matches_jax(steps):
+    jax_out, model, _, _, ref64 = steps
+    top = max(float(v.abs().max()) for v in jax_out["grads"].values())
+    # per leaf: relative L2 and max|d| / max|g| of (port f32, JAX f32),
+    # (port f32, port f64) and (JAX f32, port f64)
+    gap = {"port-jax": [], "port-f64": [], "jax-f64": []}
+    peak = {k: [] for k in gap}
+    for name, p in model.named_parameters():
+        ref = jax_out["grads"][name].numpy()
+        if name.startswith("audio_net."):  # frozen: no gradient at all in the port
+            assert p.grad is None and not p.requires_grad, name
+            assert not np.any(ref), name
+            continue
+        if p.grad is None:  # off the graph (the unused finest pyramid scale's norm)
+            assert not np.any(ref), name
+            continue
+        got = p.grad.numpy()
+        if float(np.abs(ref).max()) <= 1e-6 * top:
+            assert float(np.abs(got).max()) <= 1e-6 * top, name
+            continue
+        g64 = ref64["grads"][name].numpy()
+        for k, (a, b) in {"port-jax": (got, ref), "port-f64": (got, g64),
+                          "jax-f64": (ref, g64)}.items():
+            gap[k].append((float(np.linalg.norm(a - b) / np.linalg.norm(b)), name))
+            peak[k].append((float(np.abs(a - b).max() / np.abs(b).max()), name))
+    assert len(gap["port-jax"]) > 400
+    q = lambda v: f"median {np.median([x for x, _ in v]):.2e} max {max(v)[0]:.2e}"  # noqa: E731
+    print(f"gradient leaves ({len(gap['port-jax'])}): relative L2 / max|d| over max|g|: "
+          + "; ".join(f"{k} {q(gap[k])} / {q(peak[k])}" for k in gap))
+    # the port's own f32 rounding, shown by its f64 step, is the floor
+    floor, floor_peak = max(gap["port-f64"])[0], max(peak["port-f64"])[0]
+    assert floor <= 5e-3 and floor_peak <= 3e-2, (max(gap["port-f64"]), max(peak["port-f64"]))
+    for k in ("port-jax", "jax-f64"):
+        assert max(gap[k])[0] <= 4 * floor, (k, max(gap[k]), floor)
+        assert max(peak[k])[0] <= 4 * floor_peak, (k, max(peak[k]), floor_peak)
+
+
+def test_every_sub_network_gets_a_gradient(steps):
+    _, model, _, _, _ = steps
+    for sub in ("visual_net", "spatiotemp_net", "decoder_net"):
+        mod = getattr(model, sub)
+        assert any(p.grad is not None and float(p.grad.abs().max()) > 0
+                   for p in mod.parameters()), sub
+    for name in ("visual_net.blocks.0.attn.rel_pos_h", "visual_net.blocks.0.attn.qkv.weight",
+                 "visual_net.blocks.0.attn.norm_q.weight", "visual_net.blocks.0.attn.proj.weight",
+                 "visual_net.blocks.1.attn.pool_k.weight"):
+        assert float(model.get_parameter(name).grad.abs().max()) > 0, name
+
+
+def test_batch_stats_after_the_step_match_jax(steps):
+    jax_out, model, _, before, _ = steps
+    sd = model.state_dict()
+    names = [k for k in sd if k.endswith(("running_mean", "running_var"))]
+    assert len(names) == 14  # 3 UpEmbeds x 2 BNs + mt_proj, mean and var each
+    for k in names:
+        ref = jax_out["after"][k].numpy()
+        np.testing.assert_allclose(sd[k].numpy(), ref, rtol=0,
+                                   atol=1e-5 * float(np.abs(ref).max()) + 1e-6, err_msg=k)
+        assert not torch.equal(sd[k], before[k]), k  # batch statistics moved them
+        counter = k.rsplit(".", 1)[0] + ".num_batches_tracked"
+        assert torch.equal(sd[counter], before[counter])
+
+
+def test_parameters_after_the_adam_step_match_jax(steps):
+    jax_out, model, metrics, before, _ = steps
+    clip = min(1.0, 1.0 / float(metrics["grad_norm"]))  # grad_clip 1.0
+    n_sure = n_all = 0
+    for name, p in model.named_parameters():
+        ref = jax_out["after"][name].numpy()
+        got = p.detach().numpy()
+        if name.startswith("audio_net."):
+            assert torch.equal(p.detach(), before[name]), name
+            continue
+        gj = jax_out["grads"][name].numpy() * clip
+        gp = np.zeros_like(gj) if p.grad is None else p.grad.numpy() * clip
+        sure = (np.sign(gj) == np.sign(gp)) & (np.minimum(np.abs(gj), np.abs(gp)) > 1e-6)
+        d = np.abs(got - ref)
+        assert float(d[sure].max(initial=0)) <= 2e-6, name
+        assert float(d.max(initial=0)) <= 2 * LR * (1 + 1e-3), name
+        n_sure, n_all = n_sure + int(sure.sum()), n_all + sure.size
+    assert n_sure > 0.5 * n_all, (n_sure, n_all)
+    # the CvT projections act on a T=1 grid: their off-centre weights get
+    # exactly zero gradient and stay at zero through Adam
+    w = model.get_parameter("decoder_net.invpt_decoder.mid_stages.0.blocks.0.attn."
+                            "conv_proj_q.conv.weight")
+    assert float(w[:, :, 0].abs().max()) == 0.0 and float(w[:, :, 2].abs().max()) == 0.0
+    assert float(w[:, :, 1].abs().max()) > 0.0
+
+
+# ----------------------------------------------------------- bf16 step ---
+
+SUBS = ("visual_net", "spatiotemp_net", "decoder_net")
+
+
+def _flat(grads, sub, names):
+    return np.concatenate([np.asarray(grads[n]).ravel() for n in names if n.startswith(sub)])
+
+
+def test_bf16_loss_matches_jax_and_f64(bf16_steps):
+    jax_out, _, metrics, _, ref64 = bf16_steps
+    lj, lp = jax_out["metrics"]["total"], float(metrics["total"])
+    assert np.isfinite(lp) and lp > 0
+    np.testing.assert_allclose(lp, lj, rtol=1e-2)
+    np.testing.assert_allclose(lp, ref64["total"], rtol=1e-2)
+    np.testing.assert_allclose(lj, ref64["total"], rtol=1e-2)
+    print(f"loss: port bf16 {lp:.6f}, JAX bf16 {lj:.6f}, port f64 {ref64['total']:.6f}")
+
+
+def test_bf16_gradients_are_no_further_from_f64_than_jax(bf16_steps):
+    jax_out, model, _, _, ref64 = bf16_steps
+    grads64 = ref64["grads"]
+    port = {n: p.grad.numpy() for n, p in model.named_parameters() if p.grad is not None}
+    ref = {n: grads64[n].numpy() for n in port}
+    jgrads = {n: jax_out["grads"][n].numpy() for n in port}
+    names = sorted(port)
+    report = {}
+    for sub in SUBS:
+        g64, gp, gj = (_flat(d, sub, names) for d in (ref, port, jgrads))
+        e_port = float(np.linalg.norm(gp - g64) / np.linalg.norm(g64))
+        e_jax = float(np.linalg.norm(gj - g64) / np.linalg.norm(g64))
+        cos = float(gp @ gj / (np.linalg.norm(gp) * np.linalg.norm(gj)))
+        report[sub] = (e_port, e_jax, cos)
+        assert e_port <= 1.25 * e_jax, (sub, e_port, e_jax)
+        assert cos >= 0.9, (sub, cos)
+    print("bf16 gradients per sub-network (port vs f64, JAX vs f64, cosine port/JAX): "
+          + ", ".join(f"{k} {a:.3e} {b:.3e} {c:.4f}" for k, (a, b, c) in report.items()))
