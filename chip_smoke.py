@@ -1,12 +1,13 @@
-"""Drive the PyTorch port's two paths (AV inference and the AV training
-step) on one NVIDIA GPU and hold each of its hand-written kernels against
-its plain PyTorch version.
+"""Drive the PyTorch port's three paths (AV inference with DDIM, the AV
+training step, AV inference with DPM-Solver++ and the eval lowerings) on
+one NVIDIA GPU and hold each of its hand-written kernels against its plain
+PyTorch version.
 
     python3 chip_smoke.py [--iters N] [--profile]
 
 Phases (each prints its wall time; any failure raises and exits non-zero):
   1. require CUDA and print the card's name and power limit (nvidia-smi);
-  2. build the six kernels from `diff_sal_tpu_torch/csrc/` (one nvcc per
+  2. build the ten kernels from `diff_sal_tpu_torch/csrc/` (one nvcc per
      source, all started together; cached by source hash in
      `diff_sal_tpu_torch/_build/`);
   3. main path at full width: `ModelConfig.audio_visual()` (MViTv2-small at
@@ -38,6 +39,21 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      on the card and bf16 through the plain versions on the CPU, each
      against f32 on the CPU: the loss, and the gradients per sub-network
      and per tensor;
+  8. the second inference path: `sample_saliency` with DPM-Solver++ 2M
+     (bench.py's sweep settings) at NFE 2 and 5 on the full-width AV model
+     in bf16 at B=2 with the three eval lowerings (`pool_mode="pallas"`,
+     `fused_attn`, `head_lowres`): checks the maps; checks every kernel's
+     launches per run against the count the config implies (K11 once per
+     pool, independent of NFE; K7 and K3 4 per denoiser call, K9 1; K1 once
+     per MViT block; K2 per LayerNorm call of the encoders plus the
+     decoder's per call; K4 none) and records K7's, K9's and K11's inputs in
+     the NFE 2 run; the same with the head through K8 (`fused_head`), K8
+     launched once per denoiser call; the maps against
+     the default lowerings on the same inputs and noise (bf16 bound 3e-2);
+     ms per run and clips/s with and without the lowerings; K7, K8, K9 and
+     K11 held against their plain versions and timed as in phase 4; the
+     small AV model with the lowerings through DPM++ NFE 2, bf16 on the
+     card against f32 on the CPU;
 then prints the `kernels` JSON line, the nvidia-smi line and, last, the
 result line {"ok": true, "device": {...}}.
 """
@@ -105,7 +121,9 @@ class Recorder:
 
 def _clone(obj):
     if isinstance(obj, torch.Tensor):
-        return obj.detach().clone()
+        # same strides: a column slice of a wider tensor stays one
+        return torch.empty_strided(obj.shape, obj.stride(), dtype=obj.dtype,
+                                   device=obj.device).copy_(obj.detach())
     if isinstance(obj, (list, tuple)):
         return type(obj)(_clone(o) for o in obj)
     if isinstance(obj, dict):
@@ -126,39 +144,77 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def bound_terms(kernel: str, args, kw):
-    """(bytes, operations, peak rate of those operations) one call must
+    """(bytes, [(operations, peak rate of their type), ...]) one call must
     at least move and compute."""
     if kernel == "bias_attention":
         q, k, v, rel, (kt, kh, kw_), H = args[:6]
         Bq, Lq, HD = q.shape
         Lk = k.shape[1]
         nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + rel.numel() * 2
-        return nbytes, 4.0 * Bq * Lq * Lk * HD, BF16_TENSOR_FLOPS
+        return nbytes, [(4.0 * Bq * Lq * Lk * HD, BF16_TENSOR_FLOPS)]
     if kernel == "layer_norm":
         x, w, b = args[:3]
         C = x.shape[-1]
-        return 2 * x.numel() * x.element_size() + 2 * C * 4, 8.0 * x.numel(), F32_FLOPS
+        return 2 * x.numel() * x.element_size() + 2 * C * 4, [(8.0 * x.numel(), F32_FLOPS)]
     if kernel == "block_tail":
         skip, attn, lw, lb, w1, b1, w2, b2 = args[:8]
         R, C = skip.shape
         Hd = w1.shape[0]
         nbytes = 3 * R * C * 2 + 2 * C * Hd * 2 + (3 * C + Hd) * 4
-        return nbytes, 4.0 * R * C * Hd, BF16_TENSOR_FLOPS
+        return nbytes, [(4.0 * R * C * Hd, BF16_TENSOR_FLOPS)]
     if kernel == "bilinear_resize_sum":
         xs, (H, W) = args[:2]
         out = xs[0].shape[0] * H * W * xs[0].shape[-1]
         nbytes = sum(x.numel() for x in xs) * xs[0].element_size() + out * xs[0].element_size()
-        return nbytes, 8.0 * len(xs) * out, F32_FLOPS
+        return nbytes, [(8.0 * len(xs) * out, F32_FLOPS)]
     if kernel == "bias_attention_bwd":
         # bf16: read q, g, k, v, rel; write dq, dk, dv, drel; five (Lq, Lk, D)
         # products per head (S, dP, dV, dQ, dK)
         q, k, v, rel, g = args[:5]
         Bq, Lq, HD = q.shape
         nbytes = 2 * (3 * q.numel() + 4 * k.numel() + 2 * rel.numel())
-        return nbytes, 10.0 * Bq * Lq * k.shape[1] * HD, BF16_TENSOR_FLOPS
+        return nbytes, [(10.0 * Bq * Lq * k.shape[1] * HD, BF16_TENSOR_FLOPS)]
     if kernel == "layer_norm_bwd":
         x, g, w = args[:3]
-        return 3 * x.numel() * x.element_size() + 3 * w.numel() * 4, 12.0 * x.numel(), F32_FLOPS
+        return (3 * x.numel() * x.element_size() + 3 * w.numel() * 4,
+                [(12.0 * x.numel(), F32_FLOPS)])
+    if kernel == "cvt_attention":
+        # read q, k, v, write out; q k^T and p v
+        q, k = args[:2]
+        Bt, L, C = q.shape
+        return 2 * (2 * q.numel() + 2 * k.numel()), [(4.0 * Bt * L * k.shape[1] * C,
+                                                      BF16_TENSOR_FLOPS)]
+    if kernel == "depthwise_pool3d":
+        # read the C used channels of x once, w, write out; 27 f32
+        # multiply-adds per output element
+        x, w, (_, sh, sw) = args[:3]
+        B, T, H, W, C = x.shape
+        out = B * T * ((H - 1) // sh + 1) * ((W - 1) // sw + 1) * C
+        return (x.numel() + out) * x.element_size() + w.numel() * 4, [(54.0 * out, F32_FLOPS)]
+    if kernel in ("resize_conv_relu", "resize_phase_head"):
+        xs, (H, W), kern, bias = args[:4]
+        B, C, O = xs[0].shape[0], xs[0].shape[-1], kern.shape[-1]
+        e = xs[0].element_size()
+        nbytes = (sum(x.numel() for x in xs) + kern.numel() + B * H * W * O) * e + O * 4
+        if kernel == "resize_conv_relu":
+            # the 3x3 conv on the tensor cores, the resize-sum (4 taps per
+            # input element) in f32
+            return nbytes, [(2.0 * B * H * W * 9 * C * O, BF16_TENSOR_FLOPS),
+                            (8.0 * len(xs) * B * H * W * C, F32_FLOPS)]
+        # u_i = x_i K' on the tensor cores, then the gather over the
+        # non-zero taps of this input's shifted resize matrices in f32
+        from diff_sal_tpu_torch.ops import resize
+
+        shapes = tuple((x.shape[1], x.shape[2]) for x in xs)
+        _, wts = resize._phase_tables(shapes, (H, W), xs[0].dtype, "cpu")
+        gather = 0.0
+        for k in range(len(xs)):
+            nz = (wts[k] != 0).sum(0).double()  # non-zero taps per table entry
+            rows = 2.0 + 2.0 * nz[:3 * H].reshape(3, H).sum(0)
+            cols = nz[3 * H:].reshape(3, W).sum(0)
+            gather += float(rows.sum() * cols.sum())
+        mm = sum(2.0 * B * x.shape[1] * x.shape[2] * C * 9 * O for x in xs)
+        return nbytes, [(mm, BF16_TENSOR_FLOPS), (B * O * (gather + 2.0 * H * W), F32_FLOPS)]
     raise KeyError(kernel)
 
 
@@ -179,6 +235,17 @@ def library_call(name, args, kw):
         bg = torch.zeros_like(wg, requires_grad=True)
         out = F.layer_norm(xg, (x.shape[-1],), wg, bg, eps)
         return lambda: torch.autograd.grad(out, (xg, wg, bg), g, retain_graph=True)
+    if name == "cvt_attention":
+        q, k, v, heads, scale = args[:5]
+        q4, k4, v4 = (t.reshape(t.shape[0], t.shape[1], heads, -1).transpose(1, 2)
+                      for t in (q, k, v))
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+    if name == "depthwise_pool3d":
+        # cuDNN's grouped conv3d on an NCDHW copy made beforehand
+        x, w, stride = args[:3]
+        xc = x.permute(0, 4, 1, 2, 3).contiguous()
+        wc = w.to(x.dtype).permute(3, 0, 1, 2)[:, None].contiguous()
+        return lambda: F.conv3d(xc, wc, None, stride, 1, 1, x.shape[-1])
     if name in ("bias_attention", "bias_attention_bwd"):
         q, k, v, rel = args[:4]
         (kt, kh, kw_), H, scale = args[5:8] if name == "bias_attention_bwd" else args[4:7]
@@ -266,9 +333,9 @@ def hold_kernels(names, recorders, plain, counts):
             if lib is not None:
                 has_lib = True
                 lib_ms += cuda_ms(lib)
-            nbytes, ops, peak = bound_terms(name, args, kw)
+            nbytes, ops = bound_terms(name, args, kw)
             t_bytes += nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops += ops / peak * 1e3
+            t_ops += sum(n / peak for n, peak in ops) * 1e3
         kern = kernels.registry()[name]
         rows.append({
             "name": name,
@@ -308,12 +375,206 @@ def grad_agreement(got, ref):
     return stats, worst
 
 
+def lowered_config(cfg):
+    """`cfg` with the three eval lowerings: the MViT pools through K11, the
+    CvT attention through K7 and the head as conv-at-low-res through K9."""
+    return dataclasses.replace(
+        cfg, visual=dataclasses.replace(cfg.visual, pool_mode="pallas"),
+        decoder=dataclasses.replace(cfg.decoder, fused_attn=True, head_lowres=True))
+
+
+def path_launches(cfg, nfe: int):
+    """Launches of each kernel in one `sample_saliency` run of `cfg` with
+    `nfe` denoiser calls, from the config's structure: the encoders run
+    once per map, the decoder once per call."""
+    from diff_sal_tpu_torch.models.mvit import block_plan
+
+    v, d = cfg.visual, cfg.decoder
+    stages = d.mid_num_stages  # one TransformerBlock each
+    # MViT: norm1 and norm2 on the spatial and on the cls rows, norm_q/k/v,
+    # one norm per emitted scale; AudioAttnNet: two per layer and a final
+    # one; the decoder per call: each block's norm and its q, k and v token
+    # norms (norm2 runs inside K3), and one per stage output
+    ln = (7 * v.num_layers + len(v.out_scales) + 2 * cfg.spatiotemp.depth + 1
+          + nfe * 5 * stages)
+    # one pool per block where q and kv share a stride, else a q and a kv pool
+    pools = sum(1 if p["stride_q"] == p["stride_kv"] else 2 for p in block_plan(v))
+    return {"bias_attention": v.num_layers, "layer_norm": ln, "block_tail": nfe * stages,
+            "bilinear_resize_sum": 0 if d.head_lowres else nfe,
+            "resize_phase_head": nfe if d.head_lowres else 0, "resize_conv_relu": 0,
+            "cvt_attention": nfe * stages if d.fused_attn else 0,
+            "depthwise_pool3d": pools if v.pool_mode == "pallas" else 0,
+            "bias_attention_bwd": 0, "layer_norm_bwd": 0}
+
+
+def check_launches(counts, want, what: str):
+    bad = {n: (counts[n], k) for n, k in want.items() if counts[n] != k}
+    assert not bad, f"{what}: launches (got, expected) {bad}"
+
+
+def dpm_sampling(nfe: int):
+    """bench.py's DPM-Solver++ sweep settings (multistep, order 2, logSNR
+    spacing, denoise to zero): `nfe` denoiser calls per map."""
+    from diff_sal_tpu_torch.config import SamplingConfig
+
+    return SamplingConfig(sample_type="dpmsolver++", timesteps=nfe, dpm_solver_method="multistep",
+                          dpm_solver_order=2, skip_type="logSNR")
+
+
+def dpm_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi):
+    """Phase 8: `sample_saliency` with DPM-Solver++ 2M at NFE 2 and 5 on
+    the full-width AV model with the three eval lowerings; launch counts
+    per run, the K8 head variant, the maps against the default lowerings,
+    timing, each new kernel against its plain version, and the small model
+    against the CPU. Returns the `kernels` rows of K7, K8, K9 and K11."""
+    from diff_sal_tpu_torch.config import (AudioAttnConfig, ModelConfig, MViTConfig,
+                                           SalUNetConfig, VGGishConfig)
+    from diff_sal_tpu_torch.inference import sample_saliency
+    from diff_sal_tpu_torch.models.diff_model import VideoSaliencyModel, build_model
+    from diff_sal_tpu_torch.ops import kernels
+
+    cfg = lowered_config(main_config())
+    model = build_model(cfg, seed=0, device=dev)
+    # the flags change no parameter: the default lowerings' model, same weights
+    model_d = VideoSaliencyModel(main_config()).eval()
+    model_d.load_state_dict(model.state_dict())
+    model_d.to(dev)
+    head = model.decoder_net.invpt_decoder.mt_proj
+    g = torch.Generator(device=dev).manual_seed(8)
+    (H, W), T = cfg.decoder.img_size, cfg.visual.temporal_size
+    inputs = [(torch.randn(B, T, H, W, 3, generator=g, device=dev) * 0.5,
+               torch.randn(B, 9, H // 2, W // 2, 1, generator=g, device=dev),
+               torch.randn(B, H, W, 1, generator=g, device=dev)) for _ in range(3)]
+
+    def run(m, nfe, i=0):
+        rgb, audio, noise = inputs[i % len(inputs)]
+        return sample_saliency(m, schedule, dpm_sampling(nfe), data_cfg, rgb, audio, noise=noise)
+
+    def counted(m, nfe, record=()):
+        for n in record:
+            recorders[n].on = True
+        kernels.reset_launch_counts()
+        out = run(m, nfe)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for n in record:
+            recorders[n].on = False
+        assert tuple(out.shape) == (B, H, W, 1), out.shape
+        assert bool(torch.isfinite(out).all()), f"NFE {nfe}: non-finite map"
+        lo, hi, std = float(out.min()), float(out.max()), float(out.std())
+        assert 0.0 <= lo and hi <= 1.0 and std > 0.0, (nfe, lo, hi, std)
+        return out, counts
+
+    run(model, 2)
+    run(model_d, 2)  # warm-up
+    torch.cuda.synchronize()
+    new = ("cvt_attention", "resize_phase_head", "depthwise_pool3d")
+    counts8, maps = {}, {}
+    for nfe in (2, 5):
+        maps[nfe], counts8[nfe] = counted(model, nfe, new if nfe == 2 else ())
+        c = counts8[nfe]
+        log(f"[dpm] NFE {nfe}: launches per run " + json.dumps(c))
+        check_launches(c, path_launches(cfg, nfe), f"NFE {nfe}")
+
+    # the other head lowering: K8 at full resolution
+    head.head_lowres, head.fused_head = False, True
+    counts_k8 = {}
+    for nfe in (2, 5):
+        out, c = counted(model, nfe, ("resize_conv_relu",) if nfe == 2 else ())
+        counts_k8[nfe] = c
+        check_launches(c, {**path_launches(cfg, nfe), "resize_phase_head": 0,
+                           "resize_conv_relu": nfe}, f"NFE {nfe} with fused_head")
+        log(f"[dpm] NFE {nfe} with fused_head: K8 {c['resize_conv_relu']} launches, "
+            f"max|map - head_lowres map| {float((out - maps[nfe]).abs().max()):.3e}")
+    head.head_lowres, head.fused_head = True, False
+
+    # against the default lowerings on the same inputs and noise: conv pools,
+    # einsum attention, K4 + conv head. Every lowering is a rewrite of the
+    # same function up to where bf16 rounds (the einsum path rounds the
+    # scores to bf16, cuDNN the pool weights), so the maps may differ by the
+    # bf16 bound phase 5 holds the whole port to: 3e-2 on the [0, 1] map
+    for nfe in (2, 5):
+        ref, c = counted(model_d, nfe)
+        check_launches(c, path_launches(main_config(), nfe), f"NFE {nfe} default lowerings")
+        d = float((maps[nfe] - ref).abs().max())
+        log(f"[dpm] NFE {nfe}: max|lowered - default lowerings| {d:.3e} (limit 3e-2), "
+            f"mean {float((maps[nfe] - ref).abs().mean()):.3e}")
+        assert d <= 3e-2, (nfe, d)
+
+    # host-bound runs drift within a process: time the two models in turns
+    # (lowered, default, default, lowered) and report each turn and the mean
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for nfe in (2, 5):
+        iters = max(3, cli.iters // nfe)
+        times = {"lowered": [], "default": []}
+        for name in ("lowered", "default", "default", "lowered"):
+            m = model if name == "lowered" else model_d
+            start.record()
+            for i in range(iters):
+                out = run(m, nfe, i)
+            end.record()
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(out).all()) and float(out.std()) > 0
+            times[name].append(start.elapsed_time(end) / iters)
+        for name, ts in times.items():
+            ms = sum(ts) / len(ts)
+            log(f"[dpm] NFE {nfe} {name} lowerings: {ms:.2f} ms per B={B} run (turns "
+                + ", ".join(f"{t:.2f}" for t in ts) + f"), {1000.0 * B / ms:.2f} clips/s "
+                f"({2 * iters} iters, rotating inputs) on {kind} [{smi}]")
+    log(f"[dpm] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if cli.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        for nfe, name, m in ((2, "lowered", model), (2, "default", model_d)):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                run(m, nfe, 1)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t1) * 1e3
+            # the table's last line sums the device time
+            log(f"[dpm profile] NFE {nfe} {name} lowerings: {wall:.2f} ms wall under the "
+                "profiler")
+            log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    del model, model_d, inputs
+
+    counts = dict(counts8[2])
+    counts["resize_conv_relu"] = counts_k8[2]["resize_conv_relu"]
+    rows = hold_kernels(("cvt_attention", "resize_conv_relu", "resize_phase_head",
+                         "depthwise_pool3d"), recorders, plain, counts)
+
+    # the small AV model with the three lowerings, DPM++ NFE 2: bf16 through
+    # the kernels on the card against f32 through the plain versions on the CPU
+    small = lowered_config(ModelConfig(visual=MViTConfig.tiny(spatial_size=(64, 96)),
+                                       audio=VGGishConfig(), spatiotemp=AudioAttnConfig(),
+                                       decoder=SalUNetConfig(img_size=(64, 96))))
+    gc = torch.Generator().manual_seed(9)
+    rgb_s, aud_s = (torch.randn(2, 16, 64, 96, 3, generator=gc),
+                    torch.randn(2, 9, 32, 48, 1, generator=gc))
+    noise_s = torch.randn(2, 64, 96, 1, generator=gc)
+    cpu_model = build_model(small, seed=10, device="cpu")
+    ref = sample_saliency(cpu_model, schedule, dpm_sampling(2), data_cfg, rgb_s, aud_s,
+                          noise=noise_s)
+    gpu_model = VideoSaliencyModel(dataclasses.replace(small, compute_dtype="bfloat16")).eval()
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    kernels.reset_launch_counts()
+    got = sample_saliency(gpu_model.to(dev), schedule, dpm_sampling(2), data_cfg, rgb_s.to(dev),
+                          aud_s.to(dev), noise=noise_s).cpu()
+    c = kernels.launch_counts()
+    assert all(c[n] > 0 for n in new), c
+    err = float((got - ref).abs().max())
+    log(f"[dpm small] bf16 card vs f32 CPU plain, DPM++ NFE 2 with the lowerings: max|d| "
+        f"{err:.3e} (limit 3e-2)")
+    assert err <= 3e-2, err
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=10, help="timed main-path iterations")
     ap.add_argument("--profile", action="store_true",
-                    help="also print torch.profiler tables of one main-path run and one "
-                         "training step")
+                    help="also print torch.profiler tables of one main-path run, one "
+                         "training step and one DPM++ NFE 2 run with and without the "
+                         "eval lowerings")
     cli = ap.parse_args()
 
     t_all = time.perf_counter()
@@ -333,7 +594,7 @@ def main() -> int:
     from diff_sal_tpu_torch.diffusion.schedule import make_schedule
     from diff_sal_tpu_torch.inference import sample_saliency
     from diff_sal_tpu_torch.models.diff_model import VideoSaliencyModel, build_model
-    from diff_sal_tpu_torch.ops import attention, kernels, layernorm, mlp, resize
+    from diff_sal_tpu_torch.ops import attention, kernels, layernorm, mlp, pool, resize
     from diff_sal_tpu_torch.train.optim import make_optimizer
     from diff_sal_tpu_torch.train.train_step import make_train_step
 
@@ -373,6 +634,10 @@ def main() -> int:
         "bilinear_resize_sum": Recorder(resize, "bilinear_resize_sum"),
         "bias_attention_bwd": Recorder(attention, "bias_attention_bwd"),
         "layer_norm_bwd": Recorder(layernorm, "layer_norm_bwd"),
+        "cvt_attention": Recorder(attention, "cvt_cross_attention"),
+        "resize_conv_relu": Recorder(resize, "resize_sum_conv_relu"),
+        "resize_phase_head": Recorder(resize, "resize_sum_conv_relu_phase"),
+        "depthwise_pool3d": Recorder(pool, "depthwise_pool3d"),
     }
     for n in INFER_KERNELS:
         recorders[n].on = True
@@ -388,6 +653,7 @@ def main() -> int:
     assert 0.0 <= lo and hi <= 1.0 and std > 0.0, (lo, hi, std)
     missing = [n for n in INFER_KERNELS if counts[n] == 0]
     assert not missing, f"kernels not launched on the main path: {missing}"
+    check_launches(counts, path_launches(cfg, 1), "main path")
     log(f"[main] map {tuple(out.shape)} min {lo:.4f} max {hi:.4f} std {std:.5f}")
     log("[main] launches per run " + json.dumps(counts)
         + " per clip " + json.dumps({n: c / B for n, c in counts.items()}))
@@ -422,6 +688,10 @@ def main() -> int:
         "bilinear_resize_sum": resize.bilinear_resize_sum_plain,
         "bias_attention_bwd": attention.bias_attention_bwd_plain,
         "layer_norm_bwd": layernorm.layer_norm_bwd_plain,
+        "cvt_attention": attention.reference_cvt_attention,
+        "resize_conv_relu": resize.resize_sum_conv_relu_plain,
+        "resize_phase_head": resize.resize_sum_conv_relu_lowres,
+        "depthwise_pool3d": pool.pool_plain,
     }
     rows = hold_kernels(INFER_KERNELS, recorders, plain, counts)
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
@@ -573,6 +843,11 @@ def main() -> int:
     assert card_worst[0] < 0.75, card_worst
     assert set(g16) == set(g32), set(g16) ^ set(g32)
     log(f"[small train] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 8: DPM-Solver++ with the eval lowerings at full width ---------
+    t0 = time.perf_counter()
+    rows += dpm_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi)
+    log(f"[dpm] phase {time.perf_counter() - t0:.1f} s")
 
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

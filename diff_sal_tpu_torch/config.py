@@ -4,13 +4,18 @@ A copy of the function-changing fields of the JAX package's configs
 (`diff_sal_tpu/config.py`), with the same names and defaults. The JAX
 configs also carry flags that pick a TPU lowering of the same function
 (`cls_stream`, `tokens3d`, `flat_dots`, `qkv_conv`, `fuse_kv`, `lane_pad`,
-`fold_proj`, `stem_mode`, `pool_mode`, `skip_pool`, `attn_softmax`,
+`fold_proj`, `stem_mode`, `skip_pool`, `attn_softmax`,
 `use_pallas_attention`, the decoder's `upembed_phase`, `pool_reduce`,
-`conv_wg_dots`, `head_lowres`, `fused_attn`, `fused_tail`): the port builds
-each function once and has none of them. The training step's fields
-(dequantization, losses, optimizer, dropout, drop-path, the train-time
-dead-frame cut, EMA) are here; fields that only unported paths read
-(DPM-Solver settings, the trainer's epochs and logging, the mesh) come
+`conv_wg_dots`, `fused_tail`): the port builds each of those functions
+once and has none of them. Three lowering flags are kept, with the JAX
+defaults (off), because each routes to a hand-written kernel of its own:
+`MViTConfig.pool_mode="pallas"` (the attention pools through kernel K11),
+`SalUNetConfig.fused_attn` (the decoder's CvT attention through K7 at
+eval) and `SalUNetConfig.head_lowres` (the decoder head as conv-at-low-res
+through K9 at eval). The training step's fields (dequantization, losses,
+optimizer, dropout, drop-path, the train-time dead-frame cut, EMA) and
+the DPM-Solver settings of `SamplingConfig` are here; fields that only
+unported paths read (the trainer's epochs and logging, the mesh) come
 with those paths.
 """
 
@@ -94,8 +99,14 @@ class TrainingConfig:
 class SamplingConfig:
     """Inference sampler knobs (reference `cfgs/diffusion.yml:63-77`)."""
 
-    sample_type: str = "ddim"  # ddim | ddpm
+    skip_type: str = "logSNR"  # logSNR | time_uniform | time_quadratic
+    sample_type: str = "ddim"  # ddim | ddpm | dpmsolver | dpmsolver++
     timesteps: int = 1
+    dpm_solver_order: int = 2
+    denoise: bool = True
+    dpm_solver_method: str = "multistep"  # multistep | singlestep
+    lower_order_final: bool = False
+    thresholding: bool = False
     eta: float = 0.0
 
 
@@ -126,6 +137,9 @@ class MViTConfig:
     gelu: str = "tanh"
     # int8 MLP weights: only "none" is ported so far
     mlp_quant: str = "none"
+    # attention-pool lowering: "conv" (cuDNN depthwise conv3d) | "pallas"
+    # (kernel K11, ops/pool.py); JAX's "stencil" is the conv's function
+    pool_mode: str = "conv"
 
     @classmethod
     def small(cls, **kw) -> "MViTConfig":
@@ -202,6 +216,11 @@ class SalUNetConfig:
     # apply the every-stage cut inside the training step too (JAX
     # `config.py:390-404`): approximate in the same way, default on
     skip_dead_frames_train: bool = True
+    # eval: the CvT cross-attention through kernel K7 (ops/attention.py)
+    fused_attn: bool = False
+    # eval: the mt_proj head as conv-at-low-res with BatchNorm folded,
+    # through kernel K9 (ops/resize.py)
+    head_lowres: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,8 @@
 """End-to-end saliency sampling (JAX package `inference.py`; reference
 `sample_image`, diffusion_trainer.py:545-640): encode video and audio
-once, run the configured reverse process, inverse-transform to a [0, 1]
-map.
+once, run the configured reverse process (DDIM, DDPM, DPM-Solver or
+DPM-Solver++; the decoder runs once per denoiser call, the encoders
+once), inverse-transform to a [0, 1] map.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import torch
 
 from diff_sal_tpu_torch.config import DataTransformConfig, SamplingConfig
 from diff_sal_tpu_torch.data.transforms import inverse_data_transform
+from diff_sal_tpu_torch.diffusion.dpm_solver import dpm_solver_sample
 from diff_sal_tpu_torch.diffusion.sampling import ddim_sample, ddpm_sample
 from diff_sal_tpu_torch.diffusion.schedule import DiffusionSchedule
 from diff_sal_tpu_torch.models.diff_model import VideoSaliencyModel
@@ -54,6 +56,9 @@ def sample_saliency(model: VideoSaliencyModel, schedule: DiffusionSchedule,
     elif sampling.sample_type == "ddpm":
         x = ddpm_sample(schedule, denoise_fn, x, timesteps=sampling.timesteps,
                         training_target=training_target, generator=generator)
+    elif sampling.sample_type in ("dpmsolver", "dpmsolver++"):
+        x = dpm_solver_sample(schedule, denoise_fn, x, sampling=sampling,
+                              training_target=training_target)
     else:
-        raise NotImplementedError(f"sample_type={sampling.sample_type!r} is not ported yet")
+        raise NotImplementedError(f"sample_type={sampling.sample_type!r}")
     return inverse_data_transform(data_cfg, x)

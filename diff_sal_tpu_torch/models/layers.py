@@ -222,12 +222,38 @@ class Mlp(nn.Module):
 class ConvBNRelu(nn.Sequential):
     """3x3 conv + BatchNorm + ReLU (reference common_block.py:33-36; state
     dict keys `0.*` conv and `1.*` BN) over the decoder's multi-scale sum
-    of `tasks` resized to `out_hw`, computed by kernel K4."""
+    of `tasks` resized to `out_hw`, computed by kernel K4.
 
-    def __init__(self, cin: int, cout: int):
+    At eval two lowerings of the same function fold BatchNorm's running
+    statistics into the conv (JAX `layers.py:151-182`): a = scale *
+    rsqrt(var + 1e-5), K' = K a, b' = (conv bias - mean) a + BN bias, and
+    relu(conv_K'(sum_i resize(task_i)) + b'). `head_lowres` runs it as
+    conv-at-low-res through kernel K9 and takes precedence; `fused_head`
+    (a module field, which `Decoder` never sets, as in JAX) through kernel
+    K8. Parameters are the same on every path."""
+
+    def __init__(self, cin: int, cout: int, head_lowres: bool = False,
+                 fused_head: bool = False):
         super().__init__(nn.Conv2d(cin, cout, 3, padding=1), BatchNorm(cout))
+        self.head_lowres = head_lowres
+        self.fused_head = fused_head
+
+    def folded(self, dt: torch.dtype):
+        """The eval-time (K' (3, 3, C, O) in `dt`, b' (O,) f32) of conv + BN."""
+        conv, bn = self[0], self[1]
+        f = acc_dtype(conv.weight.dtype)
+        a = bn.weight.to(f) * torch.rsqrt(bn.running_var.to(f) + 1e-5)
+        b = (conv.bias.to(f) - bn.running_mean.to(f)) * a + bn.bias.to(f)
+        k = conv.weight.to(f).permute(2, 3, 1, 0) * a
+        return k.to(dt).contiguous(), b
 
     def forward(self, tasks, out_hw, dt: Dtype = None, train: bool = False):
+        if not train and (self.head_lowres or self.fused_head):
+            d = dt or tasks[0].dtype
+            k, b = self.folded(d)
+            head = (resize_ops.resize_sum_conv_relu_phase if self.head_lowres
+                    else resize_ops.resize_sum_conv_relu)
+            return head([t.to(d).contiguous() for t in tasks], out_hw, k, b)
         x = resize_ops.bilinear_resize_sum([t.contiguous() for t in tasks], out_hw)
         conv, bn = self[0], self[1]
         y = conv2d(x, conv.weight, conv.bias, dt, padding=1)

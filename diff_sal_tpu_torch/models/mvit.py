@@ -7,7 +7,9 @@ and 2x query pooling at the downscale blocks, and the coarse-first
 4-scale pyramid. The cls token rides a separate (B, 1, C) stream: the
 spatial query rows go through kernel K1 (`ops/attention.py`), the single
 cls query row attends in plain torch (as at JAX `mvit.py:1122-1131`).
-Every LayerNorm runs through kernel K2. Parameter names are the
+Every LayerNorm runs through kernel K2; with `pool_mode="pallas"` the
+depthwise attention pools run through kernel K11 (`ops/pool.py`) on the
+qkv columns in place, else through cuDNN's grouped conv3d. Parameter names are the
 reference's (`patch_embed.projection`, `cls_token`, `blocks.{i}.*`,
 `norm{s}`).
 
@@ -29,8 +31,13 @@ from diff_sal_tpu_torch.models.layers import (Dtype, FusedLayerNorm, Mlp, conv3d
                                               dense)
 from diff_sal_tpu_torch.ops import attention as attn_ops
 from diff_sal_tpu_torch.ops import layernorm as ln_ops
+from diff_sal_tpu_torch.ops import pool as pool_ops
 from diff_sal_tpu_torch.ops.kernels import acc_dtype
 from diff_sal_tpu_torch.ops.rel_pos import rel_pos_terms
+
+
+# "stencil" is JAX's shifted-multiply-add lowering of the conv's function
+POOL_MODES = ("conv", "stencil", "pallas")
 
 
 def _pool_out_size(size, stride):
@@ -78,8 +85,13 @@ class MultiScaleAttention(nn.Module):
 
     def __init__(self, in_dims: int, out_dims: int, num_heads: int, stride_q,
                  stride_kv, rel_pos_dims, pool_kernel=(3, 3, 3), qkv_bias=True,
-                 rel_pos_embed=True, residual_pooling=True):
+                 rel_pos_embed=True, residual_pooling=True, pool_mode="conv"):
         super().__init__()
+        if pool_mode not in POOL_MODES:
+            raise ValueError(f"pool_mode={pool_mode!r}; expected one of {POOL_MODES}")
+        if pool_mode == "pallas" and tuple(pool_kernel) != (3, 3, 3):
+            raise ValueError(f"pool_mode='pallas' takes a (3, 3, 3) pool, got {pool_kernel}")
+        self.pool_mode = pool_mode
         self.num_heads = num_heads
         self.out_dims = out_dims
         self.head_dim = hd = out_dims // num_heads
@@ -102,8 +114,15 @@ class MultiScaleAttention(nn.Module):
     def _pool(self, x: torch.Tensor, parts, stride, dt) -> torch.Tensor:
         """One grouped depthwise conv over channel-concatenated parts
         (B, T, H, W, n*heads*hd); each part's (hd,1,kt,kh,kw) kernel is
-        shared across heads, as in the reference."""
+        shared across heads, as in the reference. With pool_mode="pallas"
+        the pool is kernel K11 on x as it lies, with the kernels tiled
+        across heads as (3, 3, 3, C) f32 (JAX `_pallas_depthwise_pool`,
+        mvit.py:594)."""
         H = self.num_heads
+        if self.pool_mode == "pallas":
+            w = torch.cat([getattr(self, f"pool_{p}").weight[:, 0].permute(1, 2, 3, 0)
+                           .repeat(1, 1, 1, H) for p in parts], -1)
+            return pool_ops.depthwise_pool3d(x.to(dt), w.float().contiguous(), stride)
         w = torch.cat([getattr(self, f"pool_{p}").weight.repeat(H, 1, 1, 1, 1)
                        for p in parts], 0)
         return conv3d(x, w, None, dt, stride=stride,
@@ -177,7 +196,7 @@ class MultiScaleBlock(nn.Module):
         self.attn = MultiScaleAttention(
             in_dims, out_dims, plan["num_heads"], plan["stride_q"],
             plan["stride_kv"], plan["rel_pos_dims"], cfg.pool_kernel,
-            cfg.qkv_bias, cfg.rel_pos_embed, cfg.residual_pooling,
+            cfg.qkv_bias, cfg.rel_pos_embed, cfg.residual_pooling, cfg.pool_mode,
         )
         self.norm2 = FusedLayerNorm(out_dims)
         self.mlp = Mlp(out_dims, int(out_dims * cfg.mlp_ratio), act=cfg.gelu)

@@ -4,7 +4,10 @@
 Noise-pyramid encoder, four CvT transformer stages with gated audio-video
 cross-attention, temporal reduction, multi-scale resize-and-sum (kernel
 K4) and sigmoid head. At eval every TransformerBlock tail runs through
-kernel K3 and every LayerNorm through K2. With `train=True` (the training
+kernel K3 and every LayerNorm through K2; with `fused_attn` the CvT
+attention runs through K7, and with `head_lowres` the resize-sum and
+`mt_proj` run as one conv-at-low-res head through K9 (`fused_head` on
+`mt_proj`: through K8), BatchNorm folded. With `train=True` (the training
 step) the tail takes the module path with DropPath instead of K3, the
 noise encoder's ResnetBlocks apply dropout, the UpEmbed and `mt_proj`
 BatchNorms use batch statistics, and the dead-frame cut follows
@@ -38,6 +41,7 @@ from diff_sal_tpu_torch.models.layers import (BatchNorm, ConvBNRelu, Dtype,
                                               FusedLayerNorm, GroupNorm, MLPHead,
                                               Mlp, conv2d, conv3d, dense, drop_path,
                                               dropout, timestep_embedding)
+from diff_sal_tpu_torch.ops import attention as attn_ops
 from diff_sal_tpu_torch.ops import mlp as mlp_ops
 from diff_sal_tpu_torch.ops.resize import bilinear_resize, nearest_upsample
 
@@ -110,8 +114,10 @@ class CvTAttention(nn.Module):
             self.conv = nn.Conv3d(C, C, (kt, k, k), groups=C, bias=False)
             self.bn = FusedLayerNorm(C)
 
-    def __init__(self, C: int, num_heads: int, kernel_kv: int, stride_kv: int):
+    def __init__(self, C: int, num_heads: int, kernel_kv: int, stride_kv: int,
+                 fused_attn: bool = False):
         super().__init__()
+        self.fused_attn = fused_attn
         self.num_heads = num_heads
         self.stride_kv = stride_kv
         # q: 3x3 / pad 1 / stride 1; k, v: kernel == stride, no pad
@@ -129,7 +135,9 @@ class CvTAttention(nn.Module):
         y = conv2d(x_sp, w2, None, dt, stride=stride, padding=padding, groups=w.shape[0])
         return cp.bn(y.reshape(y.shape[0], -1, y.shape[-1]))
 
-    def forward(self, tokens, hw, audio_tokens=None, dt: Dtype = None):
+    def forward(self, tokens, hw, audio_tokens=None, dt: Dtype = None, train: bool = False):
+        """With `fused_attn`, at eval, the attention is kernel K7 (JAX
+        `sal_unet.py:383`, `fused_attn and not train`)."""
         H, W = hw
         Bt, _, C = tokens.shape
         x_sp = tokens.reshape(Bt, H, W, C)
@@ -140,6 +148,9 @@ class CvTAttention(nn.Module):
         q, k, v = dense(q, self.proj_q, dt), dense(k, self.proj_k, dt), dense(v, self.proj_v, dt)
         nh, hd = self.num_heads, C // self.num_heads
         scale = C ** -0.5  # reference quirk: the full dim, not the head dim
+        if self.fused_attn and not train:
+            out = attn_ops.cvt_cross_attention(q, k, v, nh, scale)
+            return dense(out, self.proj, dt)
         attn = torch.einsum("blhd,bthd->bhlt", q.reshape(Bt, -1, nh, hd),
                             k.reshape(Bt, -1, nh, hd)) * scale
         attn = torch.softmax(attn, dim=-1)
@@ -162,13 +173,13 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, C: int, num_heads: int, mlp_ratio: float, kernel_kv: int,
                  stride_kv: int, audio_dim: Optional[int], act: str,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, fused_attn: bool = False):
         super().__init__()
         self.act = act
         self.drop_path_rate = drop_path_rate
         self.align_conv = nn.Conv2d(audio_dim, C, 1) if audio_dim else None
         self.norm = FusedLayerNorm(C)
-        self.attn = CvTAttention(C, num_heads, kernel_kv, stride_kv)
+        self.attn = CvTAttention(C, num_heads, kernel_kv, stride_kv, fused_attn)
         self.norm2 = FusedLayerNorm(C)
         self.mlp = Mlp(C, int(C * mlp_ratio), act=act)
 
@@ -196,7 +207,7 @@ class TransformerBlock(nn.Module):
             if audio_tokens is not None:
                 audio_tokens = audio_tokens.reshape(B, -1, H * W, C)[:, :T].reshape(B * T, H * W, C)
         tokens = x.reshape(B * T, H * W, C)
-        attn_out = self.attn(self.norm(tokens), (H, W), audio_tokens, dt)
+        attn_out = self.attn(self.norm(tokens), (H, W), audio_tokens, dt, train)
         if train:
             tokens = attn_out + tokens
             h = self.mlp(self.norm2(tokens).reshape(-1, C), dt, train, generator)
@@ -265,7 +276,7 @@ class TransformerStage(nn.Module):
         self.blocks = nn.ModuleList([TransformerBlock(
             C, cfg.num_heads[idx], cfg.mlp_ratio[idx], cfg.kernel_kv[idx],
             cfg.stride_kv[idx], cfg.audio_dim if with_audio else None, cfg.gelu,
-            cfg.drop_path_rate[idx],
+            cfg.drop_path_rate[idx], cfg.fused_attn,
         )])
 
     def forward(self, x, back_fea, audio, keep_frames, dt: Dtype = None, train: bool = False,
@@ -293,7 +304,7 @@ class Decoder(nn.Module):
             ReduceTemp(cfg.up_channel[i], cfg.ori_embed_dim, cfg.temporal_list[i])
             for i in range(n)
         ])
-        self.mt_proj = ConvBNRelu(cfg.ori_embed_dim, cfg.down_embed_dim)
+        self.mt_proj = ConvBNRelu(cfg.ori_embed_dim, cfg.down_embed_dim, cfg.head_lowres)
 
     def keep_frames(self, i: int, train: bool = False) -> Optional[int]:
         """Frames kept at stage i (JAX `sal_unet.py:639-650`): the last

@@ -44,6 +44,21 @@ order, so no atomics touch device memory and results are deterministic.
 `bias_attention` is differentiable: on either device it is an autograd
 Function whose forward is K1 (plain on the CPU) and whose backward is K5
 (plain on the CPU).
+
+K7 replaces the TPU kernel `diff_sal_tpu/ops/attention.py:893
+cvt_cross_attention` (body `_cvt_attn_kernel` :841): the SalUNet
+decoder's CvT cross-attention softmax(q k^T * scale) v per head, q (Bt, L,
+C) with L up to 5376 and k, v (Bt, S, C) pooled to S = 18 keys, scale =
+C^-1/2 (the reference's full-dim quirk). It runs at eval with
+`SalUNetConfig.fused_attn`. With so few keys it is bound by the bytes of q
+and out (4 S flops per q element). The kernel (`csrc/cvt_attention.cu`)
+stages 64 query rows and one head's k and v of one batch item in shared
+memory, computes the scores on the tensor cores (bf16 WMMA, f32
+accumulation), takes the softmax in f32 with a row max, rounds p to bf16
+and runs p v on the tensor cores with f32 accumulation; the (L, S) scores
+never reach device memory. K7 is eval-only, in the JAX package and here:
+`cvt_cross_attention` raises when grad mode is on and an input requires
+grad.
 """
 
 from __future__ import annotations
@@ -70,6 +85,13 @@ BWD_KERNEL = K.Kernel(
 HEAD_DIMS = (64, 96, 128)
 MAX_REL = 256
 MAX_REL_BWD = 128
+CVT_KERNEL = K.Kernel(
+    "cvt_attention", "cvt_attention.cu", "dsal_cvt_attention",
+    [K.P] * 4 + [K.I] * 5 + [K.F, K.P],
+    replaces="diff_sal_tpu/ops/attention.py:893 cvt_cross_attention "
+             "(_cvt_attn_kernel :841)",
+)
+
 BWD_BLOCK = 64        # rows per CTA and keys per tile of K5
 BWD_TARGET_CTAS = 264  # two waves of 132 SMs for the k-major part of K5
 
@@ -248,3 +270,51 @@ def bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1 forward, K5 backward (plain versions on the CPU): the autograd
     Function records its backward whenever an input requires grad."""
     return _BiasAttention.apply(q, k, v, rel, tuple(k_shape), num_heads, scale, residual)
+
+
+def reference_cvt_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            num_heads: int, scale: float) -> torch.Tensor:
+    """K7's plain version (the einsum path of JAX `reference_cvt_attention`,
+    attention.py:881), rounding as the TPU kernel does: f32 scores times
+    the scale, softmax in f32, p rounded to v's dtype, f32 accumulation,
+    one rounding to q's dtype."""
+    Bt, L, C = q.shape
+    hd = C // num_heads
+    f = K.acc_dtype(q.dtype)
+    s = torch.einsum("blhd,bthd->bhlt", q.reshape(Bt, L, num_heads, hd).to(f),
+                     k.reshape(Bt, -1, num_heads, hd).to(f)) * scale
+    p = torch.softmax(s, dim=-1).to(v.dtype).to(f)
+    out = torch.einsum("bhlt,bthd->blhd", p, v.reshape(Bt, -1, num_heads, hd).to(f))
+    return out.reshape(Bt, L, C).to(q.dtype)
+
+
+def cvt_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        num_heads: int, scale: float) -> torch.Tensor:
+    """softmax(q k^T * scale) v per head for q (Bt, L, C) and k, v (Bt, S,
+    C): kernel K7 on CUDA (bf16), the plain version on the CPU. Eval only.
+    The C entry refuses, and `launch` raises on, what its tiles do not hold:
+    S outside 1..128, head_dim not a multiple of 16, or k and v beyond one
+    CTA's shared memory."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("cvt_cross_attention (kernel K7) is eval-only and has no "
+                           "backward; call it under torch.no_grad() or take the einsum path")
+    if q.device.type == "cpu":
+        return reference_cvt_attention(q, k, v, num_heads, scale)
+    K.require_cuda(q, "cvt_cross_attention")
+    Bt, L, C = q.shape
+    S = k.shape[1]
+    K.check(tuple(k.shape) == (Bt, S, C) and tuple(v.shape) == (Bt, S, C),
+            f"cvt_cross_attention: k {tuple(k.shape)}, v {tuple(v.shape)} for q "
+            f"{tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        K.check(t.dtype == torch.bfloat16, f"cvt_cross_attention: {name} must be bf16, "
+                                           f"got {t.dtype}")
+        K.check(t.device == q.device and t.is_contiguous() and t.data_ptr() % 16 == 0,
+                f"cvt_cross_attention: {name} must be contiguous, 16-byte aligned, on "
+                f"{q.device}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    CVT_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), Bt, L, S, C,
+                      num_heads, float(scale), K.stream())
+    return out

@@ -149,11 +149,12 @@ def stream() -> int:
 
 def registry() -> Dict[str, Kernel]:
     """Every kernel of the port, by name."""
-    from diff_sal_tpu_torch.ops import attention, layernorm, mlp, resize
+    from diff_sal_tpu_torch.ops import attention, layernorm, mlp, pool, resize
 
     return {k.name: k for k in (attention.KERNEL, layernorm.KERNEL, mlp.KERNEL,
                                 resize.KERNEL, attention.BWD_KERNEL,
-                                layernorm.BWD_KERNEL)}
+                                layernorm.BWD_KERNEL, attention.CVT_KERNEL,
+                                resize.CONV_KERNEL, resize.PHASE_KERNEL, pool.KERNEL)}
 
 
 def build_all() -> Dict[str, float]:

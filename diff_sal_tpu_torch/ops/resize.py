@@ -21,6 +21,35 @@ K4 is differentiable: an autograd Function whose backward is plain math,
 as in the JAX package (`op_bwd`, resize.py:310): d x_i = Ah_i^T g Aw_i^T in
 f32, cast to x_i's dtype. The TPU has no kernel there, so neither does the
 port.
+
+Two eval-only kernels compute the decoder head that follows the
+resize-sum, relu(conv3x3_same(sum_i resize(x_i)) + b) with BatchNorm's
+running statistics folded into the conv's kernel K' (3, 3, C, O) and
+bias b (`models/layers.py:ConvBNRelu`):
+
+K8 `resize_sum_conv_relu` replaces the TPU kernel
+`diff_sal_tpu/ops/resize.py:388 resize_sum_conv_relu` (body
+`_resize_sum_conv_kernel` :334), the head at full resolution. It is bound
+by operations (9 C O multiply-adds per output pixel): the kernel
+(`csrc/resize_conv.cu`) is an implicit GEMM on the tensor cores that
+gathers the resize-sum of each 8 x 16 pixel tile with its halo into shared
+memory, 16 channels at a time, rounds it to bf16 as the TPU kernel does
+for the MXU, and runs the nine shifted 3x3 taps as WMMA products with f32
+accumulation; the (H, W, C) sum never reaches device memory.
+
+K9 `resize_sum_conv_relu_phase` replaces the TPU kernel
+`diff_sal_tpu/ops/resize.py:567 resize_sum_conv_relu_phase` (body
+`_phase_resize_head_kernel` :526), the same head as conv-at-low-res: u_i =
+x_i K' at each task's resolution (a matmul outside the kernel, as in the
+JAX package), then sum_i sum_dx Aw_dx (sum_dy Ah_dy u_i[dy, dx]) with the
+dy-shifted resize matrices, + b and ReLU. The kernel
+(`csrc/resize_phase.cu`) is a gather over the two taps per row of each
+shifted matrix, rounding where the TPU kernel rounds. Its plain version is
+`resize_sum_conv_relu_lowres`, the JAX package's non-Pallas form.
+
+Both raise when grad mode is on and an input requires grad: the JAX
+package has no gradient for them either, and its training path keeps the
+unfused ops.
 """
 
 from __future__ import annotations
@@ -40,7 +69,21 @@ KERNEL = K.Kernel(
              "(_resize_sum_kernel :206)",
 )
 
+CONV_KERNEL = K.Kernel(
+    "resize_conv_relu", "resize_conv.cu", "dsal_resize_conv_relu",
+    [K.P] * 4 + [K.P] * 5 + [K.I] * 8 + [K.I] * 6 + [K.P],
+    replaces="diff_sal_tpu/ops/resize.py:388 resize_sum_conv_relu "
+             "(_resize_sum_conv_kernel :334)",
+)
+PHASE_KERNEL = K.Kernel(
+    "resize_phase_head", "resize_phase.cu", "dsal_resize_phase_head",
+    [K.P] * 4 + [K.P] * 4 + [K.I] * 8 + [K.I] * 6 + [K.P],
+    replaces="diff_sal_tpu/ops/resize.py:567 resize_sum_conv_relu_phase "
+             "(_phase_resize_head_kernel :526)",
+)
+
 MAX_INPUTS = 4
+MAX_HEAD_OUT = 128  # O of the fused heads, as the TPU kernels take
 
 
 def _taps(in_size: int, out_size: int):
@@ -188,3 +231,169 @@ def bilinear_resize_sum(xs: Sequence[torch.Tensor],
     (B, h_i, w_i, C) of one dtype: K4 forward (plain on the CPU), plain
     backward."""
     return _ResizeSum.apply(tuple(out_hw), *xs)
+
+
+# --------------------------------------------------------------- heads -----
+
+
+def _check_eval_only(name: str, *ts):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(f"{name} is eval-only and has no backward; call it under "
+                           "torch.no_grad() or take the unfused head")
+
+
+def _check_head_inputs(name, xs, kernel, bias, dtypes):
+    K.require_cuda(xs[0], name)
+    B, _, _, C = xs[0].shape
+    dt = xs[0].dtype
+    O = kernel.shape[-1]
+    K.check(1 <= len(xs) <= MAX_INPUTS, f"{name} takes 1..{MAX_INPUTS} inputs")
+    K.check(dt in dtypes, f"{name}: dtype {dt}, expected one of {dtypes}")
+    for x in xs:
+        K.check(x.dim() == 4 and x.shape[0] == B and x.shape[3] == C and x.dtype == dt
+                and x.device == xs[0].device and x.is_contiguous() and x.data_ptr() % 16 == 0,
+                f"{name} inputs: (B,h,w,C) contiguous, 16-byte aligned, one dtype")
+    K.check(tuple(kernel.shape) == (3, 3, C, O) and kernel.dtype == dt
+            and kernel.device == xs[0].device and kernel.is_contiguous(),
+            f"{name}: kernel {tuple(kernel.shape)} {kernel.dtype}; expected (3, 3, {C}, O) "
+            f"{dt}, contiguous")
+    K.check(tuple(bias.shape) == (O,) and bias.device == xs[0].device,
+            f"{name}: bias {tuple(bias.shape)} for O={O}")
+    return B, C, O, dt
+
+
+def resize_sum_conv_relu_plain(xs: Sequence[torch.Tensor], out_hw: Tuple[int, int],
+                               kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """K8's plain version, rounding as the TPU kernel does: the f32
+    resize-sum rounded to the kernel's dtype, the 3x3 'same' conv with f32
+    accumulation, f32 bias, ReLU, one rounding to x's dtype."""
+    f = K.acc_dtype(xs[0].dtype)
+    acc = None
+    for x in xs:
+        r = bilinear_resize(x.to(f), out_hw)
+        acc = r if acc is None else acc + r
+    a = acc.to(kernel.dtype).to(f).permute(0, 3, 1, 2)
+    y = torch.nn.functional.conv2d(a, kernel.to(f).permute(3, 2, 0, 1), None, 1, 1)
+    y = torch.relu(y.permute(0, 2, 3, 1) + bias.to(f))
+    return y.to(xs[0].dtype)
+
+
+def resize_sum_conv_relu(xs: Sequence[torch.Tensor], out_hw: Tuple[int, int],
+                         kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """relu(conv3x3_same(sum_i bilinear_resize(x_i, out_hw)) + bias) for n
+    <= 4 maps (B, h_i, w_i, C), kernel (3, 3, C, O) with any eval-time
+    affine folded in, bias (O,): kernel K8 on CUDA (bf16, C % 16 == 0, O %
+    16 == 0, O <= 128), the plain version on the CPU. Eval only."""
+    xs = list(xs)
+    _check_eval_only("resize_sum_conv_relu (kernel K8)", *xs, kernel, bias)
+    if xs[0].device.type == "cpu":
+        return resize_sum_conv_relu_plain(xs, out_hw, kernel, bias)
+    B, C, O, dt = _check_head_inputs("resize_sum_conv_relu", xs, kernel, bias,
+                                     (torch.bfloat16,))
+    K.check(C % 16 == 0 and O % 16 == 0 and O <= MAX_HEAD_OUT,
+            f"resize_sum_conv_relu: needs C % 16 == 0, O % 16 == 0, O <= {MAX_HEAD_OUT} "
+            f"(C={C}, O={O})")
+    H, W = out_hw
+    shapes = tuple((x.shape[1], x.shape[2]) for x in xs)
+    idx, wts = _tap_tables(shapes, (H, W), xs[0].device)
+    b = bias.float().contiguous()
+    out = torch.empty((B, H, W, O), dtype=dt, device=xs[0].device)
+    ptrs = [x.data_ptr() for x in xs] + [None] * (MAX_INPUTS - len(xs))
+    hs = [s[0] for s in shapes] + [0] * (MAX_INPUTS - len(xs))
+    ws = [s[1] for s in shapes] + [0] * (MAX_INPUTS - len(xs))
+    CONV_KERNEL.launch(
+        *ptrs, idx.data_ptr(), wts.data_ptr(), kernel.data_ptr(), b.data_ptr(), out.data_ptr(),
+        *hs, *ws, len(xs), B, H, W, C, O, K.stream(),
+    )
+    return out
+
+
+def _head_matrix(kernel: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """(3dy, 3dx, C, O) -> (C, 9 O) with (dy, dx, O)-ordered columns."""
+    C, O = kernel.shape[2], kernel.shape[3]
+    return kernel.to(dt).permute(2, 0, 1, 3).reshape(C, 9 * O)
+
+
+def resize_sum_conv_relu_lowres(xs: Sequence[torch.Tensor], out_hw: Tuple[int, int],
+                                kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """K9's plain version, the JAX package's `resize_sum_conv_relu_lowres`
+    (resize.py:483): u_i = x_i K' (f32 accumulation, rounded to x's
+    dtype), the dy-shifted row matrices and the dx-shifted column matrices
+    in x's dtype, the dy contraction rounded to x's dtype, the dx
+    contraction and the task sum in f32, f32 bias, ReLU, one rounding."""
+    TH, TW = out_hw
+    dt = xs[0].dtype
+    f = K.acc_dtype(dt)
+    C, O = kernel.shape[2], kernel.shape[3]
+    kf = _head_matrix(kernel, dt).to(f)
+    acc = None
+    for x in xs:
+        B, h, w, _ = x.shape
+        u = (x.reshape(-1, C).to(f) @ kf).to(dt).to(f).reshape(B, h, w, 3, 3 * O)
+        ah = np.pad(_linear_weights(h, TH), ((1, 1), (0, 0)))
+        aw = np.pad(_linear_weights(w, TW), ((1, 1), (0, 0)))
+        mat = lambda a: torch.from_numpy(a).to(x.device, dt).to(f)  # noqa: E731
+        v = sum(torch.einsum("oh,bhwk->bowk", mat(ah[dy:dy + TH]), u[:, :, :, dy])
+                for dy in range(3))
+        v = v.to(dt).to(f).reshape(B, TH, w, 3, O)
+        y = sum(torch.einsum("pw,bowc->bopc", mat(aw[dx:dx + TW]), v[:, :, :, dx])
+                for dx in range(3))
+        acc = y if acc is None else acc + y
+    return torch.relu(acc + bias.to(f)).to(dt)
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_tables(shapes: Tuple[Tuple[int, int], ...], out_hw, dtype, device):
+    """Per input i: int32 [lo | hi] and f32 [w_lo | w_hi] of the shifted
+    resize matrices, weights rounded to `dtype`; entry dy * TH + o is row o
+    of Ah_dy, entry 3 TH + dx * TW + p row p of Aw_dx; zero weights where
+    the shifted row falls past the border."""
+    TH, TW = out_hw
+    L = 3 * (TH + TW)
+    idx = np.zeros((len(shapes), 2, L), np.int32)
+    wts = np.zeros((len(shapes), 2, L), np.float32)
+    for i, (h, w) in enumerate(shapes):
+        for base, (n_in, n_out) in ((0, (h, TH)), (3 * TH, (w, TW))):
+            lo, hi, wl, wh = _taps(n_in, n_out)
+            for d in range(3):
+                src = np.arange(n_out) + d - 1
+                ok = (src >= 0) & (src < n_out)
+                at = base + d * n_out + np.arange(n_out)[ok]
+                idx[i, 0, at], idx[i, 1, at] = lo[src[ok]], hi[src[ok]]
+                wts[i, 0, at], wts[i, 1, at] = wl[src[ok]], wh[src[ok]]
+    wts = torch.from_numpy(wts).to(dtype).float()  # the TPU kernel's bf16 matrices
+    return torch.from_numpy(idx).to(device), wts.to(device)
+
+
+def resize_sum_conv_relu_phase(xs: Sequence[torch.Tensor], out_hw: Tuple[int, int],
+                               kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """relu(conv3x3_same(sum_i bilinear_resize(x_i, out_hw)) + bias) as
+    conv-at-low-res: u_i = x_i K' by torch.matmul, then kernel K9 on CUDA
+    (bf16 or f32, O % 8 == 0 (bf16) or O % 4 == 0 (f32), O <= 128), the
+    plain version on the CPU. Eval only."""
+    xs = list(xs)
+    _check_eval_only("resize_sum_conv_relu_phase (kernel K9)", *xs, kernel, bias)
+    if xs[0].device.type == "cpu":
+        return resize_sum_conv_relu_lowres(xs, out_hw, kernel, bias)
+    B, C, O, dt = _check_head_inputs("resize_sum_conv_relu_phase", xs, kernel, bias,
+                                     (torch.bfloat16, torch.float32))
+    vec = 8 if dt == torch.bfloat16 else 4
+    K.check(O % vec == 0 and O <= MAX_HEAD_OUT,
+            f"resize_sum_conv_relu_phase: needs O % {vec} == 0 and O <= {MAX_HEAD_OUT}, "
+            f"got {O}")
+    TH, TW = out_hw
+    kf = _head_matrix(kernel, dt)
+    us = [torch.matmul(x.reshape(-1, C), kf).reshape(x.shape[0], x.shape[1], x.shape[2], 9 * O)
+          for x in xs]
+    shapes = tuple((x.shape[1], x.shape[2]) for x in xs)
+    idx, wts = _phase_tables(shapes, (TH, TW), dt, xs[0].device)
+    b = bias.float().contiguous()
+    out = torch.empty((B, TH, TW, O), dtype=dt, device=xs[0].device)
+    ptrs = [u.data_ptr() for u in us] + [None] * (MAX_INPUTS - len(us))
+    hs = [s[0] for s in shapes] + [0] * (MAX_INPUTS - len(xs))
+    ws = [s[1] for s in shapes] + [0] * (MAX_INPUTS - len(xs))
+    PHASE_KERNEL.launch(
+        *ptrs, idx.data_ptr(), wts.data_ptr(), b.data_ptr(), out.data_ptr(), *hs, *ws,
+        len(xs), B, TH, TW, O, int(dt == torch.bfloat16), K.stream(),
+    )
+    return out

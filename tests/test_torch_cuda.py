@@ -1,4 +1,4 @@
-"""The port's six Hopper kernels against their plain PyTorch versions, on
+"""The port's ten Hopper kernels against their plain PyTorch versions, on
 the card, and autograd through them. Every test here needs a CUDA device and nvcc: the `cuda` marker
 names them and the `card` fixture skips them where
 `torch.cuda.is_available()` is false. This file imports no JAX (the card's
@@ -23,6 +23,7 @@ from diff_sal_tpu_torch.ops import attention as t_attn
 from diff_sal_tpu_torch.ops import kernels as K
 from diff_sal_tpu_torch.ops import layernorm as t_ln
 from diff_sal_tpu_torch.ops import mlp as t_mlp
+from diff_sal_tpu_torch.ops import pool as t_pool
 from diff_sal_tpu_torch.ops import resize as t_resize
 
 pytestmark = pytest.mark.cuda
@@ -282,3 +283,153 @@ def test_small_av_train_step_on_card_matches_plain_on_cpu(card):
         b = torch.cat([g_cpu[n].flatten() for n in g_cpu if n.startswith(sub)])
         assert bool(torch.isfinite(a).all())
         assert float(torch.nn.functional.cosine_similarity(a, b, dim=0)) >= 0.9, sub
+
+
+# ------------------------------------------------ K7, K8, K9, K11 ---------
+
+
+@pytest.mark.parametrize("stride", [(1, 1, 1), (1, 2, 2), (1, 4, 4), (1, 8, 8)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_depthwise_pool_kernel(card, stride, dtype):
+    """K11 on a column slice of a wider tensor (as MViT pools the q or kv
+    columns of its qkv output), odd H and W, against the plain version."""
+    g = torch.Generator().manual_seed(sum(stride))
+    qkv = _randn(g, 2, 8, 15, 27, 288, dtype=dtype)
+    w = _randn(g, 3, 3, 3, 192, dtype=torch.float32, scale=0.3)
+    x = qkv[..., 96:]
+    before = t_pool.KERNEL.launches
+    out = t_pool.depthwise_pool3d(x, w, stride)
+    assert t_pool.KERNEL.launches == before + 1
+    _check(out, t_pool.pool_plain(x, w, stride), dtype)
+
+
+@pytest.mark.parametrize("shape,C,stride", [((8, 56, 96), 96, (1, 1, 1)),
+                                            ((8, 56, 96), 192, (1, 8, 8)),
+                                            ((8, 28, 48), 384, (1, 2, 2)),
+                                            ((8, 14, 24), 1536, (1, 2, 2))])
+def test_depthwise_pool_kernel_path_shapes(card, shape, C, stride):
+    """MViT-small's pools at B=2: block 0's q and kv pools, a stage-2 kv
+    pool (blocks 4-13) and block 14's q pool."""
+    g = torch.Generator().manual_seed(C)
+    x = _randn(g, 2, *shape, C)
+    w = _randn(g, 3, 3, 3, C, dtype=torch.float32, scale=0.3)
+    _check(t_pool.depthwise_pool3d(x, w, stride), t_pool.pool_plain(x, w, stride),
+           torch.bfloat16)
+
+
+def test_depthwise_pool_kernel_backward(card):
+    """K11's output records a backward, and the gradients (the conv VJP)
+    equal those of the plain version's autograd graph."""
+    g = torch.Generator().manual_seed(7)
+    x0 = _randn(g, 2, 4, 9, 13, 64, dtype=torch.float32)
+    w0 = _randn(g, 3, 3, 3, 64, dtype=torch.float32, scale=0.3)
+    go = _randn(g, 2, 4, 5, 7, 64, dtype=torch.float32)
+    x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    out = t_pool.depthwise_pool3d(x, w, (1, 2, 2))
+    assert out.grad_fn is not None
+    out.backward(go)
+    xr, wr = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+    t_pool.pool_plain(xr, wr, (1, 2, 2)).backward(go)
+    _check(out.detach(), t_pool.pool_plain(x0, w0, (1, 2, 2)), torch.float32)
+    _check(x.grad, xr.grad, torch.float32)
+    torch.testing.assert_close(w.grad, wr.grad, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("L,C", [(84, 768), (336, 384), (1344, 192), (5376, 96)])
+def test_cvt_attention_kernel_path_shapes(card, L, C):
+    """The decoder's four stages at B=2 (Bt = 10 frames), S = 18 keys."""
+    g = torch.Generator().manual_seed(L)
+    q, k, v = _randn(g, 10, L, C), _randn(g, 10, 18, C), _randn(g, 10, 18, C)
+    before = t_attn.CVT_KERNEL.launches
+    out = t_attn.cvt_cross_attention(q, k, v, 2, C ** -0.5)
+    assert t_attn.CVT_KERNEL.launches == before + 1
+    _check(out, t_attn.reference_cvt_attention(q, k, v, 2, C ** -0.5), torch.bfloat16)
+
+
+@pytest.mark.parametrize("L,S,C,heads", [(50, 1, 96, 2), (1000, 18, 64, 2), (77, 64, 768, 2),
+                                         (130, 33, 96, 3), (40, 128, 128, 2)])
+def test_cvt_attention_kernel_ragged(card, L, S, C, heads):
+    """Rows not a multiple of the 64-row CTA, one key, keys not a multiple
+    of the 16-key tile, 64 keys at head_dim 384, 128 keys (the most the
+    TPU kernel takes), head_dim 32 and three heads."""
+    g = torch.Generator().manual_seed(L + S)
+    q, k, v = _randn(g, 2, L, C), _randn(g, 2, S, C), _randn(g, 2, S, C)
+    _check(t_attn.cvt_cross_attention(q, k, v, heads, C ** -0.5),
+           t_attn.reference_cvt_attention(q, k, v, heads, C ** -0.5), torch.bfloat16)
+
+
+HEAD_PATH = [(7, 12), (14, 24), (28, 48), (56, 96)]
+
+
+def _head_args(g, shapes, C, O, dtype=torch.bfloat16):
+    xs = [_randn(g, 2, h, w, C, dtype=dtype, scale=0.5) for h, w in shapes]
+    k = _randn(g, 3, 3, C, O, dtype=dtype, scale=(9 * C) ** -0.5 * 2)
+    return xs, k, _randn(g, O, dtype=torch.float32, scale=0.1)
+
+
+@pytest.mark.parametrize("shapes,out_hw,C,O", [(HEAD_PATH, (112, 192), 768, 96),
+                                               ([(5, 7), (11, 3)], (37, 29), 32, 16),
+                                               ([(3, 4)], (9, 50), 48, 128)])
+def test_resize_conv_relu_kernel(card, shapes, out_hw, C, O):
+    """K8 at the decoder head's shapes at B=2, and at ragged sizes (H not a
+    multiple of the 8-row tile, W not of the 16-column tile, one input,
+    O = 128)."""
+    g = torch.Generator().manual_seed(C + O)
+    xs, k, b = _head_args(g, shapes, C, O)
+    before = t_resize.CONV_KERNEL.launches
+    out = t_resize.resize_sum_conv_relu(xs, out_hw, k, b)
+    assert t_resize.CONV_KERNEL.launches == before + 1
+    _check(out, t_resize.resize_sum_conv_relu_plain(xs, out_hw, k, b), torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shapes,out_hw,C,O", [(HEAD_PATH, (112, 192), 768, 96),
+                                               ([(5, 7), (11, 3)], (37, 29), 32, 16),
+                                               ([(3, 4)], (9, 50), 48, 128)])
+def test_resize_phase_head_kernel(card, dtype, shapes, out_hw, C, O):
+    """K9 (with its u_i = x_i K' matmul) against resize_sum_conv_relu_lowres
+    at the head's shapes and at ragged sizes."""
+    g = torch.Generator().manual_seed(C + O + 1)
+    xs, k, b = _head_args(g, shapes, C, O, dtype)
+    before = t_resize.PHASE_KERNEL.launches
+    out = t_resize.resize_sum_conv_relu_phase(xs, out_hw, k, b)
+    assert t_resize.PHASE_KERNEL.launches == before + 1
+    _check(out, t_resize.resize_sum_conv_relu_lowres(xs, out_hw, k, b), dtype)
+
+
+def test_eval_only_kernels_raise_under_grad(card):
+    """K7, K8 and K9 have no backward: under grad they raise rather than
+    return a result with no grad_fn."""
+    g = torch.Generator().manual_seed(8)
+    q = _randn(g, 1, 16, 64).requires_grad_()
+    with pytest.raises(RuntimeError, match="eval-only"):
+        t_attn.cvt_cross_attention(q, _randn(g, 1, 4, 64), _randn(g, 1, 4, 64), 2, 0.125)
+    xs, k, b = _head_args(g, [(3, 4)], 32, 16)
+    xs[0].requires_grad_()
+    for head in (t_resize.resize_sum_conv_relu, t_resize.resize_sum_conv_relu_phase):
+        with pytest.raises(RuntimeError, match="eval-only"):
+            head(xs, (6, 8), k, b)
+
+
+def test_new_kernels_refuse_what_they_do_not_take(card):
+    g = torch.Generator().manual_seed(9)
+    with pytest.raises(ValueError):  # K7 takes bf16 only
+        t_attn.cvt_cross_attention(*(_randn(g, 1, n, 64, dtype=torch.float32)
+                                     for n in (8, 2, 2)), 2, 0.125)
+    with pytest.raises(K.KernelLaunchError):  # K7: more keys than the TPU kernel takes
+        t_attn.cvt_cross_attention(_randn(g, 1, 8, 64), _randn(g, 1, 129, 64),
+                                   _randn(g, 1, 129, 64), 2, 0.125)
+    with pytest.raises(K.KernelLaunchError):  # K7: k and v beyond one CTA's shared memory
+        t_attn.cvt_cross_attention(_randn(g, 1, 8, 768), _randn(g, 1, 128, 768),
+                                   _randn(g, 1, 128, 768), 2, 0.125)
+    with pytest.raises(K.KernelLaunchError):  # K7: head_dim not a multiple of 16
+        t_attn.cvt_cross_attention(*(_randn(g, 1, n, 72) for n in (8, 2, 2)), 3, 0.125)
+    xs, k, b = _head_args(g, [(3, 4)], 32, 16, torch.float32)
+    with pytest.raises(ValueError):  # K8 takes bf16 only
+        t_resize.resize_sum_conv_relu(xs, (6, 8), k, b)
+    with pytest.raises(ValueError):  # K11: temporal stride 1 only
+        t_pool.depthwise_pool3d(_randn(g, 1, 4, 5, 5, 16), _randn(g, 3, 3, 3, 16,
+                                                               dtype=torch.float32), (2, 1, 1))
+    with pytest.raises(ValueError):  # K11: channels not in 16-byte groups
+        t_pool.depthwise_pool3d(_randn(g, 1, 4, 5, 5, 12), _randn(g, 3, 3, 3, 12,
+                                                               dtype=torch.float32), (1, 1, 1))

@@ -27,6 +27,7 @@ from diff_sal_tpu_torch.ops import attention as t_attn
 from diff_sal_tpu_torch.ops import kernels as K
 from diff_sal_tpu_torch.ops import layernorm as t_ln
 from diff_sal_tpu_torch.ops import mlp as t_mlp
+from diff_sal_tpu_torch.ops import pool as t_pool
 from diff_sal_tpu_torch.ops import rel_pos as t_rel
 from diff_sal_tpu_torch.ops import resize as t_resize
 
@@ -213,6 +214,10 @@ def _cpu_calls():
     t_mlp.block_tail(t(4, 16), t(4, 16), t(16), t(16), t(64, 16), t(64), t(16, 64), t(16))
     t_attn.bias_attention(t(1, 4, 16), t(1, 5, 16), t(1, 5, 16), t(1, 4, 1, 5),
                           (1, 2, 2), 1, 0.25)
+    t_attn.cvt_cross_attention(t(1, 6, 16), t(1, 2, 16), t(1, 2, 16), 2, 0.25)
+    t_pool.depthwise_pool3d(t(1, 2, 3, 4, 8), t(3, 3, 3, 8), (1, 2, 2))
+    t_resize.resize_sum_conv_relu([t(1, 2, 3, 16)], (4, 6), t(3, 3, 16, 16), t(16))
+    t_resize.resize_sum_conv_relu_phase([t(1, 2, 3, 16)], (4, 6), t(3, 3, 16, 8), t(8))
 
 
 def test_cpu_tensors_take_the_plain_route():
@@ -229,6 +234,16 @@ def test_other_devices_raise():
         t_ln.layer_norm(m, torch.ones(32), torch.zeros(32))
     with pytest.raises(ValueError):
         t_resize.bilinear_resize_sum([torch.empty(1, 2, 3, 8, device="meta")], (4, 6))
+    with pytest.raises(ValueError):
+        t_pool.depthwise_pool3d(torch.empty(1, 2, 3, 4, 8, device="meta"),
+                                torch.empty(3, 3, 3, 8, device="meta"), (1, 1, 1))
+    with pytest.raises(ValueError):
+        t_attn.cvt_cross_attention(*(torch.empty(1, n, 16, device="meta") for n in (4, 2, 2)),
+                                   2, 0.25)
+    xs, k = [torch.empty(1, 2, 3, 16, device="meta")], torch.empty(3, 3, 16, 16, device="meta")
+    for head in (t_resize.resize_sum_conv_relu, t_resize.resize_sum_conv_relu_phase):
+        with pytest.raises(ValueError):
+            head(xs, (4, 6), k, torch.empty(16, device="meta"))
 
 
 def test_missing_compiler_raises_instead_of_falling_back(monkeypatch, tmp_path):
