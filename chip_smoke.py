@@ -1,27 +1,32 @@
-"""Drive the PyTorch port's three paths (AV inference with DDIM, the AV
-training step, AV inference with DPM-Solver++ and the eval lowerings) on
-one NVIDIA GPU and hold each of its hand-written kernels against its plain
-PyTorch version.
+"""Drive the PyTorch port's paths (AV inference with DDIM, the AV training
+step, AV inference with DPM-Solver++ and the eval lowerings, the
+visual-only model in both MViT layouts) on one NVIDIA GPU and hold each of
+its thirteen hand-written kernels against its plain PyTorch version.
 
     python3 chip_smoke.py [--iters N] [--profile]
 
 Phases (each prints its wall time; any failure raises and exits non-zero):
   1. require CUDA and print the card's name and power limit (nvidia-smi);
-  2. build the ten kernels from `diff_sal_tpu_torch/csrc/` (one nvcc per
-     source, all started together; cached by source hash in
+  2. build the thirteen kernels from `diff_sal_tpu_torch/csrc/` (one nvcc
+     per source, all started together; cached by source hash in
      `diff_sal_tpu_torch/_build/`);
   3. main path at full width: `ModelConfig.audio_visual()` (MViTv2-small at
      224x384x16, VGGish, AudioAttnNet, SalUNet) in bf16 from seeded random
      weights, B=2, `sample_saliency` with DDIM NFE=1; checks the (B,224,384,1)
      map is finite, in [0, 1] and not constant; counts each kernel's launches
      in one run (counts set to 0 just before it, read just after) and
-     records every kernel call's inputs; times the path with CUDA events on
-     rotating inputs and prints clips/s;
+     records every kernel call's inputs (the four task maps K4 sums among
+     them); times the path with CUDA events on rotating inputs and prints
+     clips/s;
   4. each kernel against its plain version on exactly the recorded inputs
      (working dtype, stated tolerance), with the kernel, the plain version,
      the one PyTorch call that computes the same function where there is
      one, and the least time the card could take (bytes over 3.35 TB/s or
      operations over the peak rate of their type, whichever is larger);
+     then K10, which no model path calls: the four recorded task maps added
+     one by one into a zero accumulator (launches counted in that run),
+     against K4's sum of the same maps and each call against K10's plain
+     version;
   5. the whole port at a small size: bf16 through the kernels on the card
      against f32 through the plain versions on the CPU;
   6. the training step at full width: the AV config in bf16, B=4, x0
@@ -54,6 +59,19 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      K11 held against their plain versions and timed as in phase 4; the
      small AV model with the lowerings through DPM++ NFE 2, bf16 on the
      card against f32 on the CPU;
+  9. the visual-only model (`ModelConfig.visual_only()`, the DHF1k visual
+     pretraining model: MViTv2-small and the SalUNet without audio) at full
+     width in bf16, in both MViT layouts with the same weights, inputs,
+     noise and draws: `cls_stream` (K1, K5) and the token-concat layout
+     (`cls_stream=False`: K12 forward and backward). DDIM NFE 1 at B=2:
+     maps checked and within 3e-2 of each other, launches per run against
+     `path_launches`; the training step at B=4 with phase 6's recipe: the
+     first step's gradients (finite on every trainable tensor on the
+     graph, non-zero in MViT and the decoder) compared per sub-network
+     between the layouts (cosine >= LAYOUT_GRAD_COS), launches per step;
+     ms per run and per step, clips/s and peak memory per layout, timed in
+     turns; K12 forward and backward held against their plain versions on
+     the recorded inputs;
 then prints the `kernels` JSON line, the nvidia-smi line and, last, the
 result line {"ok": true, "device": {...}}.
 """
@@ -76,8 +94,20 @@ F32_FLOPS = 67e12               # f32 outside the tensor cores
 B = 2
 B_TRAIN = 4
 TRAIN_ITERS = 5  # timed training steps
+VISUAL_TRAIN_ITERS = 2  # timed visual-only steps per turn, four turns
+LAYOUTS = ("cls_stream", "token_concat")
+# phase 9: the two layouts' bf16 gradients at random weights differ as two
+# bf16 runs do. The same comparison on the CPU at 64x96 through the plain
+# versions (tests/test_torch_visual_only.py::
+# test_bf16_layouts_give_the_same_step_on_the_cpu) reads cosine 0.978
+# (MViT) and 0.983 (decoder); phase 7 holds the card to 0.9 likewise
+LAYOUT_GRAD_COS = 0.9
 DEVICE = "cuda"
 INFER_KERNELS = ("bias_attention", "layer_norm", "block_tail", "bilinear_resize_sum")
+KERNELS = INFER_KERNELS + ("bias_attention_bwd", "layer_norm_bwd", "cvt_attention",
+                           "resize_conv_relu", "resize_phase_head", "bilinear_resize_add",
+                           "depthwise_pool3d", "fused_bias_attention",
+                           "fused_bias_attention_bwd")
 TRAIN_KERNELS = ("bias_attention_bwd", "layer_norm_bwd")
 TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 0.0)}  # (atol, rtol)
 # bf16: kernel and plain version round the same f32 values at other points
@@ -167,6 +197,24 @@ def bound_terms(kernel: str, args, kw):
         out = xs[0].shape[0] * H * W * xs[0].shape[-1]
         nbytes = sum(x.numel() for x in xs) * xs[0].element_size() + out * xs[0].element_size()
         return nbytes, [(8.0 * len(xs) * out, F32_FLOPS)]
+    if kernel == "fused_bias_attention":
+        # read q, k, v (bf16) and the three f32 bias terms, write out
+        q, k, v, rt, rh, rw = args[:6]
+        BH, Lq, D = q.shape
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * (rt.numel() + rh.numel() + rw.numel())
+        return nbytes, [(4.0 * BH * Lq * k.shape[1] * D, BF16_TENSOR_FLOPS)]
+    if kernel == "fused_bias_attention_bwd":
+        # read q, g, k, v and the bias terms, write dq, dk, dv and the f32
+        # bias gradients; five (Lq, Lk, D) products per head
+        q, k, v, rt, rh, rw = args[:6]
+        BH, Lq, D = q.shape
+        nbytes = 2 * (3 * q.numel() + 4 * k.numel()) + 8 * (rt.numel() + rh.numel() + rw.numel())
+        return nbytes, [(10.0 * BH * Lq * k.shape[1] * D, BF16_TENSOR_FLOPS)]
+    if kernel == "bilinear_resize_add":
+        # read acc and x, write out; 4 taps per output element in f32
+        acc, x = args[:2]
+        return ((2 * acc.numel() * acc.element_size() + x.numel() * x.element_size()),
+                [(8.0 * acc.numel(), F32_FLOPS)])
     if kernel == "bias_attention_bwd":
         # bf16: read q, g, k, v, rel; write dq, dk, dv, drel; five (Lq, Lk, D)
         # products per head (S, dP, dV, dQ, dK)
@@ -247,36 +295,53 @@ def library_call(name, args, kw):
         wc = w.to(x.dtype).permute(3, 0, 1, 2)[:, None].contiguous()
         return lambda: F.conv3d(xc, wc, None, stride, 1, 1, x.shape[-1])
     if name in ("bias_attention", "bias_attention_bwd"):
+        # (B, L, H*D) with the packed (B, Lq, H, kt+kh+kw) bias terms
         q, k, v, rel = args[:4]
-        (kt, kh, kw_), H, scale = args[5:8] if name == "bias_attention_bwd" else args[4:7]
+        k_shape, H, scale = args[5:8] if name == "bias_attention_bwd" else args[4:7]
         Bq, Lq, HD = q.shape
-        D, Lk = HD // H, k.shape[1]
-        r = rel.float()
-        bias = (r[..., :kt, None, None] + r[..., None, kt:kt + kh, None]
-                + r[..., None, None, kt + kh:]).reshape(Bq, Lq, H, -1)
-        bias = F.pad(bias, (1, 0)).permute(0, 2, 1, 3)
-        q4, k4, v4 = (t.reshape(Bq, -1, H, D).transpose(1, 2) for t in (q, k, v))
-        if name == "bias_attention":
-            bias = bias.to(q.dtype).contiguous()
-            return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bias,
-                                                          scale=scale)
-        # a dense float bias that requires grad, stored with its last axis
-        # padded to 16 elements as the memory-efficient backend wants; the
-        # bias gradient is then reduced to drel
-        lk16 = -(-Lk // 16) * 16
-        store = torch.zeros((Bq, H, Lq, lk16), dtype=q.dtype, device=q.device)
-        store[..., :Lk] = bias
-        store.requires_grad_()
-        ins = [t.detach().requires_grad_() for t in (q4, k4, v4)]
-        out = F.scaled_dot_product_attention(*ins, attn_mask=store[..., :Lk], scale=scale)
-        g4 = args[4].reshape(Bq, Lq, H, D).transpose(1, 2)
-
-        def bwd():
-            *_, db = torch.autograd.grad(out, ins + [store], g4, retain_graph=True)
-            d5 = db[..., 1:Lk].reshape(Bq, H, Lq, kt, kh, kw_)
-            return torch.cat([d5.sum((4, 5)), d5.sum((3, 5)), d5.sum((3, 4))], dim=-1)
-        return bwd
+        kt, kh, _ = k_shape
+        heads = [t.reshape(Bq, -1, H, HD // H).transpose(1, 2) for t in (q, k, v)]
+        r = rel.float().permute(0, 2, 1, 3)
+        parts = (r[..., :kt], r[..., kt:kt + kh], r[..., kt + kh:])
+        g = args[4].reshape(Bq, Lq, H, -1).transpose(1, 2) if name.endswith("_bwd") else None
+        return _sdpa_call(heads, parts, k_shape, scale, g)
+    if name in ("fused_bias_attention", "fused_bias_attention_bwd"):
+        # (BH, L, D) per head with three f32 bias terms
+        bwd = name.endswith("_bwd")
+        k_shape, scale = args[7:9] if bwd else args[6:8]
+        heads = [t[:, None] for t in args[:3]]
+        parts = [t[:, None].float() for t in args[3:6]]
+        return _sdpa_call(heads, parts, k_shape, scale, args[6][:, None] if bwd else None)
     return None
+
+
+def _sdpa_call(heads, parts, k_shape, scale, g=None):
+    """SDPA on q, k, v (N, H, L, D) with the dense float bias built from the
+    t, h and w terms (N, H, Lq, k*), zero for key 0 (no residual): the
+    forward, or with g the backward with the bias gradient reduced to the
+    three terms' sums. The bias is stored with its last axis padded to 16
+    elements, as the memory-efficient backend wants."""
+    F = torch.nn.functional
+    q, k, v = heads
+    N, H, Lq, _ = q.shape
+    Lk = k.shape[2]
+    rt, rh, rw = parts
+    bias = (rt[..., :, None, None] + rh[..., None, :, None] + rw[..., None, None, :])
+    bias = F.pad(bias.reshape(N, H, Lq, -1), (1, 0))
+    if g is None:
+        bias = bias.to(q.dtype).contiguous()
+        return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale)
+    store = torch.zeros((N, H, Lq, -(-Lk // 16) * 16), dtype=q.dtype, device=q.device)
+    store[..., :Lk] = bias
+    store.requires_grad_()
+    ins = [t.detach().requires_grad_() for t in heads]
+    out = F.scaled_dot_product_attention(*ins, attn_mask=store[..., :Lk], scale=scale)
+
+    def bwd():
+        *_, db = torch.autograd.grad(out, ins + [store], g, retain_graph=True)
+        d5 = db[..., 1:Lk].reshape(N, H, Lq, *k_shape)
+        return d5.sum((4, 5)), d5.sum((3, 5)), d5.sum((3, 4))
+    return bwd
 
 
 def _outputs(x):
@@ -289,6 +354,10 @@ def _tolerance(name: str, i: int, ref: torch.Tensor, args):
     order, 1e-5 of the sum of the terms' magnitudes per channel (which
     bounds f32 rounding even where the terms cancel to ~0) and 1e-4
     relative."""
+    if name == "fused_bias_attention_bwd" and i >= 3:
+        # K12's f32 bias gradients, summed from dS as bf16 hi + lo parts on
+        # the tensor cores: the bf16 outputs' bound
+        return TOL[torch.bfloat16]
     if name == "layer_norm_bwd" and i > 0:
         x, g = args[0], args[1]
         C = x.shape[-1]
@@ -367,6 +436,8 @@ def grad_agreement(got, ref):
     stats = {}
     for sub in ("visual_net", "spatiotemp_net", "decoder_net", "all"):
         ns = [n for n in names if sub == "all" or n.startswith(sub + ".")]
+        if not ns:  # the visual-only model has no audio branch
+            continue
         a = torch.cat([got[n].flatten() for n in ns])
         b = torch.cat([ref[n].flatten() for n in ns])
         stats[sub] = (float((a - b).norm() / b.norm()),
@@ -383,28 +454,45 @@ def lowered_config(cfg):
         decoder=dataclasses.replace(cfg.decoder, fused_attn=True, head_lowres=True))
 
 
-def path_launches(cfg, nfe: int):
+def path_launches(cfg, nfe: int = 1, train: bool = False):
     """Launches of each kernel in one `sample_saliency` run of `cfg` with
-    `nfe` denoiser calls, from the config's structure: the encoders run
-    once per map, the decoder once per call."""
+    `nfe` denoiser calls, or (`train`) in one training step, from the
+    config's structure: the encoders run once per map or step, the decoder
+    once per call; the eval lowerings (K3, K7, K8, K9) at eval only."""
     from diff_sal_tpu_torch.models.mvit import block_plan
 
     v, d = cfg.visual, cfg.decoder
     stages = d.mid_num_stages  # one TransformerBlock each
+    calls = 1 if train else nfe
     # MViT: norm1 and norm2 on the spatial and on the cls rows, norm_q/k/v,
-    # one norm per emitted scale; AudioAttnNet: two per layer and a final
-    # one; the decoder per call: each block's norm and its q, k and v token
-    # norms (norm2 runs inside K3), and one per stage output
-    ln = (7 * v.num_layers + len(v.out_scales) + 2 * cfg.spatiotemp.depth + 1
-          + nfe * 5 * stages)
-    # one pool per block where q and kv share a stride, else a q and a kv pool
+    # one norm per emitted scale; AudioAttnNet (AV model only): two per
+    # layer and a final one; the decoder per call: each block's norm and
+    # its q, k and v token norms, one per stage output, and norm2, which
+    # runs inside K3 at eval
+    audio = 2 * cfg.spatiotemp.depth + 1 if cfg.spatiotemp is not None else 0
+    ln = (7 * v.num_layers + len(v.out_scales) + audio
+          + calls * (6 if train else 5) * stages)
+    # one pool per block where q and kv share a stride, else a q and a kv
+    # pool; K11 only with the cls stream (the token-concat layout pools by
+    # convolution, as in JAX)
     pools = sum(1 if p["stride_q"] == p["stride_kv"] else 2 for p in block_plan(v))
-    return {"bias_attention": v.num_layers, "layer_norm": ln, "block_tail": nfe * stages,
-            "bilinear_resize_sum": 0 if d.head_lowres else nfe,
-            "resize_phase_head": nfe if d.head_lowres else 0, "resize_conv_relu": 0,
-            "cvt_attention": nfe * stages if d.fused_attn else 0,
-            "depthwise_pool3d": pools if v.pool_mode == "pallas" else 0,
-            "bias_attention_bwd": 0, "layer_norm_bwd": 0}
+    attn = "bias_attention" if v.cls_stream else "fused_bias_attention"
+    want = {name: 0 for name in KERNELS}
+    want.update({attn: v.num_layers, "layer_norm": ln,
+                 "depthwise_pool3d": pools if v.pool_mode == "pallas" and v.cls_stream else 0})
+    if train:
+        # every MViT block's attention and every LayerNorm backward, except
+        # two norms off the graph: the finest pyramid scale's (the decoder
+        # never reads it) and the last block's norm2 of the cls row (its
+        # output is never read); the resize-sum's backward is plain math
+        want.update({attn + "_bwd": v.num_layers, "layer_norm_bwd": ln - 2,
+                     "bilinear_resize_sum": 1})
+    else:
+        want.update({"block_tail": nfe * stages,
+                     "bilinear_resize_sum": 0 if d.head_lowres else nfe,
+                     "resize_phase_head": nfe if d.head_lowres else 0,
+                     "cvt_attention": nfe * stages if d.fused_attn else 0})
+    return want
 
 
 def check_launches(counts, want, what: str):
@@ -568,13 +656,220 @@ def dpm_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi):
     return rows
 
 
+def visual_config(cls_stream: bool = True):
+    """Phase 9's model: the visual-only (DHF1k) model in bf16 at full width,
+    in the given MViT layout."""
+    from diff_sal_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig.visual_only(compute_dtype="bfloat16")
+    return dataclasses.replace(cfg, visual=dataclasses.replace(cfg.visual,
+                                                               cls_stream=cls_stream))
+
+
+def visual_only_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi):
+    """Phase 9: the visual-only model at full width in both MViT layouts,
+    same weights, inputs, noise and draws: DDIM NFE 1 at B=2 and the
+    training step at B=4; maps, launches, gradients, timings, and K12
+    forward and backward against their plain versions. Returns K12's
+    `kernels` rows."""
+    from diff_sal_tpu_torch.config import ExperimentConfig, SamplingConfig
+    from diff_sal_tpu_torch.inference import sample_saliency
+    from diff_sal_tpu_torch.models.diff_model import VideoSaliencyModel, build_model
+    from diff_sal_tpu_torch.ops import kernels
+    from diff_sal_tpu_torch.train.optim import make_optimizer
+    from diff_sal_tpu_torch.train.train_step import make_train_step
+
+    cfgs = {"cls_stream": visual_config(True), "token_concat": visual_config(False)}
+    models = {"cls_stream": build_model(cfgs["cls_stream"], seed=20, device=dev)}
+    # one parameter tree serves both layouts
+    models["token_concat"] = VideoSaliencyModel(cfgs["token_concat"]).eval()
+    models["token_concat"].load_state_dict(models["cls_stream"].state_dict())
+    models["token_concat"].to(dev)
+    (H, W), T = cfgs["cls_stream"].decoder.img_size, cfgs["cls_stream"].visual.temporal_size
+    g = torch.Generator(device=dev).manual_seed(21)
+    inputs = [(torch.randn(B, T, H, W, 3, generator=g, device=dev) * 0.5,
+               torch.randn(B, H, W, 1, generator=g, device=dev)) for _ in range(3)]
+    sampling = SamplingConfig()
+
+    def run(layout, i=0):
+        rgb, noise = inputs[i % len(inputs)]
+        return sample_saliency(models[layout], schedule, sampling, data_cfg, rgb, noise=noise)
+
+    for layout in LAYOUTS:
+        run(layout)  # warm-up
+    torch.cuda.synchronize()
+    maps, counts, peak = {}, {}, {}
+    for layout in LAYOUTS:
+        recorders["fused_bias_attention"].on = layout == "token_concat"
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        out = run(layout)
+        torch.cuda.synchronize()
+        counts[layout] = kernels.launch_counts()
+        recorders["fused_bias_attention"].on = False
+        peak[layout] = torch.cuda.max_memory_allocated() / 2**30
+        assert tuple(out.shape) == (B, H, W, 1), out.shape
+        assert bool(torch.isfinite(out).all()), f"{layout}: non-finite map"
+        lo, hi, std = float(out.min()), float(out.max()), float(out.std())
+        assert 0.0 <= lo and hi <= 1.0 and std > 0.0, (layout, lo, hi, std)
+        check_launches(counts[layout], path_launches(cfgs[layout], 1), f"visual-only {layout}")
+        maps[layout] = out
+        log(f"[visual] {layout}: map min {lo:.4f} max {hi:.4f} std {std:.5f}; launches per "
+            f"run " + json.dumps(counts[layout]) + f"; peak memory {peak[layout]:.2f} GiB")
+    d = float((maps["token_concat"] - maps["cls_stream"]).abs().max())
+    log(f"[visual] max|token_concat map - cls_stream map| {d:.3e} (limit 3e-2)")
+    assert d <= 3e-2, d
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    iters = max(3, cli.iters // 2)
+    times = {layout: [] for layout in LAYOUTS}
+    for layout in LAYOUTS[::-1] + LAYOUTS:  # in turns
+        start.record()
+        for i in range(iters):
+            out = run(layout, i)
+        end.record()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(out).all()) and float(out.std()) > 0
+        times[layout].append(start.elapsed_time(end) / iters)
+    for layout, ts in times.items():
+        ms = sum(ts) / len(ts)
+        log(f"[visual] {layout}: {ms:.2f} ms per B={B} DDIM run (turns "
+            + ", ".join(f"{t:.2f}" for t in ts) + f"), {1000.0 * B / ms:.2f} clips/s "
+            f"({2 * iters} iters, rotating inputs) on {kind} [{smi}]")
+    del maps
+
+    # the training step: the first step of each layout from the same
+    # weights, batch, draws and dropout masks gives the gradients compared
+    gen = torch.Generator(device=dev).manual_seed(22)
+    batches = [{"rgb": torch.randn(B_TRAIN, T, H, W, 3, generator=gen, device=dev) * 0.5,
+                "salmap": torch.rand(B_TRAIN, H, W, 1, generator=gen, device=dev)}
+               for _ in range(3)]
+    draws = {"deq": torch.randn(B_TRAIN, H, W, 1, generator=gen, device=dev),
+             "noise": torch.randn(B_TRAIN, H, W, 1, generator=gen, device=dev),
+             "t": torch.tensor(500)}
+    steps, grads, tcounts, tpeak = {}, {}, {}, {}
+    for layout in LAYOUTS:
+        m = models[layout]
+        ecfg = ExperimentConfig(model=cfgs[layout])
+        opt = make_optimizer(m, ecfg.optim, steps_per_epoch=1000, n_epochs=4)
+        step = make_train_step(m, schedule, ecfg)
+        steps[layout] = (opt, step)
+        t0 = time.perf_counter()
+        met = step(opt, batches[0], torch.Generator(device=dev).manual_seed(23), draws=draws)
+        torch.cuda.synchronize()
+        loss, gn = float(met["total"]), float(met["grad_norm"])
+        log(f"[visual train] {layout}: first step in {time.perf_counter() - t0:.1f} s, loss "
+            f"{loss:.4f}, grad_norm {gn:.4f}")
+        assert np.isfinite(loss) and loss > 0 and np.isfinite(gn) and gn > 0, (layout, loss, gn)
+        params = dict(m.named_parameters())
+        off_graph = {n for n, p in params.items() if p.requires_grad and p.grad is None}
+        assert off_graph == {"visual_net.norm0.weight", "visual_net.norm0.bias"}, off_graph
+        assert all(bool(torch.isfinite(p.grad).all()) for p in params.values()
+                   if p.grad is not None), layout
+        for sub in ("visual_net", "decoder_net"):
+            assert any(p.grad is not None and float(p.grad.abs().max()) > 0
+                       for n, p in params.items() if n.startswith(sub + ".")), (layout, sub)
+        grads[layout] = {n: p.grad.detach().float().clone() for n, p in params.items()
+                         if p.grad is not None}
+
+        recorders["fused_bias_attention_bwd"].on = layout == "token_concat"
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        met = step(opt, batches[1], gen)
+        torch.cuda.synchronize()
+        tcounts[layout] = kernels.launch_counts()
+        recorders["fused_bias_attention_bwd"].on = False
+        tpeak[layout] = torch.cuda.max_memory_allocated() / 2**30
+        assert np.isfinite(float(met["total"])), met
+        check_launches(tcounts[layout], path_launches(cfgs[layout], train=True),
+                       f"visual-only {layout} train step")
+        log(f"[visual train] {layout}: launches per step " + json.dumps(tcounts[layout])
+            + f"; peak memory {tpeak[layout]:.2f} GiB")
+    stats, worst = grad_agreement(grads["token_concat"], grads["cls_stream"])
+    log("[visual train] first-step gradients, token_concat vs cls_stream (relative L2, "
+        f"cosine): " + json.dumps(stats) + f" worst tensor {worst}")
+    for sub, (_, cos) in stats.items():
+        assert cos >= LAYOUT_GRAD_COS, (sub, cos)
+    del grads
+
+    times = {layout: [] for layout in LAYOUTS}
+    for layout in LAYOUTS[::-1] + LAYOUTS:  # in turns
+        opt, step = steps[layout]
+        start.record()
+        for i in range(VISUAL_TRAIN_ITERS):
+            met = step(opt, batches[i % len(batches)], gen)
+        end.record()
+        torch.cuda.synchronize()
+        assert np.isfinite(float(met["total"])) and float(met["grad_norm"]) > 0, met
+        times[layout].append(start.elapsed_time(end) / VISUAL_TRAIN_ITERS)
+    for layout, ts in times.items():
+        ms = sum(ts) / len(ts)
+        log(f"[visual train] {layout}: {ms:.2f} ms per B={B_TRAIN} step (turns "
+            + ", ".join(f"{t:.2f}" for t in ts) + f"), {1000.0 * B_TRAIN / ms:.2f} clips/s "
+            f"({2 * VISUAL_TRAIN_ITERS} steps, rotating batches) on {kind} [{smi}]")
+    if cli.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        for layout in LAYOUTS:
+            opt, step = steps[layout]
+            for what, fn in (("DDIM run", lambda: run(layout, 1)),
+                             ("train step", lambda: step(opt, batches[2], gen))):
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t1 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t1) * 1e3
+                # the table's last line sums the device time
+                log(f"[visual profile] {layout} {what}: {wall:.2f} ms wall under the profiler")
+                log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    del models, steps, batches
+
+    counts = dict(counts["token_concat"])
+    counts["fused_bias_attention_bwd"] = tcounts["token_concat"]["fused_bias_attention_bwd"]
+    return hold_kernels(("fused_bias_attention", "fused_bias_attention_bwd"), recorders,
+                        plain, counts)
+
+
+def resize_add_phase(k4_call, recorders, plain):
+    """K10, which no model path calls: the four task maps K4 summed in the
+    main path's run added one by one into a zero bf16 accumulator (counts
+    set to 0 just before, read just after), against K4's output on the same
+    maps, then each call against K10's plain version. Returns K10's
+    `kernels` row."""
+    from diff_sal_tpu_torch.ops import kernels, resize
+
+    (xs, out_hw), _ = k4_call
+    ref = resize.bilinear_resize_sum(xs, out_hw)
+    acc = torch.zeros((xs[0].shape[0],) + tuple(out_hw) + (xs[0].shape[-1],),
+                      dtype=xs[0].dtype, device=xs[0].device)
+    recorders["bilinear_resize_add"].on = True
+    kernels.reset_launch_counts()
+    for x in xs:
+        acc = resize.bilinear_resize_add(acc, x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    recorders["bilinear_resize_add"].on = False
+    assert counts["bilinear_resize_add"] == len(xs), counts
+    # K10 rounds the running sum to bf16 after each map, K4 once: n + 1
+    # roundings of partial sums, each within half a bf16 ulp (2^-8
+    # relative) of a partial sum, which the sum of the terms' magnitudes
+    # bounds (the resize of |x|: non-negative weights)
+    mag = resize.bilinear_resize_sum_plain([x.float().abs() for x in xs], out_hw)
+    diff = (acc.float() - ref.float()).abs()
+    assert not bool((diff > 1e-2 + (len(xs) + 1) * 2.0**-8 * mag).any()), float(diff.max())
+    log(f"[resize add] {len(xs)} launches from a zero accumulator vs K4's sum: max|d| "
+        f"{float(diff.max()):.3e}")
+    return hold_kernels(("bilinear_resize_add",), recorders, plain, counts)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=10, help="timed main-path iterations")
     ap.add_argument("--profile", action="store_true",
                     help="also print torch.profiler tables of one main-path run, one "
-                         "training step and one DPM++ NFE 2 run with and without the "
-                         "eval lowerings")
+                         "training step, one DPM++ NFE 2 run with and without the "
+                         "eval lowerings, and the visual-only model's DDIM run and "
+                         "training step in each layout")
     cli = ap.parse_args()
 
     t_all = time.perf_counter()
@@ -602,10 +897,11 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = kernels.build_all()
     log(f"[build] {time.perf_counter() - t0:.1f} s " + json.dumps(secs))
-    for k in kernels.registry().values():
-        for line in k.build_log.splitlines():
+    logs = {k.source: k.build_log for k in kernels.registry().values()}
+    for source, text in logs.items():
+        for line in text.splitlines():
             if "Used" in line or "spill" in line:
-                log(f"[ptxas {k.name}] {line.strip()}")
+                log(f"[ptxas {source}] {line.strip()}")
 
     # -- phase 3: main path -----------------------------------------------
     t0 = time.perf_counter()
@@ -638,6 +934,9 @@ def main() -> int:
         "resize_conv_relu": Recorder(resize, "resize_sum_conv_relu"),
         "resize_phase_head": Recorder(resize, "resize_sum_conv_relu_phase"),
         "depthwise_pool3d": Recorder(pool, "depthwise_pool3d"),
+        "bilinear_resize_add": Recorder(resize, "bilinear_resize_add"),
+        "fused_bias_attention": Recorder(attention, "fused_bias_attention"),
+        "fused_bias_attention_bwd": Recorder(attention, "fused_bias_attention_bwd"),
     }
     for n in INFER_KERNELS:
         recorders[n].on = True
@@ -692,8 +991,14 @@ def main() -> int:
         "resize_conv_relu": resize.resize_sum_conv_relu_plain,
         "resize_phase_head": resize.resize_sum_conv_relu_lowres,
         "depthwise_pool3d": pool.pool_plain,
+        "bilinear_resize_add": resize.bilinear_resize_add_plain,
+        "fused_bias_attention": attention.fused_bias_attention_plain,
+        "fused_bias_attention_bwd": attention.fused_bias_attention_bwd_plain,
     }
+    k4_call = recorders["bilinear_resize_sum"].calls[0]
     rows = hold_kernels(INFER_KERNELS, recorders, plain, counts)
+    rows += resize_add_phase(k4_call, recorders, plain)
+    del k4_call
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
 
     # -- phase 5: small input against the CPU reference --------------------
@@ -765,7 +1070,7 @@ def main() -> int:
     missing = [n for n in ("bias_attention", "layer_norm", "bilinear_resize_sum")
                + TRAIN_KERNELS if tcounts[n] == 0]
     assert not missing, f"kernels not launched in the training step: {missing}"
-    assert tcounts["block_tail"] == 0, tcounts
+    check_launches(tcounts, path_launches(tcfg.model, train=True), "train step")
     log("[train] launches per step " + json.dumps(tcounts)
         + " per clip " + json.dumps({n: c / B_TRAIN for n, c in tcounts.items()}))
 
@@ -848,6 +1153,11 @@ def main() -> int:
     t0 = time.perf_counter()
     rows += dpm_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi)
     log(f"[dpm] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 9: the visual-only model in both MViT layouts ----------------
+    t0 = time.perf_counter()
+    rows += visual_only_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi)
+    log(f"[visual] phase {time.perf_counter() - t0:.1f} s")
 
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -3,16 +3,20 @@
 A copy of the function-changing fields of the JAX package's configs
 (`diff_sal_tpu/config.py`), with the same names and defaults. The JAX
 configs also carry flags that pick a TPU lowering of the same function
-(`cls_stream`, `tokens3d`, `flat_dots`, `qkv_conv`, `fuse_kv`, `lane_pad`,
-`fold_proj`, `stem_mode`, `skip_pool`, `attn_softmax`,
-`use_pallas_attention`, the decoder's `upembed_phase`, `pool_reduce`,
-`conv_wg_dots`, `fused_tail`): the port builds each of those functions
-once and has none of them. Three lowering flags are kept, with the JAX
-defaults (off), because each routes to a hand-written kernel of its own:
-`MViTConfig.pool_mode="pallas"` (the attention pools through kernel K11),
-`SalUNetConfig.fused_attn` (the decoder's CvT attention through K7 at
-eval) and `SalUNetConfig.head_lowres` (the decoder head as conv-at-low-res
-through K9 at eval). The training step's fields (dequantization, losses,
+(`tokens3d`, `flat_dots`, `qkv_conv`, `fuse_kv`, `lane_pad`, `fold_proj`,
+`stem_mode`, `skip_pool`, `attn_softmax`, `use_pallas_attention`, the
+decoder's `upembed_phase`, `pool_reduce`, `conv_wg_dots`, `fused_tail`):
+the port builds each of those functions once and has none of them. Four
+lowering flags are kept, with the JAX defaults, because each routes to a
+hand-written kernel of its own: `MViTConfig.cls_stream` (on: the cls
+token rides its own stream and MViT's attention runs through kernel K1;
+off: the token-concat layout, cls at row 0 of every head, through kernel
+K12), `MViTConfig.pool_mode="pallas"` (the attention pools through kernel
+K11; as in JAX it takes effect only with `cls_stream`, the token-concat
+layout always pools by convolution), `SalUNetConfig.fused_attn` (the
+decoder's CvT attention through K7 at eval) and
+`SalUNetConfig.head_lowres` (the decoder head as conv-at-low-res through
+K9 at eval). The training step's fields (dequantization, losses,
 optimizer, dropout, drop-path, the train-time dead-frame cut, EMA) and
 the DPM-Solver settings of `SamplingConfig` are here; fields that only
 unported paths read (the trainer's epochs and logging, the mesh) come
@@ -137,8 +141,13 @@ class MViTConfig:
     gelu: str = "tanh"
     # int8 MLP weights: only "none" is ported so far
     mlp_quant: str = "none"
+    # cls token on its own (B, 1, C) stream, spatial query rows through
+    # kernel K1 (ops/attention.py) | False: the token-concat layout, cls at
+    # row 0 of every head, through kernel K12
+    cls_stream: bool = True
     # attention-pool lowering: "conv" (cuDNN depthwise conv3d) | "pallas"
-    # (kernel K11, ops/pool.py); JAX's "stencil" is the conv's function
+    # (kernel K11, ops/pool.py; cls_stream only, as in JAX); JAX's
+    # "stencil" is the conv's function
     pool_mode: str = "conv"
 
     @classmethod

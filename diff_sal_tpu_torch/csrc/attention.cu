@@ -21,6 +21,15 @@
 // product; unnormalized probabilities rounded to bf16 for the P V product;
 // the row sum kept in f32 and applied after it; residual q added in f32
 // before the single rounding of the output.
+//
+// K12 is the same kernel on MViT's token-concat layout. It replaces the TPU
+// kernel diff_sal_tpu/ops/attention.py:119 fused_bias_attention (body
+// _attn_kernel :62): q, k, v (B*heads, L, D) with the cls token at row 0 of q
+// as well as of k and v, the bias as three f32 tensors rel_t (B*heads, Lq,
+// kt), rel_h (.., kh), rel_w (.., kw) whose row 0 the caller zeroes, and the
+// residual added to rows >= 1 only. The layout is K1's with B*heads batches
+// of one head; the rel parts are read through per-part pointers and row
+// strides (RelIn), so one template serves both.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,6 +73,27 @@ __host__ __device__ inline Layout make_layout(int D, int K) {
   return L;
 }
 
+// Where the three parts (t, h, w) of the bias terms of one query row lie:
+// element c of part p for (batch b, row, head h) is at
+// p[part][(b * Lq + row) * ld[part] + h * hs + c]. K1: one packed bf16
+// (B, Lq, H, kt + kh + kw) tensor; K12: three f32 tensors of one head.
+template <typename R>
+struct RelIn {
+  const R* p[3];
+  int ld[3];
+  int hs;
+};
+
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+
+// part (0 = t, 1 = h, 2 = w) of bias column c, and c's index within it
+__device__ __forceinline__ int rel_part(int c, int kt, int kh, int& cc) {
+  const int part = c < kt ? 0 : (c < kt + kh ? 1 : 2);
+  cc = c - (part == 0 ? 0 : (part == 1 ? kt : kt + kh));
+  return part;
+}
+
 __device__ __forceinline__ void key_coord(int j, int khw, int kw, int& t, int& h, int& w) {
   const int jj = j - 1;
   t = jj / khw;
@@ -72,11 +102,13 @@ __device__ __forceinline__ void key_coord(int j, int khw, int kw, int& t, int& h
   w = rem - h * kw;
 }
 
-template <int D>
+// residual q is added to the output rows >= res_from (K1: 0, K12: 1; no
+// residual: Lq)
+template <int D, typename R>
 __global__ void __launch_bounds__(NT) bias_attn_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ rel, bf16* __restrict__ out, int Lq, int Lk, int H, int kt,
-    int kh, int kw, float scale, int residual) {
+    const RelIn<R> rel, bf16* __restrict__ out, int Lq, int Lk, int H, int kt, int kh, int kw,
+    float scale, int res_from) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int K = kt + kh + kw;
   const Layout L = make_layout(D, K);
@@ -107,8 +139,11 @@ __global__ void __launch_bounds__(NT) bias_attn_kernel(
   }
   // rel tile in f32
   for (int i = tid; i < BM * K; i += NT) {
-    const int r = i / K, c = i - (i / K) * K, row = q0 + r;
-    Rs[i] = row < Lq ? __bfloat162float(rel[(((size_t)b * Lq + row) * H + h) * K + c]) : 0.f;
+    const int r = i / K, c = i - r * K, row = q0 + r;
+    int cc;
+    const int part = rel_part(c, kt, kh, cc);
+    Rs[i] = row < Lq ? to_f32(rel.p[part][((size_t)b * Lq + row) * rel.ld[part] + h * rel.hs + cc])
+                     : 0.f;
   }
   for (int i = tid; i < BM * L.ldo; i += NT) Os[i] = 0.f;
 
@@ -216,24 +251,41 @@ __global__ void __launch_bounds__(NT) bias_attn_kernel(
     const size_t off = ((size_t)b * Lq + row) * HD + h * D;
     for (int c = lane; c < D; c += 32) {
       float o = Os[(r0 + i) * L.ldo + c] * inv;
-      if (residual) o += __bfloat162float(q[off + c]);
+      if (row >= res_from) o += __bfloat162float(q[off + c]);
       out[off + c] = __float2bfloat16(o);
     }
   }
 }
 
-template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* rel, bf16* out, int B,
-           int Lq, int Lk, int H, int kt, int kh, int kw, float scale, int residual,
+template <int D, typename R>
+int launch(const bf16* q, const bf16* k, const bf16* v, RelIn<R> rel, bf16* out, int B, int Lq,
+           int Lk, int H, int kt, int kh, int kw, float scale, int res_from,
            cudaStream_t stream) {
   const Layout L = make_layout(D, kt + kh + kw);
   cudaError_t err = cudaFuncSetAttribute(
-      bias_attn_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+      bias_attn_kernel<D, R>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Lq + BM - 1) / BM, H, B);
-  bias_attn_kernel<D><<<grid, NT, L.total, stream>>>(q, k, v, rel, out, Lq, Lk, H, kt, kh,
-                                                     kw, scale, residual);
+  bias_attn_kernel<D, R><<<grid, NT, L.total, stream>>>(q, k, v, rel, out, Lq, Lk, H, kt, kh,
+                                                        kw, scale, res_from);
   return (int)cudaGetLastError();
+}
+
+template <typename R>
+int dispatch(const void* q, const void* k, const void* v, RelIn<R> rel, void* out, int B, int Lq,
+             int Lk, int H, int D, int kt, int kh, int kw, float scale, int res_from,
+             void* stream) {
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  bf16* op = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: return launch<64>(qp, kp, vp, rel, op, B, Lq, Lk, H, kt, kh, kw, scale, res_from, s);
+    case 96: return launch<96>(qp, kp, vp, rel, op, B, Lq, Lk, H, kt, kh, kw, scale, res_from, s);
+    case 128: return launch<128>(qp, kp, vp, rel, op, B, Lq, Lk, H, kt, kh, kw, scale, res_from, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -242,16 +294,23 @@ extern "C" int dsal_bias_attention(const void* q, const void* k, const void* v,
                                    const void* rel, void* out, int B, int Lq, int Lk, int H,
                                    int D, int kt, int kh, int kw, float scale, int residual,
                                    void* stream) {
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
   const bf16* rp = static_cast<const bf16*>(rel);
-  bf16* op = static_cast<bf16*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch<64>(qp, kp, vp, rp, op, B, Lq, Lk, H, kt, kh, kw, scale, residual, s);
-    case 96: return launch<96>(qp, kp, vp, rp, op, B, Lq, Lk, H, kt, kh, kw, scale, residual, s);
-    case 128: return launch<128>(qp, kp, vp, rp, op, B, Lq, Lk, H, kt, kh, kw, scale, residual, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int K = kt + kh + kw;
+  const RelIn<bf16> r = {{rp, rp + kt, rp + kt + kh}, {H * K, H * K, H * K}, K};
+  return dispatch(q, k, v, r, out, B, Lq, Lk, H, D, kt, kh, kw, scale, residual ? 0 : Lq,
+                  stream);
+}
+
+// K12: q, k, v (BH, L, D) bf16 with cls at row 0; rel_t/h/w (BH, Lq, kt/kh/kw)
+// f32; the residual skips row 0
+extern "C" int dsal_cls_attention(const void* q, const void* k, const void* v,
+                                  const void* rel_t, const void* rel_h, const void* rel_w,
+                                  void* out, int BH, int Lq, int Lk, int D, int kt, int kh,
+                                  int kw, float scale, int residual, void* stream) {
+  const RelIn<float> r = {{static_cast<const float*>(rel_t), static_cast<const float*>(rel_h),
+                           static_cast<const float*>(rel_w)},
+                          {kt, kh, kw},
+                          0};
+  return dispatch(q, k, v, r, out, BH, Lq, Lk, 1, D, kt, kh, kw, scale, residual ? 1 : Lq,
+                  stream);
 }

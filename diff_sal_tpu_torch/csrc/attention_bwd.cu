@@ -33,6 +33,16 @@
 // No atomics anywhere, so results do not depend on scheduling. Key columns
 // past Lk and query rows past Lq are masked, never padded in memory.
 // head_dim D is a template parameter (64, 96 or 128).
+//
+// K12's backward is the same three kernels on MViT's token-concat layout. It
+// replaces the TPU kernel diff_sal_tpu/ops/attention.py:280 _fba_bwd (body
+// _attn_bwd_kernel :193): q, k, v, g (B*heads, L, D) bf16 with the cls query
+// at row 0 inside the tiles, the bias terms as three f32 tensors rel_t/h/w
+// read and their gradients written in f32 (from the same hi + lo product,
+// ~16 mantissa bits of the unrounded f32 dS), and dq's residual term on rows
+// >= 1 only. dk and dv use the rounded dS and P, as the TPU body does. The
+// rel layouts go through RelIn/RelOut (per-part pointers and row strides), so
+// one template serves K5 and K12.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,6 +104,36 @@ __host__ __device__ inline Layout make_layout(int D, int K, bool kmajor) {
   return L;
 }
 
+// Where the three parts (t, h, w) of the bias terms of one query row lie:
+// element c of part p for (batch b, row, head h) is at
+// p[part][(b * Lq + row) * ld[part] + h * hs + c]. K5: one packed bf16
+// (B, Lq, H, kt + kh + kw) tensor; K12: three f32 tensors of one head.
+template <typename R>
+struct RelIn {
+  const R* p[3];
+  int ld[3];
+  int hs;
+};
+
+template <typename R>
+struct RelOut {
+  R* p[3];
+  int ld[3];
+  int hs;
+};
+
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ void from_f32(bf16* dst, float x) { *dst = __float2bfloat16(x); }
+__device__ __forceinline__ void from_f32(float* dst, float x) { *dst = x; }
+
+// part (0 = t, 1 = h, 2 = w) of bias column c, and c's index within it
+__device__ __forceinline__ int rel_part(int c, int kt, int kh, int& cc) {
+  const int part = c < kt ? 0 : (c < kt + kh ? 1 : 2);
+  cc = c - (part == 0 ? 0 : (part == 1 ? kt : kt + kh));
+  return part;
+}
+
 __device__ __forceinline__ void key_coord(int j, int khw, int kw, int& t, int& h, int& w) {
   const int jj = j - 1;
   t = jj / khw;
@@ -129,11 +169,15 @@ __device__ __forceinline__ void load_rows(const bf16* __restrict__ src, bf16* ds
 }
 
 // rel rows [row0, row0 + 64) of head h in f32; rows past Lq are zero
-__device__ __forceinline__ void load_rel(const bf16* __restrict__ rel, float* Rs, int b, int Lq,
-                                         int row0, int H, int h, int K) {
+template <typename R>
+__device__ __forceinline__ void load_rel(const RelIn<R>& rel, float* Rs, int b, int Lq, int row0,
+                                         int h, int kt, int kh, int K) {
   for (int i = threadIdx.x; i < BM * K; i += NT) {
     const int r = i / K, c = i - r * K, row = row0 + r;
-    Rs[i] = row < Lq ? __bfloat162float(rel[(((size_t)b * Lq + row) * H + h) * K + c]) : 0.f;
+    int cc;
+    const int part = rel_part(c, kt, kh, cc);
+    Rs[i] = row < Lq ? to_f32(rel.p[part][((size_t)b * Lq + row) * rel.ld[part] + h * rel.hs + cc])
+                     : 0.f;
   }
 }
 
@@ -162,12 +206,14 @@ __device__ __forceinline__ void rows_dot_cols(const bf16* A, const bf16* Bm, int
 // ---------------------------------------------------------------------------
 // kernel 1: dq, drel, and the row logsumexp and delta
 // ---------------------------------------------------------------------------
-template <int D>
+// dq gets the residual term g on rows >= res_from (K5: 0, K12: 1; no
+// residual: Lq)
+template <int D, typename R>
 __global__ void __launch_bounds__(NT) attn_bwd_q_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ rel, const bf16* __restrict__ g, bf16* __restrict__ dq,
-    bf16* __restrict__ drel, float* __restrict__ lse_out, float* __restrict__ delta_out, int Lq,
-    int Lk, int H, int kt, int kh, int kw, float scale_q, float scale, int residual) {
+    const RelIn<R> rel, const bf16* __restrict__ g, bf16* __restrict__ dq, const RelOut<R> drel,
+    float* __restrict__ lse_out, float* __restrict__ delta_out, int Lq, int Lk, int H, int kt,
+    int kh, int kw, float scale_q, float scale, int res_from) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int K = kt + kh + kw;
   const Layout L = make_layout(D, K, false);
@@ -192,7 +238,7 @@ __global__ void __launch_bounds__(NT) attn_bwd_q_kernel(
 
   load_rows<D>(q, Qs, L.ldq, b, Lq, q0, HD, h, true, scale_q);
   load_rows<D>(g, Gs, L.ldq, b, Lq, q0, HD, h, false, 0.f);
-  load_rel(rel, Rs, b, Lq, q0, H, h, K);
+  load_rel(rel, Rs, b, Lq, q0, h, kt, kh, K);
   for (int i = tid; i < BM * L.ldr; i += NT) dRs[i] = 0.f;
 
   float lse[16], delta[16];
@@ -332,7 +378,7 @@ __global__ void __launch_bounds__(NT) attn_bwd_q_kernel(
     const size_t off = ((size_t)b * Lq + row) * HD + h * D;
     for (int c = lane; c < D; c += 32) {
       float o = Os[(r0 + i) * L.ldo + c] * scale;
-      if (residual) o += __bfloat162float(Gs[(r0 + i) * L.ldq + c]);
+      if (row >= res_from) o += __bfloat162float(Gs[(r0 + i) * L.ldq + c]);
       dq[off + c] = __float2bfloat16(o);
     }
     if (lane == 0) {
@@ -343,18 +389,21 @@ __global__ void __launch_bounds__(NT) attn_bwd_q_kernel(
   __syncthreads();  // every warp's drel sums are complete
   for (int i = tid; i < BM * K; i += NT) {
     const int r = i / K, c = i - r * K, row = q0 + r;
-    if (row < Lq)
-      drel[(((size_t)b * Lq + row) * H + h) * K + c] = __float2bfloat16(dRs[r * L.ldr + c]);
+    if (row >= Lq) continue;
+    int cc;
+    const int part = rel_part(c, kt, kh, cc);
+    from_f32(drel.p[part] + ((size_t)b * Lq + row) * drel.ld[part] + h * drel.hs + cc,
+             dRs[r * L.ldr + c]);
   }
 }
 
 // ---------------------------------------------------------------------------
 // kernel 2: partial dk, dv of 64 keys over one split of the query tiles
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, typename R>
 __global__ void __launch_bounds__(NT) attn_bwd_kv_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ rel, const bf16* __restrict__ g, const float* __restrict__ lse_in,
+    const RelIn<R> rel, const bf16* __restrict__ g, const float* __restrict__ lse_in,
     const float* __restrict__ delta_in, float* __restrict__ work, int B, int Lq, int Lk, int H,
     int kt, int kh, int kw, int splits, float scale_q, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -405,7 +454,7 @@ __global__ void __launch_bounds__(NT) attn_bwd_kv_kernel(
     load_rows<D>(q, Qs, L.ldq, b, Lq, q0, HD, h, true, scale_q);
     load_rows<D>(q, Qr, L.ldq, b, Lq, q0, HD, h, false, 0.f);
     load_rows<D>(g, Gs, L.ldq, b, Lq, q0, HD, h, false, 0.f);
-    load_rel(rel, Rs, b, Lq, q0, H, h, K);
+    load_rel(rel, Rs, b, Lq, q0, h, kt, kh, K);
     for (int i = tid; i < BN; i += NT) {
       const int row = q0 + i;
       const size_t o = ((size_t)b * H + h) * Lq + row;
@@ -487,27 +536,29 @@ __global__ void attn_bwd_reduce_kernel(const float* __restrict__ work, bf16* __r
   }
 }
 
-template <int D>
-int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* rel, const bf16* g, bf16* dq,
-           bf16* dk, bf16* dv, bf16* drel, float* lse, float* delta, float* work, int B, int Lq,
-           int Lk, int H, int kt, int kh, int kw, int splits, float scale_q, float scale,
-           int residual, cudaStream_t stream) {
+template <int D, typename R>
+int launch(const bf16* q, const bf16* k, const bf16* v, RelIn<R> rel, const bf16* g, bf16* dq,
+           bf16* dk, bf16* dv, RelOut<R> drel, float* lse, float* delta, float* work, int B,
+           int Lq, int Lk, int H, int kt, int kh, int kw, int splits, float scale_q, float scale,
+           int res_from, cudaStream_t stream) {
   const int K = kt + kh + kw;
   const Layout L1 = make_layout(D, K, false), L2 = make_layout(D, K, true);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_q_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_q_kernel<D, R>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L1.total);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attn_bwd_kv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(attn_bwd_kv_kernel<D, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)L2.total);
   if (err != cudaSuccess) return (int)err;
   dim3 g1((Lq + BM - 1) / BM, H, B);
-  attn_bwd_q_kernel<D><<<g1, NT, L1.total, stream>>>(q, k, v, rel, g, dq, drel, lse, delta, Lq,
-                                                     Lk, H, kt, kh, kw, scale_q, scale, residual);
+  attn_bwd_q_kernel<D, R><<<g1, NT, L1.total, stream>>>(q, k, v, rel, g, dq, drel, lse, delta,
+                                                        Lq, Lk, H, kt, kh, kw, scale_q, scale,
+                                                        res_from);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 g2((Lk + BM - 1) / BM, H * splits, B);
-  attn_bwd_kv_kernel<D><<<g2, NT, L2.total, stream>>>(q, k, v, rel, g, lse, delta, work, B, Lq,
-                                                      Lk, H, kt, kh, kw, splits, scale_q, scale);
+  attn_bwd_kv_kernel<D, R><<<g2, NT, L2.total, stream>>>(q, k, v, rel, g, lse, delta, work, B,
+                                                         Lq, Lk, H, kt, kh, kw, splits, scale_q,
+                                                         scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long n = (long long)B * Lk * H * D;
@@ -515,6 +566,34 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* rel, const b
   attn_bwd_reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
       work, dk, dv, n, splits);
   return (int)cudaGetLastError();
+}
+
+template <typename R>
+int dispatch(const void* q, const void* k, const void* v, RelIn<R> rel, const void* g, void* dq,
+             void* dk, void* dv, RelOut<R> drel, void* lse, void* delta, void* work, int B,
+             int Lq, int Lk, int H, int D, int kt, int kh, int kw, int splits, float scale_q,
+             float scale, int res_from, void* stream) {
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* gp = static_cast<const bf16*>(g);
+  bf16* dqp = static_cast<bf16*>(dq);
+  bf16* dkp = static_cast<bf16*>(dk);
+  bf16* dvp = static_cast<bf16*>(dv);
+  float* lp = static_cast<float*>(lse);
+  float* dp = static_cast<float*>(delta);
+  float* wp = static_cast<float*>(work);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define DSAL_BWD(DD)                                                                            \
+  return launch<DD>(qp, kp, vp, rel, gp, dqp, dkp, dvp, drel, lp, dp, wp, B, Lq, Lk, H, kt, kh, \
+                    kw, splits, scale_q, scale, res_from, s)
+  switch (D) {
+    case 64: DSAL_BWD(64);
+    case 96: DSAL_BWD(96);
+    case 128: DSAL_BWD(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DSAL_BWD
 }
 
 }  // namespace
@@ -525,27 +604,32 @@ extern "C" int dsal_bias_attention_bwd(const void* q, const void* k, const void*
                                        int B, int Lq, int Lk, int H, int D, int kt, int kh, int kw,
                                        int splits, float scale_q, float scale, int residual,
                                        void* stream) {
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
   const bf16* rp = static_cast<const bf16*>(rel);
-  const bf16* gp = static_cast<const bf16*>(g);
-  bf16* dqp = static_cast<bf16*>(dq);
-  bf16* dkp = static_cast<bf16*>(dk);
-  bf16* dvp = static_cast<bf16*>(dv);
   bf16* drp = static_cast<bf16*>(drel);
-  float* lp = static_cast<float*>(lse);
-  float* dp = static_cast<float*>(delta);
-  float* wp = static_cast<float*>(work);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DSAL_BWD(DD)                                                                        \
-  return launch<DD>(qp, kp, vp, rp, gp, dqp, dkp, dvp, drp, lp, dp, wp, B, Lq, Lk, H, kt, kh, \
-                    kw, splits, scale_q, scale, residual, s)
-  switch (D) {
-    case 64: DSAL_BWD(64);
-    case 96: DSAL_BWD(96);
-    case 128: DSAL_BWD(128);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef DSAL_BWD
+  const int K = kt + kh + kw;
+  const RelIn<bf16> r = {{rp, rp + kt, rp + kt + kh}, {H * K, H * K, H * K}, K};
+  const RelOut<bf16> dr = {{drp, drp + kt, drp + kt + kh}, {H * K, H * K, H * K}, K};
+  return dispatch(q, k, v, r, g, dq, dk, dv, dr, lse, delta, work, B, Lq, Lk, H, D, kt, kh, kw,
+                  splits, scale_q, scale, residual ? 0 : Lq, stream);
+}
+
+// K12's backward: q, k, v, g, dq, dk, dv (BH, L, D) bf16 with cls at row 0;
+// rel_t/h/w and drel_t/h/w (BH, Lq, kt/kh/kw) f32; dq's residual skips row 0
+extern "C" int dsal_cls_attention_bwd(const void* q, const void* k, const void* v,
+                                      const void* rel_t, const void* rel_h, const void* rel_w,
+                                      const void* g, void* dq, void* dk, void* dv, void* drel_t,
+                                      void* drel_h, void* drel_w, void* lse, void* delta,
+                                      void* work, int BH, int Lq, int Lk, int D, int kt, int kh,
+                                      int kw, int splits, float scale_q, float scale,
+                                      int residual, void* stream) {
+  const RelIn<float> r = {{static_cast<const float*>(rel_t), static_cast<const float*>(rel_h),
+                           static_cast<const float*>(rel_w)},
+                          {kt, kh, kw},
+                          0};
+  const RelOut<float> dr = {{static_cast<float*>(drel_t), static_cast<float*>(drel_h),
+                             static_cast<float*>(drel_w)},
+                            {kt, kh, kw},
+                            0};
+  return dispatch(q, k, v, r, g, dq, dk, dv, dr, lse, delta, work, BH, Lq, Lk, 1, D, kt, kh, kw,
+                  splits, scale_q, scale, residual ? 1 : Lq, stream);
 }

@@ -13,6 +13,14 @@
 // Tap tables (built on the host from the same half-pixel rule as the dense
 // matrices): idx (n, 2, H + W) int32 = [lo | hi], wts (n, 2, H + W) f32 =
 // [w_lo | w_hi]; entries [0, H) are rows and [H, H + W) are columns.
+//
+// K10: acc + bilinear_resize(x), the same gather for one input. Replaces the
+// TPU kernel diff_sal_tpu/ops/resize.py:142 bilinear_resize_add (body
+// _resize_acc_kernel :125). Bound by bytes: acc read once and the output
+// written once (x, the small map, stays in L2), ~8 flops per element. One
+// thread per (output pixel, 8 channels); the resized value is summed in f32,
+// rounded to acc's dtype and added to acc in acc's dtype, as the TPU body
+// rounds (:139). acc and x may differ in dtype (bf16 or f32 each).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +64,22 @@ struct Vec<float> {
     *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
   }
 };
+
+// eight consecutive channels of a bf16 or f32 row, as f32
+__device__ inline void load8(const __nv_bfloat16* p, float* f) { Vec<__nv_bfloat16>::load(p, f); }
+__device__ inline void load8(const float* p, float* f) {
+  Vec<float>::load(p, f);
+  Vec<float>::load(p + 4, f + 4);
+}
+__device__ inline void store8(__nv_bfloat16* p, const float* f) { Vec<__nv_bfloat16>::store(p, f); }
+__device__ inline void store8(float* p, const float* f) {
+  Vec<float>::store(p, f);
+  Vec<float>::store(p + 4, f + 4);
+}
+__device__ inline float round_to(__nv_bfloat16*, float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+__device__ inline float round_to(float*, float x) { return x; }
 
 struct Inputs {
   const void* x[4];
@@ -120,6 +144,57 @@ void launch(Inputs in, const int* idx, const float* wts, void* out, int n, int B
       in, idx, wts, static_cast<T*>(out), n, B, H, W, C);
 }
 
+template <typename TA, typename TX>
+__global__ void resize_add_kernel(const TA* __restrict__ acc, const TX* __restrict__ x,
+                                  const int* __restrict__ idx, const float* __restrict__ wts,
+                                  TA* __restrict__ out, int B, int h, int w, int H, int W, int C) {
+  const int groups = C / 8;
+  const long long total = (long long)B * H * W * groups;
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (tid >= total) return;
+  const int g = (int)(tid % groups);
+  long long pix = tid / groups;
+  const int xo = (int)(pix % W);
+  pix /= W;
+  const int y = (int)(pix % H);
+  const int b = (int)(pix / H);
+  const int L = H + W;
+  const int ylo = idx[y], yhi = idx[L + y], xlo = idx[H + xo], xhi = idx[L + H + xo];
+  const float wyl = wts[y], wyh = wts[L + y], wxl = wts[H + xo], wxh = wts[L + H + xo];
+  const TX* base = x + (long long)b * h * w * C + g * 8;
+  float r[8], t[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r[i] = 0.f;
+  load8(base + ((long long)ylo * w + xlo) * C, t);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r[i] += wyl * wxl * t[i];
+  load8(base + ((long long)ylo * w + xhi) * C, t);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r[i] += wyl * wxh * t[i];
+  load8(base + ((long long)yhi * w + xlo) * C, t);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r[i] += wyh * wxl * t[i];
+  load8(base + ((long long)yhi * w + xhi) * C, t);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r[i] += wyh * wxh * t[i];
+  const long long o = (((long long)b * H + y) * W + xo) * C + g * 8;
+  load8(acc + o, t);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) r[i] = t[i] + round_to(out, r[i]);
+  store8(out + o, r);
+}
+
+template <typename TA, typename TX>
+void launch_add(const void* acc, const void* x, const int* idx, const float* wts, void* out, int B,
+                int h, int w, int H, int W, int C, cudaStream_t stream) {
+  const long long total = (long long)B * H * W * (C / 8);
+  const int threads = 256;
+  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+  resize_add_kernel<TA, TX><<<blocks, threads, 0, stream>>>(
+      static_cast<const TA*>(acc), static_cast<const TX*>(x), idx, wts, static_cast<TA*>(out), B,
+      h, w, H, W, C);
+}
+
 }  // namespace
 
 extern "C" int dsal_resize_sum(const void* x0, const void* x1, const void* x2,
@@ -136,5 +211,23 @@ extern "C" int dsal_resize_sum(const void* x0, const void* x1, const void* x2,
     launch<__nv_bfloat16>(in, idx, wts, out, n, B, H, W, C, s);
   else
     launch<float>(in, idx, wts, out, n, B, H, W, C, s);
+  return (int)cudaGetLastError();
+}
+
+// K10: out = acc + resize(x); acc, out (B, H, W, C), x (B, h, w, C), C % 8 == 0;
+// idx, wts the tap tables of x (n = 1)
+extern "C" int dsal_resize_add(const void* acc, const void* x, const int* idx, const float* wts,
+                               void* out, int B, int h, int w, int H, int W, int C, int acc_bf16,
+                               int x_bf16, void* stream) {
+  typedef __nv_bfloat16 bf16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (acc_bf16 && x_bf16)
+    launch_add<bf16, bf16>(acc, x, idx, wts, out, B, h, w, H, W, C, s);
+  else if (acc_bf16)
+    launch_add<bf16, float>(acc, x, idx, wts, out, B, h, w, H, W, C, s);
+  else if (x_bf16)
+    launch_add<float, bf16>(acc, x, idx, wts, out, B, h, w, H, W, C, s);
+  else
+    launch_add<float, float>(acc, x, idx, wts, out, B, h, w, H, W, C, s);
   return (int)cudaGetLastError();
 }

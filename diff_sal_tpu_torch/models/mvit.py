@@ -4,12 +4,16 @@
 3D patch embed (k=(3,7,7), s=(2,4,4)), pooled multi-head attention with
 decomposed (T, H, W) rel-pos and residual pooling, channel/head doubling
 and 2x query pooling at the downscale blocks, and the coarse-first
-4-scale pyramid. The cls token rides a separate (B, 1, C) stream: the
-spatial query rows go through kernel K1 (`ops/attention.py`), the single
-cls query row attends in plain torch (as at JAX `mvit.py:1122-1131`).
-Every LayerNorm runs through kernel K2; with `pool_mode="pallas"` the
-depthwise attention pools run through kernel K11 (`ops/pool.py`) on the
-qkv columns in place, else through cuDNN's grouped conv3d. Parameter names are the
+4-scale pyramid. The cls token rides a separate (B, 1, C) stream between
+blocks. With `cls_stream` (the default) the spatial query rows go through
+kernel K1 (`ops/attention.py`) and the single cls query row attends in
+plain torch (as at JAX `mvit.py:1122-1131`); with `cls_stream=False` the
+attention runs on JAX's token-concat layout (`mvit.py:807-837`), cls at
+row 0 of every head, through kernel K12. Both layouts compute one
+function with one parameter tree. Every LayerNorm runs through kernel K2;
+with `pool_mode="pallas"` (and `cls_stream`, as in JAX) the depthwise
+attention pools run through kernel K11 (`ops/pool.py`) on the qkv columns
+in place, else through cuDNN's grouped conv3d. Parameter names are the
 reference's (`patch_embed.projection`, `cls_token`, `blocks.{i}.*`,
 `norm{s}`).
 
@@ -33,7 +37,7 @@ from diff_sal_tpu_torch.ops import attention as attn_ops
 from diff_sal_tpu_torch.ops import layernorm as ln_ops
 from diff_sal_tpu_torch.ops import pool as pool_ops
 from diff_sal_tpu_torch.ops.kernels import acc_dtype
-from diff_sal_tpu_torch.ops.rel_pos import rel_pos_terms
+from diff_sal_tpu_torch.ops.rel_pos import rel_pos_parts, rel_pos_terms
 
 
 # "stencil" is JAX's shifted-multiply-add lowering of the conv's function
@@ -85,13 +89,15 @@ class MultiScaleAttention(nn.Module):
 
     def __init__(self, in_dims: int, out_dims: int, num_heads: int, stride_q,
                  stride_kv, rel_pos_dims, pool_kernel=(3, 3, 3), qkv_bias=True,
-                 rel_pos_embed=True, residual_pooling=True, pool_mode="conv"):
+                 rel_pos_embed=True, residual_pooling=True, pool_mode="conv",
+                 cls_stream=True):
         super().__init__()
         if pool_mode not in POOL_MODES:
             raise ValueError(f"pool_mode={pool_mode!r}; expected one of {POOL_MODES}")
         if pool_mode == "pallas" and tuple(pool_kernel) != (3, 3, 3):
             raise ValueError(f"pool_mode='pallas' takes a (3, 3, 3) pool, got {pool_kernel}")
         self.pool_mode = pool_mode
+        self.cls_stream = cls_stream
         self.num_heads = num_heads
         self.out_dims = out_dims
         self.head_dim = hd = out_dims // num_heads
@@ -161,9 +167,12 @@ class MultiScaleAttention(nn.Module):
         q_all = self._norm(torch.cat([cq, q_sp.reshape(B, Lq, C)], 1), "q")
         k2 = self._norm(torch.cat([ck, k_sp.reshape(B, -1, C)], 1), "k")
         v2 = self._norm(torch.cat([cv, v_sp.reshape(B, -1, C)], 1), "v")
+        scale = hd ** -0.5
+        if not self.cls_stream:
+            out = dense(self._token_concat(q_all, k2, v2, q_shape, k_shape, scale), self.proj, d)
+            return out[:, 1:], out[:, :1], q_shape
         cq, q2 = q_all[:, :1], q_all[:, 1:].contiguous()
 
-        scale = hd ** -0.5
         kt, kh, kw = k_shape
         if self.rel_pos_embed:
             rel = rel_pos_terms(q2.reshape(B, Lq, H, hd), q_shape, k_shape,
@@ -182,6 +191,30 @@ class MultiScaleAttention(nn.Module):
         out_cls = torch.einsum("bhqk,bkhd->bqhd", cp, v4).reshape(B, 1, C)
         return dense(out, self.proj, d), dense(out_cls, self.proj, d), q_shape
 
+    def _token_concat(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_shape,
+                      k_shape, scale: float) -> torch.Tensor:
+        """The attention of JAX's token-concat layout (`mvit.py:807-837`):
+        q (B, 1 + Lq, C), k and v (B, 1 + Lk, C) with cls at row 0, laid out
+        per head as (B*H, L, hd); the bias terms of the spatial query rows
+        in f32 with a zero cls row; kernel K12 with the residual on rows >=
+        1. Returns (B, 1 + Lq, C), cls at row 0."""
+        B, L, C = q.shape
+        H, hd = self.num_heads, self.head_dim
+
+        def heads(t):
+            return t.reshape(B, t.shape[1], H, hd).transpose(1, 2).reshape(B * H, -1, hd)
+
+        qh, kh, vh = (heads(t).contiguous() for t in (q, k, v))
+        if self.rel_pos_embed:
+            rels = rel_pos_parts(qh[:, 1:], q_shape, k_shape, self.rel_pos_t, self.rel_pos_h,
+                                 self.rel_pos_w)
+        else:
+            rels = [torch.zeros((B * H, L, n), dtype=acc_dtype(q.dtype), device=q.device)
+                    for n in k_shape]
+        out = attn_ops.fused_bias_attention(qh, kh, vh, *rels, k_shape, scale,
+                                            self.residual_pooling)
+        return out.reshape(B, H, L, hd).transpose(1, 2).reshape(B, L, C)
+
 
 class MultiScaleBlock(nn.Module):
     """Pre-norm block: pooled attention + MLP, channel expansion in the
@@ -196,7 +229,8 @@ class MultiScaleBlock(nn.Module):
         self.attn = MultiScaleAttention(
             in_dims, out_dims, plan["num_heads"], plan["stride_q"],
             plan["stride_kv"], plan["rel_pos_dims"], cfg.pool_kernel,
-            cfg.qkv_bias, cfg.rel_pos_embed, cfg.residual_pooling, cfg.pool_mode,
+            cfg.qkv_bias, cfg.rel_pos_embed, cfg.residual_pooling,
+            cfg.pool_mode if cfg.cls_stream else "conv", cfg.cls_stream,
         )
         self.norm2 = FusedLayerNorm(out_dims)
         self.mlp = Mlp(out_dims, int(out_dims * cfg.mlp_ratio), act=cfg.gelu)

@@ -45,6 +45,24 @@ order, so no atomics touch device memory and results are deterministic.
 Function whose forward is K1 (plain on the CPU) and whose backward is K5
 (plain on the CPU).
 
+K12 replaces the TPU kernel `diff_sal_tpu/ops/attention.py:119
+fused_bias_attention` (body `_attn_kernel` :62) and its backward `_fba_bwd`
+(:280, body `_attn_bwd_kernel` :193): the same function on MViT's
+token-concat layout (`MViTConfig.cls_stream=False`). q, k and v are (B*H,
+L, D) with the cls token at row 0 of each; the bias terms are three f32
+tensors rel_t (B*H, Lq, kt), rel_h (.., kh), rel_w (.., kw) whose row 0
+the caller zeroes (the JAX einsum of bf16 q with the f32 tables promotes
+them to f32); the residual adds q to rows >= 1 only. It is bound by
+operations as K1 and K5 are. The kernels are K1's and K5's templates
+instantiated for this layout (`csrc/attention.cu` entry
+`dsal_cls_attention`, `csrc/attention_bwd.cu` entry
+`dsal_cls_attention_bwd`): B*H batches of one head, the rel parts read
+and their gradients written in f32 through per-part pointers, the cls row
+inside the first query tile. `fused_bias_attention` is an autograd
+Function whose forward is K12 and whose backward is K12's backward kernel
+(plain versions on the CPU); gradients reach q, k, v and the three rel
+tensors.
+
 K7 replaces the TPU kernel `diff_sal_tpu/ops/attention.py:893
 cvt_cross_attention` (body `_cvt_attn_kernel` :841): the SalUNet
 decoder's CvT cross-attention softmax(q k^T * scale) v per head, q (Bt, L,
@@ -92,7 +110,20 @@ CVT_KERNEL = K.Kernel(
              "(_cvt_attn_kernel :841)",
 )
 
-BWD_BLOCK = 64        # rows per CTA and keys per tile of K5
+CLS_KERNEL = K.Kernel(
+    "fused_bias_attention", "attention.cu", "dsal_cls_attention",
+    [K.P] * 7 + [K.I] * 7 + [K.F, K.I, K.P],
+    replaces="diff_sal_tpu/ops/attention.py:119 fused_bias_attention "
+             "(_attn_kernel :62)",
+)
+CLS_BWD_KERNEL = K.Kernel(
+    "fused_bias_attention_bwd", "attention_bwd.cu", "dsal_cls_attention_bwd",
+    [K.P] * 16 + [K.I] * 8 + [K.F, K.F, K.I, K.P],
+    replaces="diff_sal_tpu/ops/attention.py:280 _fba_bwd "
+             "(_attn_bwd_kernel :193)",
+)
+
+BWD_BLOCK = 64        # rows per CTA and keys per tile of K5 and K12's backward
 BWD_TARGET_CTAS = 264  # two waves of 132 SMs for the k-major part of K5
 
 
@@ -270,6 +301,172 @@ def bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """K1 forward, K5 backward (plain versions on the CPU): the autograd
     Function records its backward whenever an input requires grad."""
     return _BiasAttention.apply(q, k, v, rel, tuple(k_shape), num_heads, scale, residual)
+
+
+def _cls_shapes(q, k, rels, k_shape):
+    BH, Lq, D = q.shape
+    kt, kh, kw = k_shape
+    if k.shape[0] != BH or k.shape[1] != 1 + kt * kh * kw or k.shape[2] != D:
+        raise ValueError(f"fused_bias_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"k_shape {k_shape}")
+    for r, n in zip(rels, k_shape):
+        if tuple(r.shape) != (BH, Lq, n):
+            raise ValueError(f"fused_bias_attention: rel {tuple(r.shape)} != {(BH, Lq, n)}")
+    return BH, Lq, D, k.shape[1]
+
+
+def _cls_probs(q, k, rels, k_shape, scale):
+    """K12's softmax probabilities (BH, Lq, Lk) in the accumulation dtype:
+    q*scale rounded in q's dtype, the bias terms summed in f32 (t + h, then
+    + w, as the TPU body's three products add), zero bias for key 0."""
+    BH, Lq, _, _ = _cls_shapes(q, k, rels, k_shape)
+    f = K.acc_dtype(q.dtype)
+    qs = q * torch.tensor(scale, dtype=q.dtype)
+    scores = torch.einsum("bld,bkd->blk", qs.to(f), k.to(f))
+    rt, rh, rw = (r.to(f) for r in rels)
+    bias = (rt[..., :, None, None] + rh[..., None, :, None]
+            + rw[..., None, None, :]).reshape(BH, Lq, -1)
+    return torch.softmax(scores + torch.nn.functional.pad(bias, (1, 0)), dim=-1)
+
+
+def fused_bias_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               rel_t: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor,
+                               k_shape: Tuple[int, int, int], scale: float,
+                               residual: bool = False) -> torch.Tensor:
+    """K12's plain version, rounding where the TPU body rounds: q*scale in
+    q's dtype, f32 scores and bias, the softmax normalised in f32 and
+    rounded to q's dtype before the product with v (f32 accumulation),
+    q added to rows >= 1 in f32 when `residual`, one rounding to q's
+    dtype."""
+    f = K.acc_dtype(q.dtype)
+    p = _cls_probs(q, k, (rel_t, rel_h, rel_w), k_shape, scale)
+    out = torch.einsum("blk,bkd->bld", p.to(q.dtype).to(f), v.to(f))
+    if residual:
+        out = torch.cat([out[:, :1], out[:, 1:] + q[:, 1:].to(f)], 1)
+    return out.to(q.dtype)
+
+
+def fused_bias_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                   rel_t: torch.Tensor, rel_h: torch.Tensor,
+                                   rel_w: torch.Tensor, g: torch.Tensor,
+                                   k_shape: Tuple[int, int, int], scale: float,
+                                   residual: bool = False):
+    """K12's backward, plain (JAX `_attn_bwd_kernel`, attention.py:193):
+    p recomputed in f32, dv = p_lo^T g, dp = g v^T, ds = p * (dp -
+    rowsum(dp * p)) in f32, dq = (ds_lo k) * scale (+ g on rows >= 1 when
+    `residual`), dk = (ds_lo^T q) * scale with p_lo and ds_lo rounded to
+    q's dtype and f32 accumulation; drel_t/h/w the unrounded ds summed over
+    the keys sharing each t, h and w (key 0 left out). Returns (dq, dk,
+    dv, drel_t, drel_h, drel_w), each in its input's dtype."""
+    kt, kh, kw = k_shape
+    dt, f = q.dtype, K.acc_dtype(q.dtype)
+    rels = (rel_t, rel_h, rel_w)
+    p = _cls_probs(q, k, rels, k_shape, scale)
+    gf = g.to(f)
+    dv = torch.einsum("blk,bld->bkd", p.to(dt).to(f), gf)
+    dp = torch.einsum("bld,bkd->blk", gf, v.to(f))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds_lo = ds.to(dt).to(f)
+    dq = torch.einsum("blk,bkd->bld", ds_lo, k.to(f)) * scale
+    if residual:
+        dq = torch.cat([dq[:, :1], dq[:, 1:] + gf[:, 1:]], 1)
+    dk = torch.einsum("blk,bld->bkd", ds_lo, q.to(f)) * scale
+    d5 = ds[..., 1:].reshape(ds.shape[0], ds.shape[1], kt, kh, kw)
+    drels = (d5.sum((3, 4)), d5.sum((2, 4)), d5.sum((2, 3)))
+    return (dq.to(dt), dk.to(k.dtype), dv.to(v.dtype),
+            *(d.to(r.dtype) for d, r in zip(drels, rels)))
+
+
+def _check_cls_cuda_inputs(name, q, k, v, rels, k_shape, max_rel, extra=()):
+    BH, Lq, D, Lk = _cls_shapes(q, k, rels, k_shape)
+    bf16 = [(what, t, torch.bfloat16) for what, t in (("q", q), ("k", k), ("v", v)) + extra]
+    f32 = [(what, t, torch.float32) for what, t in zip(("rel_t", "rel_h", "rel_w"), rels)]
+    for what, t, want in bf16 + f32:
+        K.check(t.dtype == want, f"{name}: {what} must be {want}, got {t.dtype}")
+        K.check(t.device == q.device and t.is_contiguous() and t.data_ptr() % 16 == 0,
+                f"{name}: {what} must be contiguous, 16-byte aligned, on {q.device}")
+    K.check(tuple(v.shape) == tuple(k.shape), f"{name}: v shape != k shape")
+    K.check(D in HEAD_DIMS, f"{name}: head_dim {D} not in {HEAD_DIMS}")
+    K.check(sum(k_shape) <= max_rel, f"{name}: kt+kh+kw > {max_rel}")
+    return BH, Lq, D, Lk
+
+
+def fused_bias_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             rel_t: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor,
+                             k_shape: Tuple[int, int, int], scale: float,
+                             residual: bool = False) -> torch.Tensor:
+    """Kernel K12 on CUDA (q, k, v bf16, rel f32), the plain version on the
+    CPU; no autograd."""
+    if q.device.type == "cpu":
+        return fused_bias_attention_plain(q, k, v, rel_t, rel_h, rel_w, k_shape, scale,
+                                          residual)
+    K.require_cuda(q, "fused_bias_attention")
+    BH, Lq, D, Lk = _check_cls_cuda_inputs("fused_bias_attention", q, k, v,
+                                           (rel_t, rel_h, rel_w), k_shape, MAX_REL)
+    kt, kh, kw = k_shape
+    out = torch.empty_like(q)
+    CLS_KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_t.data_ptr(), rel_h.data_ptr(),
+        rel_w.data_ptr(), out.data_ptr(), BH, Lq, Lk, D, kt, kh, kw,
+        float(torch.tensor(scale, dtype=q.dtype)), int(residual), K.stream(),
+    )
+    return out
+
+
+def fused_bias_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             rel_t: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor,
+                             g: torch.Tensor, k_shape: Tuple[int, int, int], scale: float,
+                             residual: bool = False):
+    """(dq, dk, dv, drel_t, drel_h, drel_w) of K12: its backward kernel on
+    CUDA (bf16 q, k, v, g; f32 rel and d-rel), the plain version on the
+    CPU."""
+    if q.device.type == "cpu":
+        return fused_bias_attention_bwd_plain(q, k, v, rel_t, rel_h, rel_w, g, k_shape, scale,
+                                              residual)
+    K.require_cuda(q, "fused_bias_attention_bwd")
+    rels = (rel_t, rel_h, rel_w)
+    BH, Lq, D, Lk = _check_cls_cuda_inputs("fused_bias_attention_bwd", q, k, v, rels, k_shape,
+                                           MAX_REL_BWD, (("g", g),))
+    K.check(tuple(g.shape) == tuple(q.shape), "fused_bias_attention_bwd: g shape != q shape")
+    kt, kh, kw = k_shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    drels = [torch.empty_like(r) for r in rels]
+    lse, delta = torch.empty((BH, Lq), **f32), torch.empty((BH, Lq), **f32)
+    splits = bwd_splits(BH, 1, Lq, Lk)
+    work = torch.empty((2, splits) + tuple(k.shape), **f32)
+    CLS_BWD_KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), *(r.data_ptr() for r in rels), g.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *(d.data_ptr() for d in drels),
+        lse.data_ptr(), delta.data_ptr(), work.data_ptr(),
+        BH, Lq, Lk, D, kt, kh, kw, splits, float(torch.tensor(scale, dtype=q.dtype)),
+        float(scale), int(residual), K.stream(),
+    )
+    return (dq, dk, dv, *drels)
+
+
+class _FusedBiasAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, rel_t, rel_h, rel_w, k_shape, scale, residual):
+        ctx.save_for_backward(q, k, v, rel_t, rel_h, rel_w)
+        ctx.args = (k_shape, scale, residual)
+        return fused_bias_attention_fwd(q, k, v, rel_t, rel_h, rel_w, k_shape, scale, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = fused_bias_attention_bwd(*ctx.saved_tensors, g.contiguous(), *ctx.args)
+        return grads + (None, None, None)
+
+
+def fused_bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         rel_t: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor,
+                         k_shape: Tuple[int, int, int], scale: float,
+                         residual: bool = False) -> torch.Tensor:
+    """softmax(q k^T * scale + bias) v (+ q on rows >= 1) for MViT's
+    token-concat layout: K12 forward, K12's backward kernel for the
+    gradients (plain versions on the CPU)."""
+    return _FusedBiasAttention.apply(q, k, v, rel_t, rel_h, rel_w, tuple(k_shape), scale,
+                                     residual)
 
 
 def reference_cvt_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,12 +1,14 @@
 """Build and bind the port's hand-written Hopper kernels.
 
-Each kernel is one CUDA C++ source under `diff_sal_tpu_torch/csrc/` with a
-plain C entry point. It is compiled with nvcc for `sm_90a` into a shared
-library, named by the hash of its source, in `diff_sal_tpu_torch/_build/`
-(git-ignored), and loaded with ctypes. Nothing is compiled when a module
-is imported: the first CUDA launch builds its library, and
-`build_all()` builds every library at once with one nvcc per source, all
-started together.
+Each kernel is a plain C entry point in one CUDA C++ source under
+`diff_sal_tpu_torch/csrc/` (a source may hold several: K1 and K12 share
+`attention.cu`, K5 and K12's backward `attention_bwd.cu`, K4 and K10
+`resize.cu`). Each source is compiled with nvcc for `sm_90a` into one
+shared library, named by the source and the hash of its text, in
+`diff_sal_tpu_torch/_build/` (git-ignored), and loaded with ctypes.
+Nothing is compiled when a module is imported: the first CUDA launch
+builds its library, and `build_all()` builds every library at once with
+one nvcc per source, all started together.
 
 The C entry points take device pointers and the CUDA stream as
 `c_void_p`, sizes as `c_int`, and return `cudaGetLastError()` after the
@@ -86,7 +88,7 @@ class Kernel:
     def library_path(self) -> Path:
         digest = hashlib.sha256(self.source_path.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"{self.name}-{digest.hexdigest()[:16]}.so"
+        return BUILD_DIR / f"{self.source_path.stem}-{digest.hexdigest()[:16]}.so"
 
     def start_build(self):
         """Start nvcc for this source unless its library exists; returns the
@@ -154,19 +156,25 @@ def registry() -> Dict[str, Kernel]:
     return {k.name: k for k in (attention.KERNEL, layernorm.KERNEL, mlp.KERNEL,
                                 resize.KERNEL, attention.BWD_KERNEL,
                                 layernorm.BWD_KERNEL, attention.CVT_KERNEL,
-                                resize.CONV_KERNEL, resize.PHASE_KERNEL, pool.KERNEL)}
+                                resize.CONV_KERNEL, resize.PHASE_KERNEL, resize.ADD_KERNEL,
+                                pool.KERNEL, attention.CLS_KERNEL, attention.CLS_BWD_KERNEL)}
 
 
 def build_all() -> Dict[str, float]:
     """Build every library not yet built, one nvcc per source, all started
-    together. Returns the seconds each build took (0 for a cached one)."""
-    kernels: List[Kernel] = list(registry().values())
+    together. Returns the seconds each source's build took (0 for a cached
+    one); every kernel of a source keeps that build's log."""
+    by_source: Dict[str, List[Kernel]] = {}
+    for k in registry().values():
+        by_source.setdefault(k.source, []).append(k)
     t0 = time.perf_counter()
-    started = [(k, *k.start_build()) for k in kernels]
+    started = [(ks, *ks[0].start_build()) for ks in by_source.values()]
     secs = {}
-    for k, proc, lib in started:
-        k.finish_build(proc, lib)
-        secs[k.name] = 0.0 if proc is None else time.perf_counter() - t0
+    for ks, proc, lib in started:
+        ks[0].finish_build(proc, lib)
+        for k in ks:
+            k.build_log = ks[0].build_log
+        secs[ks[0].source] = 0.0 if proc is None else time.perf_counter() - t0
     return secs
 
 

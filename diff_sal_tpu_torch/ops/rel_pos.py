@@ -60,6 +60,20 @@ def rel_pos_terms(q: torch.Tensor, q_shape, k_shape, rel_pos_t, rel_pos_h,
     return torch.cat([rt, rh, rw], dim=-1).reshape(B, qt * qh * qw, H, kt + kh + kw)
 
 
+def rel_pos_parts(q: torch.Tensor, q_shape, k_shape, rel_pos_t, rel_pos_h, rel_pos_w):
+    """The bias terms of the token-concat layout (JAX `mvit.py:824-830`,
+    the `contract` of kernel K12's caller): q (N, qt*qh*qw, C) the spatial
+    query rows of N = batch*heads. Returns rel_t (N, 1 + Lq, kt), rel_h
+    (.., kh), rel_w (.., kw) in f32 (f64 for f64 q), each with a zero row 0
+    for the cls query: the einsum of the compute-dtype q with the f32
+    tables promotes, as in JAX."""
+    N, Lq, C = q.shape
+    terms = rel_pos_terms(q.to(acc_dtype(q.dtype)).reshape(N, Lq, 1, C), q_shape, k_shape,
+                          rel_pos_t, rel_pos_h, rel_pos_w)
+    terms = torch.nn.functional.pad(terms.reshape(N, Lq, -1), (0, 0, 1, 0))
+    return [t.contiguous() for t in terms.split(tuple(k_shape), dim=-1)]
+
+
 def add_decomposed_rel_pos(attn: torch.Tensor, q: torch.Tensor, q_shape, k_shape,
                            rel_pos_t, rel_pos_h, rel_pos_w,
                            with_cls_token: bool = True) -> torch.Tensor:

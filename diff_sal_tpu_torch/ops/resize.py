@@ -22,6 +22,19 @@ as in the JAX package (`op_bwd`, resize.py:310): d x_i = Ah_i^T g Aw_i^T in
 f32, cast to x_i's dtype. The TPU has no kernel there, so neither does the
 port.
 
+K10 `bilinear_resize_add(acc, x)` = acc + bilinear_resize(x, acc's (H, W))
+replaces the TPU kernel `diff_sal_tpu/ops/resize.py:142
+bilinear_resize_add` (body `_resize_acc_kernel` :125). No model path calls
+it (the decoder's sum is K4); it is K4's one-input form with a running
+accumulator. Bound by bytes (acc read and the output written once, ~8
+flops per element), it is K4's gather (`csrc/resize.cu`, entry
+`dsal_resize_add`): the resized value summed in f32, rounded to acc's
+dtype and added to acc in acc's dtype, as the TPU body rounds (:139). The
+JAX kernel writes into acc's buffer (`input_output_aliases`); the port
+always returns a fresh tensor and leaves acc as it was. It is an autograd
+Function whose backward is the JAX `op_bwd` (:197) in plain math: d acc =
+g, d x = Ah^T g Aw^T in f32, cast to x's dtype.
+
 Two eval-only kernels compute the decoder head that follows the
 resize-sum, relu(conv3x3_same(sum_i resize(x_i)) + b) with BatchNorm's
 running statistics folded into the conv's kernel K' (3, 3, C, O) and
@@ -67,6 +80,13 @@ KERNEL = K.Kernel(
     [K.P] * 4 + [K.P, K.P, K.P] + [K.I] * 4 + [K.I] * 4 + [K.I] * 6 + [K.P],
     replaces="diff_sal_tpu/ops/resize.py:235 bilinear_resize_sum "
              "(_resize_sum_kernel :206)",
+)
+
+ADD_KERNEL = K.Kernel(
+    "bilinear_resize_add", "resize.cu", "dsal_resize_add",
+    [K.P] * 5 + [K.I] * 8 + [K.P],
+    replaces="diff_sal_tpu/ops/resize.py:142 bilinear_resize_add "
+             "(_resize_acc_kernel :125)",
 )
 
 CONV_KERNEL = K.Kernel(
@@ -231,6 +251,56 @@ def bilinear_resize_sum(xs: Sequence[torch.Tensor],
     (B, h_i, w_i, C) of one dtype: K4 forward (plain on the CPU), plain
     backward."""
     return _ResizeSum.apply(tuple(out_hw), *xs)
+
+
+def bilinear_resize_add_plain(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """K10's plain version: x resized to acc's (H, W) in f32, rounded to
+    acc's dtype, added to acc in acc's dtype."""
+    r = bilinear_resize(x.to(K.acc_dtype(x.dtype)), tuple(acc.shape[1:3]))
+    return acc + r.to(acc.dtype)
+
+
+def bilinear_resize_add_fwd(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Kernel K10 on CUDA (acc and x bf16 or f32 each, C % 8 == 0), the
+    plain version on the CPU; no autograd."""
+    if acc.device.type == "cpu":
+        return bilinear_resize_add_plain(acc, x)
+    K.require_cuda(acc, "bilinear_resize_add")
+    B, H, W, C = acc.shape
+    for name, t in (("acc", acc), ("x", x)):
+        K.check(t.dtype in (torch.bfloat16, torch.float32),
+                f"bilinear_resize_add: {name} dtype {t.dtype}")
+        K.check(t.dim() == 4 and t.shape[0] == B and t.shape[3] == C and t.device == acc.device
+                and t.is_contiguous() and t.data_ptr() % 16 == 0,
+                f"bilinear_resize_add: {name} {tuple(t.shape)} must be (B, h, w, C) of acc's "
+                "B and C, contiguous, 16-byte aligned")
+    K.check(C % 8 == 0, f"bilinear_resize_add needs C % 8 == 0, got {C}")
+    h, w = x.shape[1], x.shape[2]
+    idx, wts = _tap_tables(((h, w),), (H, W), acc.device)
+    out = torch.empty_like(acc)
+    if out.numel():
+        ADD_KERNEL.launch(acc.data_ptr(), x.data_ptr(), idx.data_ptr(), wts.data_ptr(),
+                          out.data_ptr(), B, h, w, H, W, C, int(acc.dtype == torch.bfloat16),
+                          int(x.dtype == torch.bfloat16), K.stream())
+    return out
+
+
+class _ResizeAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, acc, x):
+        ctx.shape, ctx.dtype = (x.shape[1], x.shape[2]), x.dtype
+        return bilinear_resize_add_fwd(acc, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, bilinear_resize_sum_bwd(g, [ctx.shape], [ctx.dtype])[0]
+
+
+def bilinear_resize_add(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """acc + bilinear_resize(x, acc's (H, W)) for channel-last acc (B, H, W,
+    C) and x (B, h, w, C): K10 forward (plain on the CPU), plain backward.
+    Returns a new tensor; acc is not written."""
+    return _ResizeAdd.apply(acc, x)
 
 
 # --------------------------------------------------------------- heads -----

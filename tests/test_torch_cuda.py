@@ -1,5 +1,5 @@
-"""The port's ten Hopper kernels against their plain PyTorch versions, on
-the card, and autograd through them. Every test here needs a CUDA device and nvcc: the `cuda` marker
+"""The port's thirteen Hopper kernels against their plain PyTorch versions,
+on the card, and autograd through them. Every test here needs a CUDA device and nvcc: the `cuda` marker
 names them and the `card` fixture skips them where
 `torch.cuda.is_available()` is false. This file imports no JAX (the card's
 machine has none); run it there with
@@ -11,7 +11,10 @@ kernel and the plain version round the same f32 values at other points
 (the flash softmax, the order of sums), so they may differ by one bf16 ulp
 of the output: |d| <= 1e-2 + 1e-2 * |plain| covers one ulp at any
 magnitude. In f32 the difference is the order of f32 sums: 1e-5; K6's
-parameter gradients sum ~1000 rows in another order: 1e-4 relative.
+parameter gradients sum ~1000 rows in another order: 1e-4 relative. K12's
+f32 bias gradients come from dS as bf16 hi + lo parts on the tensor cores
+(~16 mantissa bits) and p recomputed from the row logsumexp: they are held
+to the bf16 bound too.
 """
 
 import dataclasses
@@ -433,3 +436,167 @@ def test_new_kernels_refuse_what_they_do_not_take(card):
     with pytest.raises(ValueError):  # K11: channels not in 16-byte groups
         t_pool.depthwise_pool3d(_randn(g, 1, 4, 5, 5, 12), _randn(g, 3, 3, 3, 12,
                                                                dtype=torch.float32), (1, 1, 1))
+
+
+# ------------------------------------------------------------- K10, K12 ---
+
+
+def _k12_args(g, BH, Lq, k_shape, D=96):
+    """q, k, v (BH, L, D) bf16 with cls at row 0, the f32 bias terms with
+    a zero cls row, as MViT's token-concat layout hands them to K12."""
+    Lk = 1 + k_shape[0] * k_shape[1] * k_shape[2]
+    q, k, v = (_randn(g, BH, n, D) for n in (Lq, Lk, Lk))
+    rels = []
+    for n in k_shape:
+        r = _randn(g, BH, Lq, n, dtype=torch.float32, scale=0.5)
+        r[:, 0] = 0
+        rels.append(r)
+    return q, k, v, rels
+
+
+# MViT-small's K12 shapes at B=2, Lq cut down: block 0 (1 head, Lk 673, Lq
+# ragged against the 64-row tiles), block 1 (2 heads, Lk 2689), block 14 (8
+# heads, Lq = Lk - 2016 = 673 against Lk 2689)
+K12_SHAPES = [(2, 1001, (8, 7, 12)), (4, 701, (8, 14, 24)), (16, 673, (8, 14, 24))]
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("BH,Lq,k_shape", K12_SHAPES)
+def test_fused_bias_attention_kernel(card, BH, Lq, k_shape, residual):
+    g = torch.Generator().manual_seed(Lq + BH)
+    q, k, v, rels = _k12_args(g, BH, Lq, k_shape)
+    before = t_attn.CLS_KERNEL.launches
+    out = t_attn.fused_bias_attention_fwd(q, k, v, *rels, k_shape, 96 ** -0.5, residual)
+    assert t_attn.CLS_KERNEL.launches == before + 1
+    ref = t_attn.fused_bias_attention_plain(q, k, v, *rels, k_shape, 96 ** -0.5, residual)
+    _check(out, ref, torch.bfloat16)
+    _check(out[:, 0], ref[:, 0], torch.bfloat16)  # the cls row: no residual
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_fused_bias_attention_kernel_head_dims(card, D):
+    g = torch.Generator().manual_seed(D)
+    q, k, v, rels = _k12_args(g, 2, 300, (2, 3, 4), D)
+    _check(t_attn.fused_bias_attention_fwd(q, k, v, *rels, (2, 3, 4), D ** -0.5, True),
+           t_attn.fused_bias_attention_plain(q, k, v, *rels, (2, 3, 4), D ** -0.5, True),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("BH,Lq,k_shape", K12_SHAPES)
+def test_fused_bias_attention_bwd_kernel(card, BH, Lq, k_shape, residual):
+    g = torch.Generator().manual_seed(Lq + BH + 1)
+    q, k, v, rels = _k12_args(g, BH, Lq, k_shape)
+    go = _randn(g, *q.shape)
+    args = (q, k, v, *rels, go, k_shape, 96 ** -0.5, residual)
+    before = t_attn.CLS_BWD_KERNEL.launches
+    got = t_attn.fused_bias_attention_bwd(*args)
+    assert t_attn.CLS_BWD_KERNEL.launches == before + 1
+    ref = t_attn.fused_bias_attention_bwd_plain(*args)
+    for name, a, b in zip(("dq", "dk", "dv", "drel_t", "drel_h", "drel_w"), got, ref):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        _close_bf16(a, b)
+
+
+@pytest.mark.parametrize("acc_dt,x_dt", [(torch.bfloat16, torch.bfloat16),
+                                         (torch.float32, torch.float32),
+                                         (torch.bfloat16, torch.float32),
+                                         (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("shape,out_hw,C", [((7, 12), (112, 192), 768), ((56, 96), (112, 192), 96),
+                                            ((5, 3), (9, 17), 8), ((20, 30), (7, 11), 24)])
+def test_resize_add_kernel(card, acc_dt, x_dt, shape, out_hw, C):
+    """K10 at the decoder sum's shapes (the coarsest and the finest task
+    map, B=2) and at ragged up- and down-sampling sizes, every dtype pair,
+    against the plain version; acc is left as it was."""
+    g = torch.Generator().manual_seed(C + shape[0])
+    acc = _randn(g, 2, *out_hw, C, dtype=acc_dt)
+    x = _randn(g, 2, *shape, C, dtype=x_dt)
+    acc0 = acc.clone()
+    before = t_resize.ADD_KERNEL.launches
+    out = t_resize.bilinear_resize_add(acc, x)
+    assert t_resize.ADD_KERNEL.launches == before + 1 and out.dtype == acc_dt
+    _check(out, t_resize.bilinear_resize_add_plain(acc, x), acc_dt)
+    assert torch.equal(acc, acc0)
+
+
+def test_resize_add_kernel_sums_like_k4(card):
+    """K10 four times from a zero accumulator gives K4's sum of the same
+    four maps up to bf16 rounding of the running sum: five roundings of
+    partial sums, each within half a bf16 ulp (2^-8 relative) of the sum
+    of the terms' magnitudes."""
+    g = torch.Generator().manual_seed(11)
+    xs = [_randn(g, 2, h, w, 64) for h, w in HEAD_PATH]
+    acc = torch.zeros(2, 112, 192, 64, dtype=torch.bfloat16, device="cuda")
+    for x in xs:
+        acc = t_resize.bilinear_resize_add(acc, x)
+    ref = t_resize.bilinear_resize_sum(xs, (112, 192)).float()
+    mag = t_resize.bilinear_resize_sum_plain([x.float().abs() for x in xs], (112, 192))
+    torch.cuda.synchronize()
+    assert bool(((acc.float() - ref).abs() <= 1e-2 + 5 * 2.0**-8 * mag).all())
+
+
+def test_k10_k12_record_a_backward_or_raise(card):
+    """On CUDA tensors that require grad, K12 and K10 return a result with
+    a grad_fn: K12's backward runs its backward kernel and reaches q, k, v
+    and the three bias terms; K10's is the plain resize backward. Inputs
+    the kernels do not take raise."""
+    g = torch.Generator().manual_seed(12)
+    q, k, v, rels = _k12_args(g, 2, 70, (1, 3, 4), 64)
+    ins = [t.requires_grad_() for t in (q, k, v, *rels)]
+    out = t_attn.fused_bias_attention(*ins, (1, 3, 4), 0.125, True)
+    acc, x = _randn(g, 1, 6, 8, 16).requires_grad_(), _randn(g, 1, 3, 4, 16).requires_grad_()
+    out2 = t_resize.bilinear_resize_add(acc, x)
+    assert out.grad_fn is not None and out2.grad_fn is not None
+    K.reset_launch_counts()
+    (out.float().sum() + out2.float().sum()).backward()
+    assert K.launch_counts()["fused_bias_attention_bwd"] == 1
+    for t in ins + [acc, x]:
+        assert t.grad is not None and t.grad.dtype == t.dtype and bool(torch.isfinite(t.grad).all())
+    with pytest.raises(ValueError):  # K12 takes bf16 q, k, v
+        t_attn.fused_bias_attention_fwd(q.detach().float(), k.detach(), v.detach(),
+                                        *(r.detach() for r in rels), (1, 3, 4), 0.125)
+    with pytest.raises(ValueError):  # and f32 bias terms
+        t_attn.fused_bias_attention_fwd(q.detach(), k.detach(), v.detach(),
+                                        *(r.detach().bfloat16() for r in rels), (1, 3, 4), 0.125)
+    with pytest.raises(ValueError):  # K10: channels in groups of 8
+        t_resize.bilinear_resize_add(_randn(g, 1, 6, 8, 12), _randn(g, 1, 3, 4, 12))
+
+
+def test_a_kernel_that_does_not_build_fails_loudly(card, monkeypatch, tmp_path):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "broken.cu").write_text('extern "C" int dsal_broken() { return undefined_name; }\n')
+    monkeypatch.setattr(K, "CSRC_DIR", src)
+    monkeypatch.setattr(K, "BUILD_DIR", tmp_path / "build")
+    kern = K.Kernel("broken", "broken.cu", "dsal_broken", [], replaces="")
+    with pytest.raises(K.KernelBuildError, match="undefined_name"):
+        kern.launch()
+    assert kern.launches == 0 and not list((tmp_path / "build").glob("*.so"))
+
+
+@pytest.mark.parametrize("cls_stream", [False, True])
+def test_tiny_mvit_launches_follow_the_layout(card, cls_stream):
+    """A tiny MViT in bf16 with pool_mode="pallas": under cls_stream=False
+    every block's attention launches K12 forward and backward and no pool
+    runs K11 (JAX pools by convolution there); under cls_stream=True K1,
+    K5 and K11. K2 launches 7 per block plus one per emitted scale in both."""
+    from diff_sal_tpu_torch.config import MViTConfig
+    from diff_sal_tpu_torch.models.diff_model import init_weights
+    from diff_sal_tpu_torch.models.mvit import MViT
+
+    cfg = MViTConfig.tiny(spatial_size=(64, 96), cls_stream=cls_stream, pool_mode="pallas")
+    m = init_weights(MViT(cfg), 13).to(card)
+    x = torch.randn(2, 16, 64, 96, 3, generator=torch.Generator().manual_seed(14)).to(card)
+    K.reset_launch_counts()
+    outs = m(x, torch.bfloat16)
+    fwd = K.launch_counts()
+    sum(o.float().sum() for o in outs).backward()
+    bwd = {n: c - fwd[n] for n, c in K.launch_counts().items()}
+    L = cfg.num_layers
+    new, old = (("bias_attention", "fused_bias_attention") if cls_stream
+                else ("fused_bias_attention", "bias_attention"))
+    assert fwd[new] == L and fwd[old] == 0, fwd
+    assert bwd[new + "_bwd"] == L and bwd[old + "_bwd"] == 0, bwd
+    assert fwd["layer_norm"] == 7 * L + len(cfg.out_scales), fwd
+    assert (fwd["depthwise_pool3d"] > 0) == cls_stream, fwd
+    assert all(torch.isfinite(o.float()).all() for o in outs)

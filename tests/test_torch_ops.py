@@ -218,6 +218,10 @@ def _cpu_calls():
     t_pool.depthwise_pool3d(t(1, 2, 3, 4, 8), t(3, 3, 3, 8), (1, 2, 2))
     t_resize.resize_sum_conv_relu([t(1, 2, 3, 16)], (4, 6), t(3, 3, 16, 16), t(16))
     t_resize.resize_sum_conv_relu_phase([t(1, 2, 3, 16)], (4, 6), t(3, 3, 16, 8), t(8))
+    q = t(2, 5, 16).requires_grad_()
+    t_attn.fused_bias_attention(q, t(2, 5, 16), t(2, 5, 16), t(2, 5, 1), t(2, 5, 2), t(2, 5, 2),
+                                (1, 2, 2), 0.25, True).sum().backward()
+    t_resize.bilinear_resize_add(t(1, 4, 6, 8), t(1, 2, 3, 8).requires_grad_()).sum().backward()
 
 
 def test_cpu_tensors_take_the_plain_route():
@@ -240,6 +244,13 @@ def test_other_devices_raise():
     with pytest.raises(ValueError):
         t_attn.cvt_cross_attention(*(torch.empty(1, n, 16, device="meta") for n in (4, 2, 2)),
                                    2, 0.25)
+    with pytest.raises(ValueError):
+        t_attn.fused_bias_attention(*(torch.empty(1, 5, 16, device="meta") for _ in range(3)),
+                                    *(torch.empty(1, 5, n, device="meta") for n in (1, 2, 2)),
+                                    (1, 2, 2), 0.25)
+    with pytest.raises(ValueError):
+        t_resize.bilinear_resize_add(torch.empty(1, 4, 6, 8, device="meta"),
+                                     torch.empty(1, 2, 3, 8, device="meta"))
     xs, k = [torch.empty(1, 2, 3, 16, device="meta")], torch.empty(3, 3, 16, 16, device="meta")
     for head in (t_resize.resize_sum_conv_relu, t_resize.resize_sum_conv_relu_phase):
         with pytest.raises(ValueError):

@@ -189,13 +189,19 @@ def test_loss_and_metrics_match_jax(steps):
 
 def test_every_gradient_leaf_matches_jax(steps):
     jax_out, model, _, _, ref64 = steps
-    top = max(float(v.abs().max()) for v in jax_out["grads"].values())
+    assert_gradient_leaves_match(jax_out["grads"], model, ref64["grads"], min_leaves=400)
+
+
+def assert_gradient_leaves_match(jax_grads, model, grads64, min_leaves: int):
+    """Every gradient leaf of the port's f32 step against JAX's, within
+    four times the port's own f32-vs-f64 gap (the module docstring)."""
+    top = max(float(v.abs().max()) for v in jax_grads.values())
     # per leaf: relative L2 and max|d| / max|g| of (port f32, JAX f32),
     # (port f32, port f64) and (JAX f32, port f64)
     gap = {"port-jax": [], "port-f64": [], "jax-f64": []}
     peak = {k: [] for k in gap}
     for name, p in model.named_parameters():
-        ref = jax_out["grads"][name].numpy()
+        ref = jax_grads[name].numpy()
         if name.startswith("audio_net."):  # frozen: no gradient at all in the port
             assert p.grad is None and not p.requires_grad, name
             assert not np.any(ref), name
@@ -207,12 +213,12 @@ def test_every_gradient_leaf_matches_jax(steps):
         if float(np.abs(ref).max()) <= 1e-6 * top:
             assert float(np.abs(got).max()) <= 1e-6 * top, name
             continue
-        g64 = ref64["grads"][name].numpy()
+        g64 = grads64[name].numpy()
         for k, (a, b) in {"port-jax": (got, ref), "port-f64": (got, g64),
                           "jax-f64": (ref, g64)}.items():
             gap[k].append((float(np.linalg.norm(a - b) / np.linalg.norm(b)), name))
             peak[k].append((float(np.abs(a - b).max() / np.abs(b).max()), name))
-    assert len(gap["port-jax"]) > 400
+    assert len(gap["port-jax"]) > min_leaves
     q = lambda v: f"median {np.median([x for x, _ in v]):.2e} max {max(v)[0]:.2e}"  # noqa: E731
     print(f"gradient leaves ({len(gap['port-jax'])}): relative L2 / max|d| over max|g|: "
           + "; ".join(f"{k} {q(gap[k])} / {q(peak[k])}" for k in gap))
