@@ -22,7 +22,10 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      (working dtype, stated tolerance), with the kernel, the plain version,
      the one PyTorch call that computes the same function where there is
      one, and the least time the card could take (bytes over 3.35 TB/s or
-     operations over the peak rate of their type, whichever is larger);
+     operations over the peak rate of their type, whichever is larger),
+     and for K1 (K12 forward in phase 9) one line per MViT block shape
+     with the kernel's and SDPA's ms per call, the share of the bound and
+     the launch plan (rows per CTA, keys per tile, stages, shared memory);
      then K10, which no model path calls: the four recorded task maps added
      one by one into a zero accumulator (launches counted in that run),
      against K4's sum of the same maps and each call against K10's plain
@@ -109,6 +112,8 @@ KERNELS = INFER_KERNELS + ("bias_attention_bwd", "layer_norm_bwd", "cvt_attentio
                            "depthwise_pool3d", "fused_bias_attention",
                            "fused_bias_attention_bwd")
 TRAIN_KERNELS = ("bias_attention_bwd", "layer_norm_bwd")
+# the forward pooled attention (K1, K12 forward), timed per MViT block shape
+FWD_ATTENTION = ("bias_attention", "fused_bias_attention")
 TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 0.0)}  # (atol, rtol)
 # bf16: kernel and plain version round the same f32 values at other points
 # and may differ by one bf16 ulp of the output, which atol + rtol*|x| covers.
@@ -266,6 +271,18 @@ def bound_terms(kernel: str, args, kw):
     raise KeyError(kernel)
 
 
+def fwd_attention_plan(name, args):
+    """(rows per CTA, keys per tile, stages, shared-memory bytes) that K1 or
+    K12 forward launches with for these arguments."""
+    from diff_sal_tpu_torch.ops import attention
+
+    q, k = args[:2]
+    B, Lq, HD = q.shape
+    k_shape, H = (args[4], args[5]) if name == "bias_attention" else (args[6], 1)
+    p = attention.fwd_plan(B, H, Lq, k.shape[1], HD // H, tuple(k_shape))
+    return p.rows, p.block_n, p.stages, p.smem
+
+
 def library_call(name, args, kw):
     """The one PyTorch call that computes the same function on the same
     inputs, as a thunk for timing, or None. Timed only, never on the path."""
@@ -384,6 +401,7 @@ def hold_kernels(names, recorders, plain, counts):
         err = kern_ms = plain_ms = lib_ms = 0.0
         t_bytes = t_ops = 0.0
         has_lib = False
+        per_shape = {}  # K1 / K12 forward: (q, k shape) -> [calls, ms, library ms, bound ms]
         for args, kw in rec.calls:
             got = _outputs(rec.fn(*args, **kw))
             ref = _outputs(plain[name](*args, **kw))
@@ -396,15 +414,25 @@ def hold_kernels(names, recorders, plain, counts):
                     f"{name}: kernel output {i} disagrees with its plain version at shape "
                     f"{tuple(a.shape)}: max|d| {float(diff.max()):.3e}")
                 err = max(err, float(diff.max()))
-            kern_ms += cuda_ms(lambda: rec.fn(*args, **kw))
+            call_ms = cuda_ms(lambda: rec.fn(*args, **kw))
+            kern_ms += call_ms
             plain_ms += cuda_ms(lambda: plain[name](*args, **kw), reps=3, warmup=1)
             lib = library_call(name, args, kw)
+            call_lib = None
             if lib is not None:
                 has_lib = True
-                lib_ms += cuda_ms(lib)
+                call_lib = cuda_ms(lib)
+                lib_ms += call_lib
             nbytes, ops = bound_terms(name, args, kw)
             t_bytes += nbytes / HBM_BYTES_PER_S * 1e3
             t_ops += sum(n / peak for n, peak in ops) * 1e3
+            if name in FWD_ATTENTION:
+                acc = per_shape.setdefault((tuple(args[0].shape), tuple(args[1].shape),
+                                            fwd_attention_plan(name, args)), [0, 0.0, 0.0, 0.0])
+                acc[0] += 1
+                acc[1] += call_ms
+                acc[2] += call_lib or 0.0
+                acc[3] += max(nbytes / HBM_BYTES_PER_S, sum(n / p for n, p in ops)) * 1e3
         kern = kernels.registry()[name]
         rows.append({
             "name": name,
@@ -423,6 +451,10 @@ def hold_kernels(names, recorders, plain, counts):
             f"plain {plain_ms:.3f} ms, library {lib_ms if has_lib else None}, "
             f"bound {max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, ops {t_ops:.3f}), "
             f"max|d| {err:.3e}")
+        for (qs, ks, plan), (n, ms, lms, bound) in per_shape.items():
+            log(f"[block {name}] q {qs} k {ks} plan {plan}: {n} calls, kernel {ms / n:.4f} ms, "
+                f"SDPA {lms / n:.4f} ms, bound {bound / n:.4f} ms (operations), "
+                f"{100.0 * bound / ms:.1f}% of bound, SDPA / kernel {lms / ms:.2f}")
         rec.calls.clear()
     return rows
 
@@ -900,7 +932,10 @@ def main() -> int:
     logs = {k.source: k.build_log for k in kernels.registry().values()}
     for source, text in logs.items():
         for line in text.splitlines():
-            if "Used" in line or "spill" in line:
+            # the forward attention's lines also name each instance (head_dim, consumer
+            # warpgroups) and its shared memory
+            if ("Used" in line or "spill" in line
+                    or (source == "attention.cu" and "entry function" in line)):
                 log(f"[ptxas {source}] {line.strip()}")
 
     # -- phase 3: main path -----------------------------------------------

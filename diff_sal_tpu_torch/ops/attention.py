@@ -17,13 +17,17 @@ each head to 128 lanes).
 On the H100 the work is dominated by the two products (4*Lq*Lk*D flops
 per head; Lq = 43008, Lk = 673 at block 0, Lk = 2689 at block 1), well
 above the bytes of q, k, v, rel and out, so it is bound by operations.
-The kernel (`csrc/attention.cu`) is a flash-style forward: one CTA per
-(batch, head, 64 query rows); K/V tiles of 64 keys stream through shared
-memory; S = Q K^T and O += P V run on the tensor cores (WMMA, bf16 in,
-f32 accumulation); the softmax is online in f32, the bias comes from
-index math on each key's (t, h, w) and key columns past Lk are masked.
-The (Lq, Lk) score matrix never reaches device memory. head_dim is 96
-at every MViT stage: it is a multiple of 16, so no padding is needed.
+The kernel (`csrc/attention.cu`) is a warp-specialised Hopper forward: a
+producer warpgroup keeps TMA loads of Q (once) and of 128-key K/V tiles
+(a ring of `stages` buffers behind mbarriers) in flight; one or two
+consumer warpgroups of 64 query rows each run S = Q K^T and O += P V with
+`wgmma` (bf16 in, f32 accumulated in registers), add the bias from a
+per-row table of rel_t + rel_h and rel_w in shared memory, and keep the
+online softmax, P and O in registers. TMA zero-fills rows past L, so
+nothing is padded; key columns past Lk get -inf. `fwd_plan` chooses the
+geometry (rows per CTA, stages, shared memory) on the host, so the CPU
+tests reach it. head_dim is 96 at every MViT stage (64 and 128 are taken
+too).
 
 K5 replaces the TPU kernel `diff_sal_tpu/ops/attention.py:761 _fba2_bwd`
 (body `_attn_v2_bwd_kernel` :697): dq, dk, dv and drel of K1 from the
@@ -81,6 +85,8 @@ grad.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Tuple
 
 import torch
@@ -89,7 +95,7 @@ from diff_sal_tpu_torch.ops import kernels as K
 
 KERNEL = K.Kernel(
     "bias_attention", "attention.cu", "dsal_bias_attention",
-    [K.P] * 5 + [K.I] * 8 + [K.F, K.I, K.P],
+    [K.P] * 5 + [K.I] * 8 + [K.F, K.I, K.I, K.I, K.P],
     replaces="diff_sal_tpu/ops/attention.py:601 fused_bias_attention_v2 "
              "(_attn_v2_kernel :477)",
 )
@@ -112,7 +118,7 @@ CVT_KERNEL = K.Kernel(
 
 CLS_KERNEL = K.Kernel(
     "fused_bias_attention", "attention.cu", "dsal_cls_attention",
-    [K.P] * 7 + [K.I] * 7 + [K.F, K.I, K.P],
+    [K.P] * 7 + [K.I] * 7 + [K.F, K.I, K.I, K.I, K.P],
     replaces="diff_sal_tpu/ops/attention.py:119 fused_bias_attention "
              "(_attn_kernel :62)",
 )
@@ -125,6 +131,75 @@ CLS_BWD_KERNEL = K.Kernel(
 
 BWD_BLOCK = 64        # rows per CTA and keys per tile of K5 and K12's backward
 BWD_TARGET_CTAS = 264  # two waves of 132 SMs for the k-major part of K5
+
+SMEM_MAX = 232_448    # dynamic shared memory one CTA may use on the H100
+NUM_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """Geometry of one K1 / K12 forward launch.
+
+    `rows` query rows per CTA (64: one consumer warpgroup, 128: two),
+    `block_n` keys per tile, `stages` K/V buffers in the TMA ring, `smem`
+    dynamic shared-memory bytes, `q_tiles` CTAs per (batch, head), `ctas`
+    the grid, and `tma` the tensor maps the C entry builds, as (name,
+    dims, byte strides of dims 1 and 2, box), innermost first."""
+
+    rows: int
+    block_n: int
+    stages: int
+    smem: int
+    q_tiles: int
+    ctas: int
+    tma: Tuple[Tuple[str, Tuple[int, ...], Tuple[int, ...], Tuple[int, ...]], ...]
+
+
+def fwd_smem(D: int, rows: int, block_n: int, stages: int, Lk: int,
+             k_shape: Tuple[int, int, int]) -> int:
+    """Dynamic shared memory of one forward CTA, as `smem_layout` in
+    csrc/attention.cu lays it out: Q, the K and V rings, the per-row bias
+    table ((t, h) sums, rel_w, two zeros and a -inf entry, the raw rel_t
+    and rel_h; rows padded to 4 mod 32 floats), the key-column table, the
+    mbarriers and 1024 bytes to align the base."""
+    kt, kh, kw = k_shape
+    ntiles = -(-Lk // block_n)
+    rs = (kt * kh + kw + 3 + kt + kh + 27) // 32 * 32 + 4
+    return (rows * D * 2 + 2 * stages * block_n * D * 2 + rows * rs * 4
+            + ntiles * block_n * 4 + (4 * stages + 1) * 8 + 1024)
+
+
+@functools.lru_cache(maxsize=None)  # the wrappers ask once per call, with few distinct shapes
+def fwd_plan(B: int, H: int, Lq: int, Lk: int, D: int,
+             k_shape: Tuple[int, int, int]) -> FwdPlan:
+    """Choose the forward kernel's geometry for B batches of H heads
+    (K12: B*heads batches of one head). 128 rows per CTA (two consumer
+    warpgroups share each K/V tile) unless that leaves fewer CTAs than the
+    card has SMs, then 64; as many ring stages as fit, up to four.
+    Raises ValueError on a head_dim or key grid the kernel does not take."""
+    kt, kh, kw = k_shape
+    if D not in HEAD_DIMS:
+        raise ValueError(f"bias attention forward: head_dim {D} not in {HEAD_DIMS}")
+    if kt + kh + kw > MAX_REL:
+        raise ValueError(f"bias attention forward: kt+kh+kw = {kt + kh + kw} > {MAX_REL}")
+    if Lq < 1 or Lk < 1:
+        raise ValueError(f"bias attention forward: Lq {Lq}, Lk {Lk}")
+    first = 128 if B * H * -(-Lq // 128) >= NUM_SMS else 64
+    for rows in ((128, 64) if first == 128 else (64,)):
+        # two consumer warpgroups: 64-key tiles in a deeper ring; one: 128-key
+        # tiles (measured on the H100 at MViT's block shapes, PERF.md), as
+        # `dispatch` in csrc/attention.cu derives them
+        bn = 64 if rows == 128 else 128
+        for stages in ((4, 3, 2) if rows == 128 else (2,)):
+            smem = fwd_smem(D, rows, bn, stages, Lk, k_shape)
+            if smem <= SMEM_MAX:
+                HD = H * D
+                tma = tuple((name, (HD, L, B), (HD * 2, L * HD * 2), (32, box, 1))
+                            for name, L, box in (("q", Lq, rows), ("k", Lk, bn), ("v", Lk, bn)))
+                q_tiles = -(-Lq // rows)
+                return FwdPlan(rows, bn, stages, smem, q_tiles, B * H * q_tiles, tma)
+    raise ValueError(f"bias attention forward: key grid {k_shape} at head_dim {D} needs more "
+                     f"than {SMEM_MAX} bytes of shared memory")
 
 
 def _shapes(q, k, rel, k_shape, num_heads):
@@ -205,17 +280,39 @@ def bias_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.reshape(B, Lk, H * D).to(v.dtype), drel.permute(0, 2, 1, 3).to(rel.dtype))
 
 
+def _check_tensors(name, device, items):
+    """Each (what, tensor, dtype) has that dtype and is contiguous, 16-byte
+    aligned and on `device`. The messages are built only on failure: the
+    wrappers check on every launch, and on the host-bound paths that time
+    counts."""
+    for what, t, want in items:
+        if t.dtype != want:
+            raise ValueError(f"{name}: {what} must be {want}, got {t.dtype}")
+        if not (t.device == device and t.is_contiguous() and t.data_ptr() % 16 == 0):
+            raise ValueError(f"{name}: {what} must be contiguous, 16-byte aligned, on {device}")
+
+
+def _check_common(name, q, k, v, D, k_shape, max_rel):
+    if v.shape != k.shape or k.shape[0] != q.shape[0]:
+        raise ValueError(f"{name}: v {tuple(v.shape)}, k {tuple(k.shape)}, q {tuple(q.shape)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
+    if sum(k_shape) > max_rel:
+        raise ValueError(f"{name}: kt+kh+kw > {max_rel}")
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded_scale(scale: float, dtype: torch.dtype) -> float:
+    """The scale as the kernels apply it: rounded in the inputs' dtype, as the
+    TPU kernel computes q * scale."""
+    return float(torch.tensor(scale, dtype=dtype))
+
+
 def _check_cuda_inputs(name, q, k, v, rel, k_shape, num_heads, max_rel, extra=()):
     B, Lq, H, D, Lk = _shapes(q, k, rel, k_shape, num_heads)
-    kt, kh, kw = k_shape
-    for what, t in (("q", q), ("k", k), ("v", v), ("rel", rel)) + tuple(extra):
-        K.check(t.dtype == torch.bfloat16, f"{name}: {what} must be bf16, got {t.dtype}")
-        K.check(t.device == q.device and t.is_contiguous() and t.data_ptr() % 16 == 0,
-                f"{name}: {what} must be contiguous, 16-byte aligned, on {q.device}")
-    K.check(tuple(v.shape) == tuple(k.shape), f"{name}: v shape != k shape")
-    K.check(k.shape[0] == B, f"{name}: batch mismatch")
-    K.check(D in HEAD_DIMS, f"{name}: head_dim {D} not in {HEAD_DIMS}")
-    K.check(kt + kh + kw <= max_rel, f"{name}: kt+kh+kw > {max_rel}")
+    _check_tensors(name, q.device, [(what, t, torch.bfloat16) for what, t in
+                                    (("q", q), ("k", k), ("v", v), ("rel", rel)) + tuple(extra)])
+    _check_common(name, q, k, v, D, k_shape, max_rel)
     return B, Lq, H, D, Lk
 
 
@@ -232,12 +329,12 @@ def bias_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          num_heads, MAX_REL)
     kt, kh, kw = k_shape
     out = torch.empty_like(q)
-    # q * scale is rounded in q's dtype, with the scale itself in that dtype,
-    # as the TPU kernel computes it
-    scale_q = float(torch.tensor(scale, dtype=q.dtype))
+    scale_q = _rounded_scale(float(scale), q.dtype)
+    plan = fwd_plan(B, H, Lq, Lk, D, tuple(k_shape))
     KERNEL.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), out.data_ptr(),
-        B, Lq, Lk, H, D, kt, kh, kw, scale_q, int(residual), K.stream(),
+        B, Lq, Lk, H, D, kt, kh, kw, scale_q, int(residual), plan.rows, plan.stages,
+        K.stream(),
     )
     return out
 
@@ -269,7 +366,7 @@ def bias_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     delta = torch.empty((B, H, Lq), **f32)
     splits = bwd_splits(B, H, Lq, Lk)
     work = torch.empty((2, splits) + tuple(k.shape), **f32)
-    scale_q = float(torch.tensor(scale, dtype=q.dtype))
+    scale_q = _rounded_scale(float(scale), q.dtype)
     BWD_KERNEL.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), g.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), drel.data_ptr(),
@@ -381,13 +478,8 @@ def _check_cls_cuda_inputs(name, q, k, v, rels, k_shape, max_rel, extra=()):
     BH, Lq, D, Lk = _cls_shapes(q, k, rels, k_shape)
     bf16 = [(what, t, torch.bfloat16) for what, t in (("q", q), ("k", k), ("v", v)) + extra]
     f32 = [(what, t, torch.float32) for what, t in zip(("rel_t", "rel_h", "rel_w"), rels)]
-    for what, t, want in bf16 + f32:
-        K.check(t.dtype == want, f"{name}: {what} must be {want}, got {t.dtype}")
-        K.check(t.device == q.device and t.is_contiguous() and t.data_ptr() % 16 == 0,
-                f"{name}: {what} must be contiguous, 16-byte aligned, on {q.device}")
-    K.check(tuple(v.shape) == tuple(k.shape), f"{name}: v shape != k shape")
-    K.check(D in HEAD_DIMS, f"{name}: head_dim {D} not in {HEAD_DIMS}")
-    K.check(sum(k_shape) <= max_rel, f"{name}: kt+kh+kw > {max_rel}")
+    _check_tensors(name, q.device, bf16 + f32)
+    _check_common(name, q, k, v, D, k_shape, max_rel)
     return BH, Lq, D, Lk
 
 
@@ -405,10 +497,12 @@ def fused_bias_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                            (rel_t, rel_h, rel_w), k_shape, MAX_REL)
     kt, kh, kw = k_shape
     out = torch.empty_like(q)
+    plan = fwd_plan(BH, 1, Lq, Lk, D, tuple(k_shape))
     CLS_KERNEL.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_t.data_ptr(), rel_h.data_ptr(),
         rel_w.data_ptr(), out.data_ptr(), BH, Lq, Lk, D, kt, kh, kw,
-        float(torch.tensor(scale, dtype=q.dtype)), int(residual), K.stream(),
+        _rounded_scale(float(scale), q.dtype), int(residual), plan.rows, plan.stages,
+        K.stream(),
     )
     return out
 
@@ -439,7 +533,7 @@ def fused_bias_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), *(r.data_ptr() for r in rels), g.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *(d.data_ptr() for d in drels),
         lse.data_ptr(), delta.data_ptr(), work.data_ptr(),
-        BH, Lq, Lk, D, kt, kh, kw, splits, float(torch.tensor(scale, dtype=q.dtype)),
+        BH, Lq, Lk, D, kt, kh, kw, splits, _rounded_scale(float(scale), q.dtype),
         float(scale), int(residual), K.stream(),
     )
     return (dq, dk, dv, *drels)

@@ -70,6 +70,52 @@ def test_bias_attention_kernel(card, D, residual):
            torch.bfloat16)
 
 
+# MViTv2-small's sixteen blocks at 224x384x16 give the forward seven distinct
+# shapes: (heads, Lq of K1, key grid); B=2, head_dim 96 throughout
+MVIT_BLOCKS = [(1, 43008, (8, 7, 12)), (2, 10752, (8, 14, 24)), (2, 10752, (8, 7, 12)),
+               (4, 2688, (8, 14, 24)), (4, 2688, (8, 7, 12)), (8, 672, (8, 14, 24)),
+               (8, 672, (8, 7, 12))]
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("H,Lq,k_shape", MVIT_BLOCKS)
+def test_bias_attention_kernel_block_shapes(card, H, Lq, k_shape, residual):
+    """K1 at every MViT block shape, full Lq, B=2."""
+    g = torch.Generator().manual_seed(Lq + H)
+    B, D = 2, 96
+    Lk = 1 + k_shape[0] * k_shape[1] * k_shape[2]
+    q, k, v = (_randn(g, B, n, H * D) for n in (Lq, Lk, Lk))
+    rel = _randn(g, B, Lq, H, sum(k_shape), scale=0.5)
+    before = t_attn.KERNEL.launches
+    out = t_attn.bias_attention_fwd(q, k, v, rel, k_shape, H, D ** -0.5, residual)
+    assert t_attn.KERNEL.launches == before + 1
+    _check(out, t_attn.bias_attention_plain(q, k, v, rel, k_shape, H, D ** -0.5, residual),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("H,Lq,k_shape", MVIT_BLOCKS)
+def test_fused_bias_attention_kernel_block_shapes(card, H, Lq, k_shape, residual):
+    """K12 at every MViT block shape: B*heads batches, the cls row at row 0
+    of q (Lq + 1 rows), f32 bias terms, no residual on row 0."""
+    g = torch.Generator().manual_seed(Lq + H + 7)
+    q, k, v, rels = _k12_args(g, 2 * H, Lq + 1, k_shape)
+    before = t_attn.CLS_KERNEL.launches
+    out = t_attn.fused_bias_attention_fwd(q, k, v, *rels, k_shape, 96 ** -0.5, residual)
+    assert t_attn.CLS_KERNEL.launches == before + 1
+    ref = t_attn.fused_bias_attention_plain(q, k, v, *rels, k_shape, 96 ** -0.5, residual)
+    _check(out, ref, torch.bfloat16)
+    _check(out[:, 0], ref[:, 0], torch.bfloat16)
+
+
+def test_block_shapes_take_both_plans(card):
+    """The seven block shapes at B=2 launch both geometries: 128 rows per
+    CTA where that fills the card, 64 at blocks 14-15 (96 CTAs at 128)."""
+    rows = {t_attn.fwd_plan(2, H, Lq, 1 + ks[0] * ks[1] * ks[2], 96, ks).rows
+            for H, Lq, ks in MVIT_BLOCKS}
+    assert rows == {64, 128}
+
+
 @pytest.mark.parametrize("C", [96, 192, 384, 512, 768])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_layer_norm_kernel(card, C, dtype):
