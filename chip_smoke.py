@@ -1,15 +1,16 @@
 """Drive the PyTorch port's paths (AV inference with DDIM, the AV training
 step, AV inference with DPM-Solver++ and the eval lowerings, the
-visual-only model in both MViT layouts) on one NVIDIA GPU and hold each of
-its thirteen hand-written kernels against its plain PyTorch version.
+visual-only model in both MViT layouts, both models in f32) on one NVIDIA
+GPU and hold each of its hand-written kernels (thirteen in bf16 and the
+six f32 instances an f32 model runs) against its plain PyTorch version.
 
     python3 chip_smoke.py [--iters N] [--profile]
 
 Phases (each prints its wall time; any failure raises and exits non-zero):
   1. require CUDA and print the card's name and power limit (nvidia-smi);
-  2. build the thirteen kernels from `diff_sal_tpu_torch/csrc/` (one nvcc
-     per source, all started together; cached by source hash in
-     `diff_sal_tpu_torch/_build/`);
+  2. build every kernel from `diff_sal_tpu_torch/csrc/` (one nvcc per
+     source, all started together; cached by the hash of the source and
+     its headers in `diff_sal_tpu_torch/_build/`);
   3. main path at full width: `ModelConfig.audio_visual()` (MViTv2-small at
      224x384x16, VGGish, AudioAttnNet, SalUNet) in bf16 from seeded random
      weights, B=2, `sample_saliency` with DDIM NFE=1; checks the (B,224,384,1)
@@ -23,9 +24,11 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      the one PyTorch call that computes the same function where there is
      one, and the least time the card could take (bytes over 3.35 TB/s or
      operations over the peak rate of their type, whichever is larger),
-     and for K1 (K12 forward in phase 9) one line per MViT block shape
-     with the kernel's and SDPA's ms per call, the share of the bound and
-     the launch plan (rows per CTA, keys per tile, stages, shared memory);
+     and for K1 (K12 forward in phase 9; K5 and K12 backward where they
+     are held) one line per MViT block shape with the kernel's and SDPA's
+     ms per call, the share of the bound and the launch plan (forward:
+     rows per CTA, keys per tile, stages, shared memory; backward: query
+     splits, q-major and k-major CTAs and their shared memory);
      then K10, which no model path calls: the four recorded task maps added
      one by one into a zero accumulator (launches counted in that run),
      against K4's sum of the same maps and each call against K10's plain
@@ -74,7 +77,18 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      between the layouts (cosine >= LAYOUT_GRAD_COS), launches per step;
      ms per run and per step, clips/s and peak memory per layout, timed in
      turns; K12 forward and backward held against their plain versions on
-     the recorded inputs;
+     the recorded inputs (with the forward's logsumexp, which the backward
+     kernels read);
+ 10. f32 (both packages' default compute dtype) at a small size (128x96):
+     the small AV model (with `fused_attn`, so K7 runs) and the small
+     visual-only model in the token-concat layout, f32 through the kernels'
+     f32 instances on the card against f32 through the plain versions on
+     the CPU, same weights, noise and draws: one DDIM run (map within
+     F32_MAP_TOL) and one training step (loss, and every gradient tensor
+     within F32_GRAD_TOL relative L2), launches per run and per step
+     against `path_launches` with the f32 instances in place of the bf16
+     kernels, then each f32 instance held against its plain version on
+     the recorded inputs at the f32 tolerance;
 then prints the `kernels` JSON line, the nvidia-smi line and, last, the
 result line {"ok": true, "device": {...}}.
 """
@@ -111,12 +125,25 @@ KERNELS = INFER_KERNELS + ("bias_attention_bwd", "layer_norm_bwd", "cvt_attentio
                            "resize_conv_relu", "resize_phase_head", "bilinear_resize_add",
                            "depthwise_pool3d", "fused_bias_attention",
                            "fused_bias_attention_bwd")
+# the f32 instances (an f32 model's route), each a row of its own
+F32_KERNELS = ("bias_attention_f32", "block_tail_f32", "cvt_attention_f32",
+               "fused_bias_attention_f32", "bias_attention_bwd_f32",
+               "fused_bias_attention_bwd_f32")
+KERNELS += F32_KERNELS
 TRAIN_KERNELS = ("bias_attention_bwd", "layer_norm_bwd")
-# the forward pooled attention (K1, K12 forward), timed per MViT block shape
-FWD_ATTENTION = ("bias_attention", "fused_bias_attention")
+# the pooled attention (K1, K12 forward, K5, K12 backward), timed per MViT
+# block shape
+ATTENTION = ("bias_attention", "fused_bias_attention", "bias_attention_bwd",
+             "fused_bias_attention_bwd")
 TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-5, 0.0)}  # (atol, rtol)
 # bf16: kernel and plain version round the same f32 values at other points
 # and may differ by one bf16 ulp of the output, which atol + rtol*|x| covers.
+# phase 10: f32 on the card against f32 on the CPU, the port-vs-JAX
+# per-network tolerance of PERF.md on the [0, 1] map, and per gradient
+# tensor the relative L2 that two f32 implementations may differ by at
+# random weights (1.3e-3 measured between the port and JAX, PERF.md)
+F32_MAP_TOL = 1e-4
+F32_GRAD_TOL = 1e-2
 
 
 def main_config():
@@ -180,13 +207,18 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 def bound_terms(kernel: str, args, kw):
     """(bytes, [(operations, peak rate of their type), ...]) one call must
-    at least move and compute."""
+    at least move and compute. An f32 instance moves its tensors' bytes and
+    computes on the CUDA cores' f32 rate; the bf16 kernels on the tensor
+    cores'."""
+    e = args[0].element_size() if isinstance(args[0], torch.Tensor) else 2
+    mm_peak = BF16_TENSOR_FLOPS if e == 2 else F32_FLOPS
+    kernel = kernel.removesuffix("_f32")
     if kernel == "bias_attention":
         q, k, v, rel, (kt, kh, kw_), H = args[:6]
         Bq, Lq, HD = q.shape
         Lk = k.shape[1]
-        nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2 + rel.numel() * 2
-        return nbytes, [(4.0 * Bq * Lq * Lk * HD, BF16_TENSOR_FLOPS)]
+        nbytes = (2 * q.numel() + 2 * k.numel() + rel.numel()) * e
+        return nbytes, [(4.0 * Bq * Lq * Lk * HD, mm_peak)]
     if kernel == "layer_norm":
         x, w, b = args[:3]
         C = x.shape[-1]
@@ -195,38 +227,40 @@ def bound_terms(kernel: str, args, kw):
         skip, attn, lw, lb, w1, b1, w2, b2 = args[:8]
         R, C = skip.shape
         Hd = w1.shape[0]
-        nbytes = 3 * R * C * 2 + 2 * C * Hd * 2 + (3 * C + Hd) * 4
-        return nbytes, [(4.0 * R * C * Hd, BF16_TENSOR_FLOPS)]
+        nbytes = 3 * R * C * e + 2 * C * Hd * e + (3 * C + Hd) * 4
+        return nbytes, [(4.0 * R * C * Hd, mm_peak)]
     if kernel == "bilinear_resize_sum":
         xs, (H, W) = args[:2]
         out = xs[0].shape[0] * H * W * xs[0].shape[-1]
         nbytes = sum(x.numel() for x in xs) * xs[0].element_size() + out * xs[0].element_size()
         return nbytes, [(8.0 * len(xs) * out, F32_FLOPS)]
     if kernel == "fused_bias_attention":
-        # read q, k, v (bf16) and the three f32 bias terms, write out
+        # read q, k, v and the three f32 bias terms, write out
         q, k, v, rt, rh, rw = args[:6]
         BH, Lq, D = q.shape
-        nbytes = 2 * (2 * q.numel() + 2 * k.numel()) + 4 * (rt.numel() + rh.numel() + rw.numel())
-        return nbytes, [(4.0 * BH * Lq * k.shape[1] * D, BF16_TENSOR_FLOPS)]
+        nbytes = e * (2 * q.numel() + 2 * k.numel()) + 4 * (rt.numel() + rh.numel() + rw.numel())
+        return nbytes, [(4.0 * BH * Lq * k.shape[1] * D, mm_peak)]
     if kernel == "fused_bias_attention_bwd":
-        # read q, g, k, v and the bias terms, write dq, dk, dv and the f32
-        # bias gradients; five (Lq, Lk, D) products per head
+        # read q, g, k, v, the bias terms and the forward's logsumexp, write
+        # dq, dk, dv and the f32 bias gradients; five (Lq, Lk, D) products
+        # per head
         q, k, v, rt, rh, rw = args[:6]
         BH, Lq, D = q.shape
-        nbytes = 2 * (3 * q.numel() + 4 * k.numel()) + 8 * (rt.numel() + rh.numel() + rw.numel())
-        return nbytes, [(10.0 * BH * Lq * k.shape[1] * D, BF16_TENSOR_FLOPS)]
+        nbytes = (e * (3 * q.numel() + 4 * k.numel()) + 8 * (rt.numel() + rh.numel() + rw.numel())
+                  + 4 * BH * Lq)
+        return nbytes, [(10.0 * BH * Lq * k.shape[1] * D, mm_peak)]
     if kernel == "bilinear_resize_add":
         # read acc and x, write out; 4 taps per output element in f32
         acc, x = args[:2]
         return ((2 * acc.numel() * acc.element_size() + x.numel() * x.element_size()),
                 [(8.0 * acc.numel(), F32_FLOPS)])
     if kernel == "bias_attention_bwd":
-        # bf16: read q, g, k, v, rel; write dq, dk, dv, drel; five (Lq, Lk, D)
-        # products per head (S, dP, dV, dQ, dK)
-        q, k, v, rel, g = args[:5]
+        # read q, g, k, v, rel and the forward's f32 logsumexp; write dq, dk,
+        # dv, drel; five (Lq, Lk, D) products per head (S, dP, dV, dQ, dK)
+        q, k, v, rel, g, _, H = args[:7]
         Bq, Lq, HD = q.shape
-        nbytes = 2 * (3 * q.numel() + 4 * k.numel() + 2 * rel.numel())
-        return nbytes, [(10.0 * Bq * Lq * k.shape[1] * HD, BF16_TENSOR_FLOPS)]
+        nbytes = e * (3 * q.numel() + 4 * k.numel() + 2 * rel.numel()) + 4 * Bq * H * Lq
+        return nbytes, [(10.0 * Bq * Lq * k.shape[1] * HD, mm_peak)]
     if kernel == "layer_norm_bwd":
         x, g, w = args[:3]
         return (3 * x.numel() * x.element_size() + 3 * w.numel() * 4,
@@ -235,8 +269,7 @@ def bound_terms(kernel: str, args, kw):
         # read q, k, v, write out; q k^T and p v
         q, k = args[:2]
         Bt, L, C = q.shape
-        return 2 * (2 * q.numel() + 2 * k.numel()), [(4.0 * Bt * L * k.shape[1] * C,
-                                                      BF16_TENSOR_FLOPS)]
+        return e * (2 * q.numel() + 2 * k.numel()), [(4.0 * Bt * L * k.shape[1] * C, mm_peak)]
     if kernel == "depthwise_pool3d":
         # read the C used channels of x once, w, write out; 27 f32
         # multiply-adds per output element
@@ -271,14 +304,20 @@ def bound_terms(kernel: str, args, kw):
     raise KeyError(kernel)
 
 
-def fwd_attention_plan(name, args):
-    """(rows per CTA, keys per tile, stages, shared-memory bytes) that K1 or
-    K12 forward launches with for these arguments."""
+def attention_plan(name, args):
+    """The launch plan of K1 or K12 forward (rows per CTA, keys per tile,
+    stages, shared-memory bytes) or of their backward (query splits, q-major
+    and k-major CTAs, their shared-memory bytes) for these arguments."""
     from diff_sal_tpu_torch.ops import attention
 
     q, k = args[:2]
     B, Lq, HD = q.shape
-    k_shape, H = (args[4], args[5]) if name == "bias_attention" else (args[6], 1)
+    k_shape, H = {"bias_attention": (args[4], args[5]), "fused_bias_attention": (args[6], 1),
+                  "bias_attention_bwd": (args[5], args[6]),
+                  "fused_bias_attention_bwd": (args[7], 1)}[name]
+    if name.endswith("_bwd"):
+        p = attention.bwd_plan(B, H, Lq, k.shape[1], HD // H, tuple(k_shape))
+        return p.splits, p.q_ctas, p.k_ctas, p.smem_q, p.smem_k
     p = attention.fwd_plan(B, H, Lq, k.shape[1], HD // H, tuple(k_shape))
     return p.rows, p.block_n, p.stages, p.smem
 
@@ -287,6 +326,7 @@ def library_call(name, args, kw):
     """The one PyTorch call that computes the same function on the same
     inputs, as a thunk for timing, or None. Timed only, never on the path."""
     F = torch.nn.functional
+    name = name.removesuffix("_f32")  # an f32 instance: the same call in f32
     if name == "layer_norm":
         x, w, b = args[:3]
         eps = args[3] if len(args) > 3 else kw.get("eps", 1e-6)
@@ -388,10 +428,12 @@ def _tolerance(name: str, i: int, ref: torch.Tensor, args):
     return TOL[ref.dtype]
 
 
-def hold_kernels(names, recorders, plain, counts):
+def hold_kernels(names, recorders, plain, counts, profile=False):
     """Each recorded call of each kernel against its plain version, with
     the kernel's, the plain version's and the library call's times and the
-    least time the card could take; returns the `kernels` rows."""
+    least time the card could take; returns the `kernels` rows. With
+    `profile`, also the device time of each attention kernel's recorded
+    calls by CUDA kernel (the backward is four)."""
     from diff_sal_tpu_torch.ops import kernels
 
     rows = []
@@ -401,7 +443,7 @@ def hold_kernels(names, recorders, plain, counts):
         err = kern_ms = plain_ms = lib_ms = 0.0
         t_bytes = t_ops = 0.0
         has_lib = False
-        per_shape = {}  # K1 / K12 forward: (q, k shape) -> [calls, ms, library ms, bound ms]
+        per_shape = {}  # attention: (q, k shape, plan) -> [calls, ms, library ms, bound ms]
         for args, kw in rec.calls:
             got = _outputs(rec.fn(*args, **kw))
             ref = _outputs(plain[name](*args, **kw))
@@ -426,9 +468,9 @@ def hold_kernels(names, recorders, plain, counts):
             nbytes, ops = bound_terms(name, args, kw)
             t_bytes += nbytes / HBM_BYTES_PER_S * 1e3
             t_ops += sum(n / peak for n, peak in ops) * 1e3
-            if name in FWD_ATTENTION:
+            if name in ATTENTION:
                 acc = per_shape.setdefault((tuple(args[0].shape), tuple(args[1].shape),
-                                            fwd_attention_plan(name, args)), [0, 0.0, 0.0, 0.0])
+                                            attention_plan(name, args)), [0, 0.0, 0.0, 0.0])
                 acc[0] += 1
                 acc[1] += call_ms
                 acc[2] += call_lib or 0.0
@@ -451,6 +493,17 @@ def hold_kernels(names, recorders, plain, counts):
             f"plain {plain_ms:.3f} ms, library {lib_ms if has_lib else None}, "
             f"bound {max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, ops {t_ops:.3f}), "
             f"max|d| {err:.3e}")
+        if profile and name in ATTENTION:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as profiler
+
+            with profiler(activities=[ProfilerActivity.CUDA]) as prof:
+                for args, kw in rec.calls:
+                    rec.fn(*args, **kw)
+                torch.cuda.synchronize()
+            log(f"[profile {name}] the {len(rec.calls)} recorded calls once, device time by "
+                "CUDA kernel")
+            log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=8))
         for (qs, ks, plan), (n, ms, lms, bound) in per_shape.items():
             log(f"[block {name}] q {qs} k {ks} plan {plan}: {n} calls, kernel {ms / n:.4f} ms, "
                 f"SDPA {lms / n:.4f} ms, bound {bound / n:.4f} ms (operations), "
@@ -859,7 +912,127 @@ def visual_only_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi)
     counts = dict(counts["token_concat"])
     counts["fused_bias_attention_bwd"] = tcounts["token_concat"]["fused_bias_attention_bwd"]
     return hold_kernels(("fused_bias_attention", "fused_bias_attention_bwd"), recorders,
-                        plain, counts)
+                        plain, counts, cli.profile)
+
+
+def f32_launches(cfg, nfe: int = 1, train: bool = False):
+    """`path_launches` for an f32 model: the f32 instances launch where the
+    bf16 kernels would (attention, K3, K7), every other kernel takes f32 as
+    it is."""
+    want = path_launches(cfg, nfe, train)
+    for name in F32_KERNELS:
+        base = name.removesuffix("_f32")
+        want[name], want[base] = want[base], 0
+    return want
+
+
+def f32_phase(dev, schedule, data_cfg, recorders, plain):
+    """Phase 10: the small AV model (`fused_attn` on, so K7 runs) and the
+    small visual-only model in the token-concat layout, in f32, through
+    the kernels' f32 instances on the card against the plain versions in
+    f32 on the CPU: one DDIM run and one training step each, launches
+    checked, the f32 instances' calls recorded and held against their plain
+    versions. Returns their `kernels` rows."""
+    from types import SimpleNamespace
+
+    from diff_sal_tpu_torch.config import (AudioAttnConfig, ExperimentConfig, ModelConfig,
+                                           MViTConfig, SalUNetConfig, SamplingConfig,
+                                           VGGishConfig)
+    from diff_sal_tpu_torch.inference import sample_saliency
+    from diff_sal_tpu_torch.models.diff_model import VideoSaliencyModel, build_model
+    from diff_sal_tpu_torch.ops import kernels
+    from diff_sal_tpu_torch.train.optim import make_optimizer
+    from diff_sal_tpu_torch.train.train_step import make_train_step
+
+    hw = (128, 96)  # the coarsest grid keeps > 1 CvT key, as in phase 7
+    dec = SalUNetConfig(img_size=hw, dropout=0.0, drop_path_rate=(0.0,) * 4)
+    cfgs = {"av": ModelConfig(visual=MViTConfig.tiny(spatial_size=hw), audio=VGGishConfig(),
+                              spatiotemp=AudioAttnConfig(),
+                              decoder=dataclasses.replace(dec, fused_attn=True)),
+            "visual token_concat": ModelConfig(
+                visual=MViTConfig.tiny(spatial_size=hw, cls_stream=False), audio=None,
+                spatiotemp=None, decoder=dec)}
+    bases = {n.removesuffix("_f32") for n in F32_KERNELS}
+    calls = {n: [] for n in F32_KERNELS}
+    counts = {}
+    gc = torch.Generator().manual_seed(30)
+    for i, (what, cfg) in enumerate(cfgs.items()):
+        av = cfg.audio is not None
+        rgb = torch.randn(2, 16, *hw, 3, generator=gc)
+        audio = torch.randn(2, 9, hw[0] // 2, hw[1] // 2, 1, generator=gc) if av else None
+        noise = torch.randn(2, *hw, 1, generator=gc)
+        cpu_model = build_model(cfg, seed=31 + i, device="cpu")
+        ref = sample_saliency(cpu_model, schedule, SamplingConfig(), data_cfg, rgb, audio,
+                              noise=noise)
+        sd = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+        card = VideoSaliencyModel(cfg).eval()
+        card.load_state_dict(sd)
+        card.to(dev)
+
+        def record(on):
+            for n in bases:
+                recorders[n].on = on
+
+        def keep(bwd, launched):
+            """The recorded calls of the forward (DDIM run) or backward
+            (train step) f32 instances, with that run's launches."""
+            for n in F32_KERNELS:
+                base = n.removesuffix("_f32")
+                if n.endswith("_bwd_f32") == bwd and recorders[base].calls and not calls[n]:
+                    calls[n], counts[n] = recorders[base].calls, launched[n]
+                recorders[base].calls = []
+
+        record(True)
+        kernels.reset_launch_counts()
+        got = sample_saliency(card, schedule, SamplingConfig(), data_cfg, rgb.to(dev),
+                              audio.to(dev) if av else None, noise=noise)
+        torch.cuda.synchronize()
+        c = kernels.launch_counts()
+        record(False)
+        keep(False, c)
+        check_launches(c, f32_launches(cfg, 1), f"f32 {what} DDIM run")
+        err = float((got.cpu() - ref).abs().max())
+        log(f"[f32] {what}: f32 card vs f32 CPU plain, DDIM NFE 1: max|d| {err:.3e} "
+            f"(limit {F32_MAP_TOL}); launches per run " + json.dumps(
+                {n: k for n, k in c.items() if k}))
+        assert err <= F32_MAP_TOL, (what, err)
+
+        batch = {"rgb": rgb, "salmap": torch.rand(2, *hw, 1, generator=gc)}
+        if av:
+            batch["audio"] = audio
+        draws = {"deq": torch.randn(2, *hw, 1, generator=gc),
+                 "noise": torch.randn(2, *hw, 1, generator=gc), "t": torch.tensor(300)}
+
+        def step(device):
+            m = VideoSaliencyModel(cfg).train()
+            m.load_state_dict(sd)
+            m.to(device)
+            ecfg = ExperimentConfig(model=cfg)
+            met = make_train_step(m, schedule, ecfg)(make_optimizer(m, ecfg.optim, 10, 2),
+                                                     batch, draws=draws)
+            return float(met["total"]), {n: p.grad.cpu() for n, p in m.named_parameters()
+                                         if p.grad is not None}
+
+        l_cpu, g_cpu = step("cpu")
+        record(True)
+        kernels.reset_launch_counts()
+        l_card, g_card = step(dev)
+        tc = kernels.launch_counts()
+        record(False)
+        keep(True, tc)
+        check_launches(tc, f32_launches(cfg, train=True), f"f32 {what} train step")
+        stats, worst = grad_agreement(g_card, g_cpu)
+        loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+        log(f"[f32] {what}: train step loss card {l_card:.6f} CPU {l_cpu:.6f} (rel "
+            f"{loss_err:.3e}); gradients card vs CPU (relative L2, cosine) " + json.dumps(stats)
+            + f"; worst tensor {worst} (limit {F32_GRAD_TOL}); launches per step "
+            + json.dumps({n: k for n, k in tc.items() if k}))
+        assert set(g_card) == set(g_cpu), set(g_card) ^ set(g_cpu)
+        assert loss_err <= F32_MAP_TOL and worst[0] <= F32_GRAD_TOL, (what, loss_err, worst)
+        del cpu_model, card
+    recs = {n: SimpleNamespace(fn=recorders[n.removesuffix("_f32")].fn, calls=calls[n])
+            for n in F32_KERNELS}
+    return hold_kernels(F32_KERNELS, recs, plain, counts)
 
 
 def resize_add_phase(k4_call, recorders, plain):
@@ -900,8 +1073,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also print torch.profiler tables of one main-path run, one "
                          "training step, one DPM++ NFE 2 run with and without the "
-                         "eval lowerings, and the visual-only model's DDIM run and "
-                         "training step in each layout")
+                         "eval lowerings, the visual-only model's DDIM run and "
+                         "training step in each layout, and each attention kernel's "
+                         "recorded calls by CUDA kernel")
     cli = ap.parse_args()
 
     t_all = time.perf_counter()
@@ -1030,8 +1204,9 @@ def main() -> int:
         "fused_bias_attention": attention.fused_bias_attention_plain,
         "fused_bias_attention_bwd": attention.fused_bias_attention_bwd_plain,
     }
+    plain.update({n: plain[n.removesuffix("_f32")] for n in F32_KERNELS})
     k4_call = recorders["bilinear_resize_sum"].calls[0]
-    rows = hold_kernels(INFER_KERNELS, recorders, plain, counts)
+    rows = hold_kernels(INFER_KERNELS, recorders, plain, counts, cli.profile)
     rows += resize_add_phase(k4_call, recorders, plain)
     del k4_call
     log(f"[kernels] phase {time.perf_counter() - t0:.1f} s")
@@ -1131,7 +1306,7 @@ def main() -> int:
         log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
 
     t0 = time.perf_counter()
-    rows += hold_kernels(TRAIN_KERNELS, recorders, plain, tcounts)
+    rows += hold_kernels(TRAIN_KERNELS, recorders, plain, tcounts, cli.profile)
     log(f"[train kernels] phase {time.perf_counter() - t0:.1f} s")
     del tmodel, opt, batches, params
 
@@ -1193,6 +1368,11 @@ def main() -> int:
     t0 = time.perf_counter()
     rows += visual_only_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi)
     log(f"[visual] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 10: f32 through the kernels' f32 instances -----------------
+    t0 = time.perf_counter()
+    rows += f32_phase(dev, schedule, data_cfg, recorders, plain)
+    log(f"[f32] phase {time.perf_counter() - t0:.1f} s")
 
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -1,529 +1,634 @@
 // K5: backward of K1 (pooled attention with decomposed (T, H, W) rel-pos
-// bias and residual pooling): dq, dk, dv and drel from the output gradient g.
+// bias and residual pooling): dq, dk, dv and drel from the output gradient g,
+// written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel diff_sal_tpu/ops/attention.py:761 _fba2_bwd (body
 // _attn_v2_bwd_kernel :697). Per (batch, head), with s = (q * scale) k^T +
-// bias and p = softmax(s) recomputed in f32:
-//   dv = p_lo^T g,  dp = g v^T,  ds = p * (dp - rowsum(dp * p)),
+// bias and p = exp(s - lse) recomputed in f32 from the row logsumexp `lse`
+// that the forward (csrc/attention.cu) saved:
+//   dv = p_lo^T g,  dp = g v^T,  ds = p * (dp - delta),  delta = rowsum(dp * p),
 //   dq = (ds_lo k) * scale (+ g when residual),  dk = (ds_lo^T q) * scale,
 //   drel[l, t] = sum_{j >= 1, t(j) = t} ds[l, j]  (and likewise for h, w),
 // where p_lo and ds_lo are p and ds rounded to bf16, as the TPU kernel feeds
 // them to its products; every product accumulates in f32.
 //
-// Bound by operations on the H100: five (Lq, Lk, D) products per head,
-// ~10 * Lq * Lk * D flops, against one pass over q, k, v, rel, g and the
-// outputs. The score matrix is recomputed, never stored. Three kernels:
-//  1. q-major, one CTA of four warps per (batch, head, 64 query rows): walks
-//     the key tiles three times (row logsumexp; delta = rowsum(dp * p); ds),
-//     with S = Q K^T, dP = G V^T and dQ += dS K on the tensor cores (WMMA,
-//     bf16 in, f32 accumulation). dQ stays in WMMA fragments. drel is a
-//     product too, as on the TPU: dRel += dS E^T with E the tile's one-hot
-//     (key -> t, kt + h, kt + kh + w) matrix, built in shared memory from
-//     index math as in K1; dS enters as two bf16 terms (hi + lo, ~16
-//     mantissa bits) with f32 accumulation, so the sums keep f32-level
-//     precision without atomics. dQ and drel are written once, with the row
-//     logsumexp and delta for kernel 2.
-//  2. k-major, one CTA per (batch, head, 64 keys, query split): walks its
-//     split of the query tiles, recomputes p and ds for its keys, and adds
-//     dV += P^T G and dK += dS^T Q into fragments held in registers. Where
-//     Lk is small (673 keys at MViT block 0) the query range is split so
-//     the grid fills the card; each split writes its f32 partial sums to a
-//     workspace.
-//  3. a reduction over the splits in a fixed order, cast to bf16.
-// No atomics anywhere, so results do not depend on scheduling. Key columns
-// past Lk and query rows past Lq are masked, never padded in memory.
-// head_dim D is a template parameter (64, 96 or 128).
-//
-// K12's backward is the same three kernels on MViT's token-concat layout. It
+// K12's backward is the same template on MViT's token-concat layout. It
 // replaces the TPU kernel diff_sal_tpu/ops/attention.py:280 _fba_bwd (body
 // _attn_bwd_kernel :193): q, k, v, g (B*heads, L, D) bf16 with the cls query
-// at row 0 inside the tiles, the bias terms as three f32 tensors rel_t/h/w
-// read and their gradients written in f32 (from the same hi + lo product,
-// ~16 mantissa bits of the unrounded f32 dS), and dq's residual term on rows
-// >= 1 only. dk and dv use the rounded dS and P, as the TPU body does. The
-// rel layouts go through RelIn/RelOut (per-part pointers and row strides), so
-// one template serves K5 and K12.
+// at row 0 inside the tiles, the bias terms as three f32 tensors read and
+// their gradients written in f32, and dq's residual on rows >= 1 only. The
+// rel layouts go through RelIn/RelOut (per-part pointers and row strides).
+//
+// Bound by operations on the H100: five (Lq, Lk, D) products per head
+// against one pass over q, k, v, rel, g and the outputs. Delta is the TPU's
+// rowsum(dp * p), not FlashAttention's rowsum(g * o): o (the output before
+// the residual) exists only rounded to bf16 inside out = o + q, and dp -
+// delta cancels, so that choice would move dq, dk and drel off the plain
+// versions' rounding points; it costs one more S and dP pass over the keys.
+// Four kernels, all on the caller's stream:
+//  0. tables: for every 64-key tile, each key's three bias indices (t, kt+h,
+//     kt+kh+w into a raw rel row; the cls key reads zeros, keys past Lk read
+//     -inf) and the one-hot E tile (key -> t, kt + h, kt + kh + w) in the
+//     shared-memory layout of a wgmma B operand. They depend on the key grid
+//     only and reach shared memory by bulk copies.
+// Each of kernels 1 and 2 is one warpgroup per CTA, two CTAs per SM (so
+// ptxas may give a thread up to 255 registers: the accumulators stay in
+// registers without spilling). Its thread 0 issues every load one tile
+// ahead into a ring of STAGES mbarrier-guarded buffers (TMA for the 64-row
+// tiles, bulk copies for the tables); a CTA barrier before each tile tells
+// it which buffer is free. The other CTA on the SM fills the gaps that the
+// waits for each product batch leave.
+//  1. q-major, one CTA per (batch, head, 64 query rows): TMA loads Q and G
+//     once and streams the K and V tiles with each tile's E and key
+//     indices; S = Q K^T and dP = G V^T with wgmma (SS, bf16 in, f32 in
+//     registers), add the bias from a per-row table of the raw rel terms
+//     in shared memory and take p = exp(s - lse) in registers. Pass 1 over
+//     the key tiles sums delta; pass 2 forms dS in registers and issues dQ +=
+//     dS_lo K (RS wgmma, K MN-major) and dRel += dS E^T as two RS wgmmas, dS
+//     split into bf16 hi + lo parts (~16 mantissa bits of the f32 dS, f32
+//     accumulation), as the TPU kernel sums drel by a product with the
+//     one-hot matrix. dq and drel are written once. Between the passes the
+//     CTA writes each row's raw rel terms, lse and delta as one padded f32
+//     row ("relp") for kernel 2.
+//  2. k-major, one CTA per (batch, head, 64 keys, query split): TMA loads K
+//     and V once and streams Q, G and the relp rows of each query tile
+//     through a ring; S^T = K Q^T and dP^T = V G^T (SS), then dV += P_lo^T G
+//     and dK += dS_lo^T Q (RS). Where Lk is small (673 keys at MViT block 0)
+//     the query range is split so the grid fills the card; each split writes
+//     its f32 partial sums to a workspace.
+//  3. the splits summed in a fixed order, cast to dk's and dv's dtype.
+// No atomics anywhere, so two runs on the same inputs give the same bits.
+// TMA zero-fills rows past L, so nothing is padded in memory: padded query
+// rows have zero q and g and contribute nothing; key columns past Lk get a
+// -inf bias. Every mbarrier wait traps after ~16M spins, so a pipeline
+// fault fails the launch instead of hanging. head_dim D is a template
+// parameter (64, 96 or 128); the bias bins are padded to NP = 32, 48 or 128
+// columns, the N of the dRel product. `bwd_plan` in ops/attention.py mirrors
+// the shared-memory layouts.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "attention_bias.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 64;  // query rows (kernel 1) or keys (kernel 2) per CTA
-constexpr int BN = 64;  // keys (kernel 1) or query rows (kernel 2) per tile
-constexpr int NW = 4;   // warps; warp w owns rows [16w, 16w + 16) of a tile
-constexpr int NT = NW * 32;
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory one CTA may use
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr int BM = 64;  // rows of the consumer warpgroup: query rows (q-major) or keys (k-major)
+constexpr int BN = 64;  // keys (q-major) or query rows (k-major) per tile
+constexpr int NTHREADS = 128;  // one warpgroup; its thread 0 also issues every load
+constexpr int STAGES = 2;      // ring buffers; two CTAs fit on an SM at MViT's shapes
 
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
+// bias bins padded to the N of the dRel product
+__host__ __device__ inline int pad_bins(int K) { return K <= 32 ? 32 : (K <= 48 ? 48 : 128); }
+// floats per relp row: K raw terms, 0, -inf, lse, delta, padded to 16 bytes
+__host__ __device__ inline int relp_cols(int K) { return (K + 4 + 3) / 4 * 4; }
+// floats per row of the q-major kernel's rel table (odd: fewer bank conflicts)
+__host__ __device__ inline int table_cols(int K) { return (K + 4) | 1; }
 
-// Shared-memory layout common to both kernels. Kernel 1: a = Q (scaled),
-// b = G, c = K tile, d = V tile, e = the one-hot E tile (Kp x 64 bf16).
-// Kernel 2: a = Q tile (scaled), b = G tile, c = K (this CTA's keys), d = V,
-// e = Q tile unscaled. s and dp hold f32 scores and dP; the f32 output
-// staging o aliases them at the end. p and ds hold bf16 tiles (kernel 2: P
-// and dS; kernel 1: the lo and hi parts of dS). r is the rel tile in f32;
-// x is kernel 1's drel accumulator (64 x Kp f32) or kernel 2's (lse,
-// delta) rows.
-struct Layout {
-  int ldq, lds, ldp, ldo, kp, ldr;
-  size_t a, b, c, d, e, s, dp, p, ds, r, x, total;
+// Byte offsets into the (1024-aligned) dynamic shared memory. Mirrored by
+// `bwd_plan` in ops/attention.py, which checks the totals against SMEM_MAX.
+struct QSmem {
+  int q, g, k, v, e, ktab, rel, bar, total;
 };
 
-__host__ __device__ inline Layout make_layout(int D, int K, bool kmajor) {
-  Layout L;
-  L.ldq = D + 8;   // bf16 rows, padded against bank conflicts
-  L.lds = BN + 4;  // f32 score rows
-  L.ldp = BN + 8;  // bf16 probability rows (and E rows)
-  L.ldo = D + 4;   // f32 output rows
-  L.kp = (K + 15) / 16 * 16;  // rel bins padded to the MMA width
-  L.ldr = L.kp + 4;           // f32 drel rows
-  const size_t tile = (size_t)BM * L.ldq * 2;
-  const size_t sbytes = (size_t)BM * L.lds * 4;
-  const size_t obytes = (size_t)BM * L.ldo * 4;
-  size_t off = 0;
-  L.a = off; off = align128(off + tile);
-  L.b = off; off = align128(off + tile);
-  L.c = off; off = align128(off + tile);
-  L.d = off; off = align128(off + tile);
-  L.e = off; off = align128(off + (kmajor ? tile : (size_t)L.kp * L.ldp * 2));
-  L.s = off;
-  L.dp = off + sbytes;
-  off = align128(off + (2 * sbytes > obytes ? 2 * sbytes : obytes));
-  L.p = off; off = align128(off + (size_t)BM * L.ldp * 2);
-  L.ds = off; off = align128(off + (size_t)BM * L.ldp * 2);
-  L.r = off; off = align128(off + (size_t)BM * K * 4);
-  L.x = off; off = align128(off + (kmajor ? (size_t)BM * 2 * 4 : (size_t)BM * L.ldr * 4));
-  L.total = off;
-  return L;
+__host__ __device__ inline QSmem q_layout(int D, int K) {
+  const int NP = pad_bins(K);
+  QSmem s;
+  int off = 0;
+  s.q = off;    off += BM * D * 2;
+  s.g = off;    off += BM * D * 2;
+  s.k = off;    off += STAGES * BN * D * 2;
+  s.v = off;    off += STAGES * BN * D * 2;
+  s.e = off;    off += STAGES * BN * NP * 2;
+  s.ktab = off; off += STAGES * BN * 4;
+  s.rel = off;  off += BM * table_cols(K) * 4;
+  off = (off + 7) / 8 * 8;
+  s.bar = off;  off += (STAGES + 1) * 8;  // one per stage, Q and G
+  s.total = off + 1024;                       // room to align the base
+  return s;
 }
 
-// Where the three parts (t, h, w) of the bias terms of one query row lie:
-// element c of part p for (batch b, row, head h) is at
-// p[part][(b * Lq + row) * ld[part] + h * hs + c]. K5: one packed bf16
-// (B, Lq, H, kt + kh + kw) tensor; K12: three f32 tensors of one head.
-template <typename R>
-struct RelIn {
-  const R* p[3];
-  int ld[3];
-  int hs;
+struct KSmem {
+  int k, v, qs, q, g, rel, bar, total;
 };
 
-template <typename R>
-struct RelOut {
-  R* p[3];
-  int ld[3];
-  int hs;
-};
-
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ void from_f32(bf16* dst, float x) { *dst = __float2bfloat16(x); }
-__device__ __forceinline__ void from_f32(float* dst, float x) { *dst = x; }
-
-// part (0 = t, 1 = h, 2 = w) of bias column c, and c's index within it
-__device__ __forceinline__ int rel_part(int c, int kt, int kh, int& cc) {
-  const int part = c < kt ? 0 : (c < kt + kh ? 1 : 2);
-  cc = c - (part == 0 ? 0 : (part == 1 ? kt : kt + kh));
-  return part;
+__host__ __device__ inline KSmem k_layout(int D, int K) {
+  KSmem s;
+  int off = 0;
+  s.k = off;   off += BM * D * 2;
+  s.v = off;   off += BM * D * 2;
+  s.qs = off;  off += BN * D * 2;  // the current Q tile scaled and rounded
+  s.q = off;   off += STAGES * BN * D * 2;
+  s.g = off;   off += STAGES * BN * D * 2;
+  s.rel = off; off += STAGES * BN * relp_cols(K) * 4;
+  s.bar = off; off += (STAGES + 1) * 8;  // one per stage, K and V
+  s.total = off + 1024;
+  return s;
 }
 
-__device__ __forceinline__ void key_coord(int j, int khw, int kw, int& t, int& h, int& w) {
-  const int jj = j - 1;
-  t = jj / khw;
-  const int rem = jj - t * khw;
-  h = rem / kw;
-  w = rem - h * kw;
+// -------------------------------------------------------------- helpers ---
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
-__device__ __forceinline__ float key_bias(const float* R, int j, int t, int h, int w, int kt,
-                                          int kh) {
-  return j > 0 ? R[t] + R[kt + h] + R[kt + kh + w] : 0.f;
+// shared-memory matrix descriptor without swizzle (layout type 0), K-major:
+// 8 x 16-byte core matrices, lbo bytes apart along K, sbo bytes apart along N
+__device__ __forceinline__ uint64_t plain_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
 }
 
-// Rows [row0, row0 + 64) of a (B, L, H*D) bf16 tensor at head h into shared
-// memory (ld = D + 8), optionally multiplied by `scale` and rounded to bf16;
-// rows past L are zero.
+// a = bf16(x) (two values per register) and b = bf16(x - a): the hi and lo
+// parts of two f32 values
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
+// X = A B^T for two 64-row operands at shared addresses a and b (64-byte
+// swizzled, K-major, D/32 column chunks of 64 rows each): issued, not
+// committed. scale_d = 0 on the first k-step overwrites X.
 template <int D>
-__device__ __forceinline__ void load_rows(const bf16* __restrict__ src, bf16* dst, int ld,
-                                          int b, int L, int row0, int HD, int h, bool scaled,
-                                          float scale) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < BM * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * 8, row = row0 + r;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (row < L) raw = *reinterpret_cast<const uint4*>(src + ((size_t)b * L + row) * HD + h * D + c);
-    if (scaled) {
-      bf16* e = reinterpret_cast<bf16*>(&raw);
+__device__ __forceinline__ void issue_abt(float (&x)[BN / 2], uint32_t a, uint32_t b) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = raw;
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t ko = (kk >> 1) * BN * 64 + (kk & 1) * 32;
+    wgmma_ss<BN>(x, sw64_desc(a + ko, 16, 512), sw64_desc(b + ko, 16, 512), kk > 0);
   }
 }
 
-// rel rows [row0, row0 + 64) of head h in f32; rows past Lq are zero
-template <typename R>
-__device__ __forceinline__ void load_rel(const RelIn<R>& rel, float* Rs, int b, int Lq, int row0,
-                                         int h, int kt, int kh, int K) {
-  for (int i = threadIdx.x; i < BM * K; i += NT) {
-    const int r = i / K, c = i - r * K, row = row0 + r;
-    int cc;
-    const int part = rel_part(c, kt, kh, cc);
-    Rs[i] = row < Lq ? to_f32(rel.p[part][((size_t)b * Lq + row) * rel.ld[part] + h * rel.hs + cc])
-                     : 0.f;
-  }
-}
-
-// out[16 rows of this warp, 64 cols] = A[rows] . B[cols]^T, f32, into S (ld lds):
-// A rows at A + r0 * ld, B rows (the 64 columns) at B, both bf16 with ld.
+// X += A B for A (64 x 64) from registers and B the 64-row tile at shared
+// address b read MN-major (its D columns as N): issued, not committed
 template <int D>
-__device__ __forceinline__ void rows_dot_cols(const bf16* A, const bf16* Bm, int ld, float* S,
-                                              int lds, int r0) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[D / 16];
+__device__ __forceinline__ void issue_ab(float (&x)[D / 2], const uint32_t (&a)[BN / 16][4],
+                                         uint32_t b) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) wmma::load_matrix_sync(a[kk], A + r0 * ld + kk * 16, ld);
+  for (int kk = 0; kk < BN / 16; ++kk)
+    Wg<D>::template rs<1>(x, a[kk], sw64_desc(b + kk * 1024, BN * 64, 512));
+}
+
+// ---------------------------------------------------------------- params ---
+
+template <typename R>
+struct QParams {
+  RelIn<R> rel;
+  RelOut<R> drel;
+  const bf16* g;          // for dq's residual term
+  bf16* dq;
+  const float* lse;       // (batches * H, Lq), from the forward
+  float* relp;            // (batches * H, Lq, KP) out: raw rel terms, 0, -inf, lse, delta
+  const unsigned char* e_all;  // the tables kernel's E tiles
+  const int* ktab_all;         // and key indices
+  int Lq, Lk, H, kt, kh, kw, res_from, ntiles, qtiles;
+  float scale_q, scale;
+};
+
+struct KParams {
+  float* work;  // [2][splits][batches][Lk][H * D] f32 partial dk (scaled), dv
+  int B, Lq, Lk, H, kt, kh, kw, ktiles, splits, per;
+  float scale_q, scale;
+};
+
+// ------------------------------------------------------ kernel 0: tables ---
+
+// E tile layout (a K-major B operand without swizzle, N = NP bins, K = 64
+// keys): key group kk of 16 at kk * NP * 32 bytes, bin group of 8 at 256,
+// key half of 8 at 128, bin at 16 bytes, key at 2
+__global__ void bwd_tables_kernel(unsigned char* __restrict__ e_all, int* __restrict__ ktab_all,
+                                  int ntiles, int Lk, int kt, int kh, int kw) {
+  const int K = kt + kh + kw, NP = pad_bins(K);
+  const int stride = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < ntiles * BN; i += stride)
+    ktab_all[i] = key_index(i, Lk, kt, kh, kw);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < ntiles * NP * 8; i += stride) {
+    const int tile = i / (NP * 8), rem = i - tile * NP * 8, n = rem >> 3, grp = rem & 7;
+    uint32_t w[4];
 #pragma unroll
-  for (int n = 0; n < BN / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
+    for (int u = 0; u < 4; ++u) {
+      uint32_t v = 0;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bk;
-      wmma::load_matrix_sync(bk, Bm + n * 16 * ld + kk * 16, ld);
-      wmma::mma_sync(acc, a[kk], bk, acc);
+      for (int half = 0; half < 2; ++half) {
+        const int j = tile * BN + grp * 8 + 2 * u + half;
+        const int e = key_index(j, Lk, kt, kh, kw);
+        const bool one = n < K && j > 0 && j < Lk &&
+                         ((e & 1023) == n || ((e >> 10) & 1023) == n || (e >> 20) == n);
+        v |= (one ? 0x3F80u : 0u) << (16 * half);  // bf16 1.0
+      }
+      w[u] = v;
     }
-    wmma::store_matrix_sync(S + r0 * lds + n * 16, acc, lds, wmma::mem_row_major);
+    const size_t off = (size_t)tile * BN * NP * 2 + (grp >> 1) * (NP * 32) + (n >> 3) * 256 +
+                       (grp & 1) * 128 + (n & 7) * 16;
+    *reinterpret_cast<uint4*>(e_all + off) = make_uint4(w[0], w[1], w[2], w[3]);
   }
 }
 
-// ---------------------------------------------------------------------------
-// kernel 1: dq, drel, and the row logsumexp and delta
-// ---------------------------------------------------------------------------
-// dq gets the residual term g on rows >= res_from (K5: 0, K12: 1; no
-// residual: Lq)
-template <int D, typename R>
-__global__ void __launch_bounds__(NT) attn_bwd_q_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const RelIn<R> rel, const bf16* __restrict__ g, bf16* __restrict__ dq, const RelOut<R> drel,
-    float* __restrict__ lse_out, float* __restrict__ delta_out, int Lq, int Lk, int H, int kt,
-    int kh, int kw, float scale_q, float scale, int res_from) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int K = kt + kh + kw;
-  const Layout L = make_layout(D, K, false);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L.a);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + L.b);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L.c);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L.d);
-  float* Ss = reinterpret_cast<float*>(smem + L.s);
-  float* DPs = reinterpret_cast<float*>(smem + L.dp);
-  float* Os = reinterpret_cast<float*>(smem + L.s);  // aliases Ss/DPs at the end
-  bf16* DSs = reinterpret_cast<bf16*>(smem + L.ds);  // hi part of dS
-  bf16* DLs = reinterpret_cast<bf16*>(smem + L.p);   // lo part of dS
-  bf16* Es = reinterpret_cast<bf16*>(smem + L.e);
-  float* Rs = reinterpret_cast<float*>(smem + L.r);
-  float* dRs = reinterpret_cast<float*>(smem + L.x);
 
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int HD = H * D;
-  const int r0 = warp * 16;
-  const int khw = kh * kw;
+// --------------------------------------------- kernel 1: dq, drel, delta ---
 
-  load_rows<D>(q, Qs, L.ldq, b, Lq, q0, HD, h, true, scale_q);
-  load_rows<D>(g, Gs, L.ldq, b, Lq, q0, HD, h, false, 0.f);
-  load_rel(rel, Rs, b, Lq, q0, h, kt, kh, K);
-  for (int i = tid; i < BM * L.ldr; i += NT) dRs[i] = 0.f;
-
-  float lse[16], delta[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    lse[i] = -INFINITY;  // running max in pass 1
-    delta[i] = 0.f;      // running sum in pass 1, then delta
+// Key tile `it` of the two passes over the keys (E in the second only)
+// into ring slot it % STAGES, completing on that slot's barrier.
+template <int D, int NP, typename R>
+__device__ __forceinline__ void dq_load(const QParams<R>& p, const QSmem& L, uint32_t sbase,
+                                        uint32_t bars, const CUtensorMap* tk,
+                                        const CUtensorMap* tv, int b, int h, int it) {
+  constexpr int CH = D / 32;
+  const int s = it % STAGES, i = it < p.ntiles ? it : it - p.ntiles, col = h * D;
+  const int tile_e = BN * NP * 2;
+  const uint32_t full = bars + 8 * s, off = s * BN * D * 2;
+  const bool with_e = it >= p.ntiles;
+  mbar_expect_tx(full, 2 * BN * D * 2 + BN * 4 + (with_e ? tile_e : 0));
+  for (int c = 0; c < CH; ++c) {
+    tma_load(sbase + L.k + off + c * BN * 64, tk, full, col + 32 * c, i * BN, b);
+    tma_load(sbase + L.v + off + c * BN * 64, tv, full, col + 32 * c, i * BN, b);
   }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dqf[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(dqf[n], 0.f);
-
-  for (int pass = 0; pass < 3; ++pass) {
-    float dsum[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) dsum[i] = 0.f;
-    for (int j0 = 0; j0 < Lk; j0 += BN) {
-      __syncthreads();  // everyone is done with the previous K/V tile
-      load_rows<D>(k, Ks, L.ldq, b, Lk, j0, HD, h, false, 0.f);
-      if (pass > 0) load_rows<D>(v, Vs, L.ldq, b, Lk, j0, HD, h, false, 0.f);
-      if (pass == 2 && tid < BN) {  // thread c writes column c of the one-hot E tile
-        const int j = j0 + tid;
-        for (int r = 0; r < L.kp; ++r) Es[r * L.ldp + tid] = __float2bfloat16(0.f);
-        if (j > 0 && j < Lk) {
-          int tj, hj, wj;
-          key_coord(j, khw, kw, tj, hj, wj);
-          const bf16 one = __float2bfloat16(1.f);
-          Es[tj * L.ldp + tid] = one;
-          Es[(kt + hj) * L.ldp + tid] = one;
-          Es[(kt + kh + wj) * L.ldp + tid] = one;
-        }
-      }
-      __syncthreads();
-      rows_dot_cols<D>(Qs, Ks, L.ldq, Ss, L.lds, r0);
-      if (pass > 0) rows_dot_cols<D>(Gs, Vs, L.ldq, DPs, L.lds, r0);
-      __syncwarp();
-
-      // each lane owns key columns lane and lane + 32 of the tile
-      const int jA = j0 + lane, jB = j0 + lane + 32;
-      const bool vA = jA < Lk, vB = jB < Lk;
-      int tA = 0, hA = 0, wA = 0, tB = 0, hB = 0, wB = 0;
-      if (jA > 0) key_coord(jA, khw, kw, tA, hA, wA);
-      if (jB > 0) key_coord(jB, khw, kw, tB, hB, wB);
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        const int r = r0 + i;
-        const float* R = Rs + r * K;
-        const float sA = vA ? Ss[r * L.lds + lane] + key_bias(R, jA, tA, hA, wA, kt, kh) : -INFINITY;
-        const float sB =
-            vB ? Ss[r * L.lds + lane + 32] + key_bias(R, jB, tB, hB, wB, kt, kh) : -INFINITY;
-        if (pass == 0) {  // online max and sum of exp
-          float mx = fmaxf(sA, sB);
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-          const float m_new = fmaxf(lse[i], mx);
-          float ps = exp2f((sA - m_new) * LOG2E) + exp2f((sB - m_new) * LOG2E);
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
-          delta[i] = delta[i] * exp2f((lse[i] - m_new) * LOG2E) + ps;
-          lse[i] = m_new;
-          continue;
-        }
-        const float pA = vA ? exp2f((sA - lse[i]) * LOG2E) : 0.f;
-        const float pB = vB ? exp2f((sB - lse[i]) * LOG2E) : 0.f;
-        const float dpA = DPs[r * L.lds + lane], dpB = DPs[r * L.lds + lane + 32];
-        if (pass == 1) {
-          dsum[i] += pA * dpA + pB * dpB;
-          continue;
-        }
-        const float dsA = pA * (dpA - delta[i]);
-        const float dsB = pB * (dpB - delta[i]);
-        const bf16 hiA = __float2bfloat16(dsA), hiB = __float2bfloat16(dsB);
-        DSs[r * L.ldp + lane] = hiA;
-        DSs[r * L.ldp + lane + 32] = hiB;
-        DLs[r * L.ldp + lane] = __float2bfloat16(dsA - __bfloat162float(hiA));
-        DLs[r * L.ldp + lane + 32] = __float2bfloat16(dsB - __bfloat162float(hiB));
-      }
-      if (pass < 2) continue;
-      __syncwarp();
-      // dQ += dS K for this warp's 16 rows (dS rounded to bf16, as on the TPU)
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> da[BN / 16];
-#pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        wmma::load_matrix_sync(da[kk], DSs + r0 * L.ldp + kk * 16, L.ldp);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bk;
-          wmma::load_matrix_sync(bk, Ks + kk * 16 * L.ldq + n * 16, L.ldq);
-          wmma::mma_sync(dqf[n], da[kk], bk, dqf[n]);
-        }
-      }
-      // dRel += (dS_hi + dS_lo) E^T for this warp's 16 rows, f32 accumulator
-      // kept in shared memory
-      for (int n = 0; n < L.kp / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::load_matrix_sync(acc, dRs + r0 * L.ldr + n * 16, L.ldr, wmma::mem_row_major);
-#pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> lo;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> be;
-          wmma::load_matrix_sync(lo, DLs + r0 * L.ldp + kk * 16, L.ldp);
-          wmma::load_matrix_sync(be, Es + n * 16 * L.ldp + kk * 16, L.ldp);
-          wmma::mma_sync(acc, da[kk], be, acc);
-          wmma::mma_sync(acc, lo, be, acc);
-        }
-        wmma::store_matrix_sync(dRs + r0 * L.ldr + n * 16, acc, L.ldr, wmma::mem_row_major);
-      }
-    }
-    if (pass == 0) {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        lse[i] = lse[i] + logf(delta[i]);
-        delta[i] = 0.f;
-      }
-    } else if (pass == 1) {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) {
-        float d = dsum[i];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
-        delta[i] = d;
-      }
-    }
-  }
-
-  __syncthreads();  // Os aliases every warp's Ss/DPs rows
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(Os + r0 * L.ldo + n * 16, dqf[n], L.ldo, wmma::mem_row_major);
-  __syncwarp();
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int row = q0 + r0 + i;
-    if (row >= Lq) continue;
-    const size_t off = ((size_t)b * Lq + row) * HD + h * D;
-    for (int c = lane; c < D; c += 32) {
-      float o = Os[(r0 + i) * L.ldo + c] * scale;
-      if (row >= res_from) o += __bfloat162float(Gs[(r0 + i) * L.ldq + c]);
-      dq[off + c] = __float2bfloat16(o);
-    }
-    if (lane == 0) {
-      lse_out[((size_t)b * H + h) * Lq + row] = lse[i];
-      delta_out[((size_t)b * H + h) * Lq + row] = delta[i];
-    }
-  }
-  __syncthreads();  // every warp's drel sums are complete
-  for (int i = tid; i < BM * K; i += NT) {
-    const int r = i / K, c = i - r * K, row = q0 + r;
-    if (row >= Lq) continue;
-    int cc;
-    const int part = rel_part(c, kt, kh, cc);
-    from_f32(drel.p[part] + ((size_t)b * Lq + row) * drel.ld[part] + h * drel.hs + cc,
-             dRs[r * L.ldr + c]);
-  }
+  bulk_load(sbase + L.ktab + s * BN * 4, p.ktab_all + i * BN, BN * 4, full);
+  if (with_e) bulk_load(sbase + L.e + s * tile_e, p.e_all + (size_t)i * tile_e, tile_e, full);
 }
 
-// ---------------------------------------------------------------------------
-// kernel 2: partial dk, dv of 64 keys over one split of the query tiles
-// ---------------------------------------------------------------------------
-template <int D, typename R>
-__global__ void __launch_bounds__(NT) attn_bwd_kv_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const RelIn<R> rel, const bf16* __restrict__ g, const float* __restrict__ lse_in,
-    const float* __restrict__ delta_in, float* __restrict__ work, int B, int Lq, int Lk, int H,
-    int kt, int kh, int kw, int splits, float scale_q, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int K = kt + kh + kw;
-  const Layout L = make_layout(D, K, true);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L.a);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + L.b);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L.c);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L.d);
-  bf16* Qr = reinterpret_cast<bf16*>(smem + L.e);
-  float* Ss = reinterpret_cast<float*>(smem + L.s);
-  float* DPs = reinterpret_cast<float*>(smem + L.dp);
-  float* Os = reinterpret_cast<float*>(smem + L.s);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L.p);
-  bf16* DSs = reinterpret_cast<bf16*>(smem + L.ds);
-  float* Rs = reinterpret_cast<float*>(smem + L.r);
-  float* LSE = reinterpret_cast<float*>(smem + L.x);
-  float* DLT = LSE + BM;
+// One q-major CTA, query rows [q0, q0 + 64) of (batch b, head h); t is the
+// thread's index. Thread 0 keeps the next key tile's loads in flight.
+template <int D, int NP, typename R>
+__device__ __forceinline__ void dq_consumer(const QParams<R>& p, unsigned char* smem,
+                                            uint32_t sbase, const QSmem& L, uint32_t bars,
+                                            const CUtensorMap* tk, const CUtensorMap* tv, int b,
+                                            int h, int q0, int t) {
+  constexpr int CH = D / 32;
+  const int K = p.kt + p.kh + p.kw, LD = table_cols(K), KP = relp_cols(K);
+  const int warp = t >> 5, lane = t & 31;
+  const int bh = b * p.H + h;
+  float* rel = reinterpret_cast<float*>(smem + L.rel);
 
-  const int b = blockIdx.z, h = blockIdx.y / splits, split = blockIdx.y % splits;
-  const int k0 = blockIdx.x * BM;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int HD = H * D;
-  const int r0 = warp * 16;
-  const int khw = kh * kw;
-  const int n_qt = (Lq + BN - 1) / BN;
-  const int per = (n_qt + splits - 1) / splits;
-  const int qt_end = min(n_qt, (split + 1) * per);
-
-  load_rows<D>(k, Ks, L.ldq, b, Lk, k0, HD, h, false, 0.f);
-  load_rows<D>(v, Vs, L.ldq, b, Lk, k0, HD, h, false, 0.f);
-  const int jA = k0 + lane, jB = k0 + lane + 32;
-  const bool vA = jA < Lk, vB = jB < Lk;
-  int tA = 0, hA = 0, wA = 0, tB = 0, hB = 0, wB = 0;
-  if (jA > 0) key_coord(jA, khw, kw, tA, hA, wA);
-  if (jB > 0) key_coord(jB, khw, kw, tB, hB, wB);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dkf[D / 16], dvf[D / 16];
+  // raw rel rows of the 64 query rows: [K terms | 0 | -inf | lse | delta];
+  // rows past Lq hold zeros. Eight loads in flight per thread.
+  constexpr int RB = 8;
+  for (int i0 = t; i0 < BM * K; i0 += 128 * RB) {
+    float x[RB];
+    int dst[RB];
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dkf[n], 0.f);
-    wmma::fill_fragment(dvf[n], 0.f);
-  }
-
-  for (int qt = split * per; qt < qt_end; ++qt) {
-    const int q0 = qt * BN;
-    __syncthreads();  // everyone is done with the previous query tile
-    load_rows<D>(q, Qs, L.ldq, b, Lq, q0, HD, h, true, scale_q);
-    load_rows<D>(q, Qr, L.ldq, b, Lq, q0, HD, h, false, 0.f);
-    load_rows<D>(g, Gs, L.ldq, b, Lq, q0, HD, h, false, 0.f);
-    load_rel(rel, Rs, b, Lq, q0, h, kt, kh, K);
-    for (int i = tid; i < BN; i += NT) {
-      const int row = q0 + i;
-      const size_t o = ((size_t)b * H + h) * Lq + row;
-      LSE[i] = row < Lq ? lse_in[o] : 0.f;
-      DLT[i] = row < Lq ? delta_in[o] : 0.f;
+    for (int u = 0; u < RB; ++u) {
+      const int i = i0 + u * 128, r = i / K, c = i - r * K, row = q0 + r;
+      int cc;
+      const int part = rel_part(c, p.kt, p.kh, cc);
+      dst[u] = i < BM * K ? r * LD + c : -1;
+      x[u] = i < BM * K && row < p.Lq
+                 ? to_f32(p.rel.p[part][((size_t)b * p.Lq + row) * p.rel.ld[part] +
+                                        h * p.rel.hs + cc])
+                 : 0.f;
     }
+#pragma unroll
+    for (int u = 0; u < RB; ++u)
+      if (dst[u] >= 0) rel[dst[u]] = x[u];
+  }
+  if (t < BM) {
+    rel[t * LD + K] = 0.f;
+    rel[t * LD + K + 1] = -INFINITY;
+  }
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
+  const int cb = 2 * (lane & 3);           // and columns cb, cb + 1 of each 8
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  const float lse0 = row0 < p.Lq ? p.lse[(size_t)bh * p.Lq + row0] : 0.f;
+  const float lse1 = row1 < p.Lq ? p.lse[(size_t)bh * p.Lq + row1] : 0.f;
+  const float l0 = lse0 * LOG2E, l1 = lse1 * LOG2E;
+
+  // Q scaled in place and rounded to bf16, as the forward does
+  mbar_wait(bars + 8 * STAGES, 0);
+  for (int i = t; i < CH * 256; i += 128) {
+    uint4* ptr = reinterpret_cast<uint4*>(smem + L.q + i * 16);
+    uint4 vec = *ptr;
+    bf16* e = reinterpret_cast<bf16*>(&vec);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * p.scale_q);
+    *ptr = vec;
+  }
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  __syncthreads();
+
+  const float* rel0 = rel + r0 * LD;
+  const float* rel1 = rel0 + 8 * LD;
+  const uint32_t qa = sbase + L.q, ga = sbase + L.g;
+  const uint32_t full = bars;
+  // before tile `it`: every thread is done with tile it - 1, so its ring
+  // slot takes tile it - 1 + STAGES
+  auto next = [&](int it) {
     __syncthreads();
-    rows_dot_cols<D>(Qs, Ks, L.ldq, Ss, L.lds, r0);
-    rows_dot_cols<D>(Gs, Vs, L.ldq, DPs, L.lds, r0);
-    __syncwarp();
+    if (t == 0 && it >= 1 && it - 1 + STAGES < 2 * p.ntiles)
+      dq_load<D, NP, R>(p, L, sbase, bars, tk, tv, b, h, it - 1 + STAGES);
+  };
+  float sc[BN / 2], dp[BN / 2];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int r = r0 + i;
-      const bool vr = q0 + r < Lq;
-      const float* R = Rs + r * K;
-      const float lse = LSE[r], dlt = DLT[r];
-      float pA = 0.f, pB = 0.f;
-      if (vr && vA) pA = exp2f((Ss[r * L.lds + lane] + key_bias(R, jA, tA, hA, wA, kt, kh) - lse) * LOG2E);
-      if (vr && vB)
-        pB = exp2f((Ss[r * L.lds + lane + 32] + key_bias(R, jB, tB, hB, wB, kt, kh) - lse) * LOG2E);
-      Ps[r * L.ldp + lane] = __float2bfloat16(pA);
-      Ps[r * L.ldp + lane + 32] = __float2bfloat16(pB);
-      DSs[r * L.ldp + lane] = __float2bfloat16(pA * (DPs[r * L.lds + lane] - dlt));
-      DSs[r * L.ldp + lane + 32] = __float2bfloat16(pB * (DPs[r * L.lds + lane + 32] - dlt));
+  for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
+
+  // pass 1: delta = rowsum(dp * p)
+  float d0 = 0.f, d1 = 0.f;
+  for (int i = 0; i < p.ntiles; ++i) {
+    const int s = i % STAGES;
+    next(i);
+    mbar_wait(full + 8 * s, (i / STAGES) & 1);
+    reg_fence(sc);
+    reg_fence(dp);
+    wg_fence();
+    issue_abt<D>(sc, qa, sbase + L.k + s * BN * D * 2);
+    issue_abt<D>(dp, ga, sbase + L.v + s * BN * D * 2);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(sc);
+    reg_fence(dp);
+    const int* kt_tile = reinterpret_cast<const int*>(smem + L.ktab + s * BN * 4) + cb;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int2 e = *reinterpret_cast<const int2*>(kt_tile + 8 * j);
+      d0 += ex2(fmaf(sc[4 * j + 0] + bias_at(rel0, e.x), LOG2E, -l0)) * dp[4 * j + 0];
+      d0 += ex2(fmaf(sc[4 * j + 1] + bias_at(rel0, e.y), LOG2E, -l0)) * dp[4 * j + 1];
+      d1 += ex2(fmaf(sc[4 * j + 2] + bias_at(rel1, e.x), LOG2E, -l1)) * dp[4 * j + 2];
+      d1 += ex2(fmaf(sc[4 * j + 3] + bias_at(rel1, e.y), LOG2E, -l1)) * dp[4 * j + 3];
     }
-    __syncthreads();  // dV and dK contract over all 64 query rows of the tile
-    // warp w owns keys [16w, 16w + 16): dV += P^T G, dK += dS^T Q
+  }
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 1);
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 2);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 1);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 2);
+
+  // the relp rows for kernel 2: raw terms, 0, -inf, lse, delta, zero padding
+  if ((lane & 3) == 0) {
+    rel[r0 * LD + K + 2] = lse0;
+    rel[r0 * LD + K + 3] = d0;
+    rel[(r0 + 8) * LD + K + 2] = lse1;
+    rel[(r0 + 8) * LD + K + 3] = d1;
+  }
+  __syncthreads();
+  for (int i = t; i < BM * KP; i += 128) {
+    const int r = i / KP, c = i - r * KP, row = q0 + r;
+    if (row < p.Lq) p.relp[((size_t)bh * p.Lq + row) * KP + c] = c < K + 4 ? rel[r * LD + c] : 0.f;
+  }
+
+  // pass 2: ds = p (dp - delta); dq += ds_lo k; drel += (ds_hi + ds_lo) E^T
+  float dq[D / 2], dr[NP / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) dr[i] = 0.f;
+  uint32_t hi[BN / 16][4], lo[BN / 16][4];
+  for (int i = 0; i < p.ntiles; ++i) {
+    const int it = p.ntiles + i, s = it % STAGES;
+    next(it);
+    mbar_wait(full + 8 * s, (it / STAGES) & 1);
+    reg_fence(sc);
+    reg_fence(dp);
+    wg_fence();
+    issue_abt<D>(sc, qa, sbase + L.k + s * BN * D * 2);
+    issue_abt<D>(dp, ga, sbase + L.v + s * BN * D * 2);
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(sc);
+    reg_fence(dp);
+    const int* kt_tile = reinterpret_cast<const int*>(smem + L.ktab + s * BN * 4) + cb;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int2 e = *reinterpret_cast<const int2*>(kt_tile + 8 * j);
+      const float a0 = ex2(fmaf(sc[4 * j] + bias_at(rel0, e.x), LOG2E, -l0)) * (dp[4 * j] - d0);
+      const float a1 =
+          ex2(fmaf(sc[4 * j + 1] + bias_at(rel0, e.y), LOG2E, -l0)) * (dp[4 * j + 1] - d0);
+      const float a2 =
+          ex2(fmaf(sc[4 * j + 2] + bias_at(rel1, e.x), LOG2E, -l1)) * (dp[4 * j + 2] - d1);
+      const float a3 =
+          ex2(fmaf(sc[4 * j + 3] + bias_at(rel1, e.y), LOG2E, -l1)) * (dp[4 * j + 3] - d1);
+      split2(a0, a1, hi[j >> 1][(j & 1) * 2 + 0], lo[j >> 1][(j & 1) * 2 + 0]);
+      split2(a2, a3, hi[j >> 1][(j & 1) * 2 + 1], lo[j >> 1][(j & 1) * 2 + 1]);
+    }
+    const uint32_t eb = sbase + L.e + s * BN * NP * 2;
+    reg_fence(dq);
+    reg_fence(dr);
+    wg_fence();
+    issue_ab<D>(dq, hi, sbase + L.k + s * BN * D * 2);
 #pragma unroll
     for (int kk = 0; kk < BN / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> pa, da;
-      wmma::load_matrix_sync(pa, Ps + kk * 16 * L.ldp + r0, L.ldp);
-      wmma::load_matrix_sync(da, DSs + kk * 16 * L.ldp + r0, L.ldp);
-#pragma unroll
-      for (int n = 0; n < D / 16; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bg, bq;
-        wmma::load_matrix_sync(bg, Gs + kk * 16 * L.ldq + n * 16, L.ldq);
-        wmma::load_matrix_sync(bq, Qr + kk * 16 * L.ldq + n * 16, L.ldq);
-        wmma::mma_sync(dvf[n], pa, bg, dvf[n]);
-        wmma::mma_sync(dkf[n], da, bq, dkf[n]);
-      }
+      const uint64_t de = plain_desc(eb + kk * NP * 32, 128, 256);
+      Wg<NP>::template rs<0>(dr, hi[kk], de);
+      Wg<NP>::template rs<0>(dr, lo[kk], de);
     }
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(dq);
+    reg_fence(dr);
+    reg_fence(hi);
+    reg_fence(lo);
   }
 
-  // partial sums of this split -> work[0 (dk) | 1 (dv)][split][b][key][h*D + d]
-  const size_t plane = (size_t)splits * B * Lk * HD;
-  for (int part = 0; part < 2; ++part) {
-    __syncthreads();  // Os aliases every warp's Ss/DPs rows
+  // epilogue: dq * scale (+ g), one rounding; drel in its dtype
+  const int HD = p.H * D;
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      if (part == 0) {
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row1 : row0;
+    if (row >= p.Lq) continue;
+    const size_t base = ((size_t)b * p.Lq + row) * HD + h * D + cb;
+    const bool res = row >= p.res_from;
 #pragma unroll
-        for (int e = 0; e < dkf[n].num_elements; ++e) dkf[n].x[e] *= scale;
-        wmma::store_matrix_sync(Os + r0 * L.ldo + n * 16, dkf[n], L.ldo, wmma::mem_row_major);
-      } else {
-        wmma::store_matrix_sync(Os + r0 * L.ldo + n * 16, dvf[n], L.ldo, wmma::mem_row_major);
+    for (int j = 0; j < D / 8; ++j) {
+      float x0 = dq[4 * j + 2 * half] * p.scale, x1 = dq[4 * j + 2 * half + 1] * p.scale;
+      if (res) {
+        const __nv_bfloat162 gg = *reinterpret_cast<const __nv_bfloat162*>(p.g + base + 8 * j);
+        x0 += __low2float(gg);
+        x1 += __high2float(gg);
       }
+      *reinterpret_cast<__nv_bfloat162*>(p.dq + base + 8 * j) = __floats2bfloat162_rn(x0, x1);
     }
-    __syncthreads();
-    float* dst = work + part * plane + ((size_t)split * B + b) * Lk * HD + h * D;
-    for (int i = tid; i < BM * D; i += NT) {
-      const int r = i / D, c = i - r * D, key = k0 + r;
-      if (key < Lk) dst[(size_t)key * HD + c] = Os[r * L.ldo + c];
+#pragma unroll
+    for (int j = 0; j < NP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + cb + e;
+        if (c >= K) continue;
+        int cc;
+        const int part = rel_part(c, p.kt, p.kh, cc);
+        from_f32(p.drel.p[part] + ((size_t)b * p.Lq + row) * p.drel.ld[part] + h * p.drel.hs + cc,
+                 dr[4 * j + 2 * half + e]);
+      }
     }
   }
 }
 
-// kernel 3: dk, dv = sum over splits of the partials, in split order, to bf16
-__global__ void attn_bwd_reduce_kernel(const float* __restrict__ work, bf16* __restrict__ dk,
-                                       bf16* __restrict__ dv, long long n, int splits) {
+template <int D, int NP, typename R>
+__global__ void __launch_bounds__(NTHREADS, 2)
+    bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+                  const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                  const QParams<R> p) {
+  constexpr int CH = D / 32;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_u32(smem);
+  const QSmem L = q_layout(D, p.kt + p.kh + p.kw);
+  // mbarriers: one per ring slot, then Q and G
+  const uint32_t bars = sbase + L.bar, qgbar = bars + 8 * STAGES;
+  const int bh = blockIdx.x / p.qtiles, q0 = (blockIdx.x - bh * p.qtiles) * BM;
+  const int b = bh / p.H, h = bh - b * p.H;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= STAGES; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {  // Q, G and the first key tiles
+    const int col = h * D;
+    mbar_expect_tx(qgbar, 2 * BM * D * 2);
+    for (int c = 0; c < CH; ++c) {
+      tma_load(sbase + L.q + c * BM * 64, &tq, qgbar, col + 32 * c, q0, b);
+      tma_load(sbase + L.g + c * BM * 64, &tg, qgbar, col + 32 * c, q0, b);
+    }
+    for (int it = 0; it < STAGES && it < 2 * p.ntiles; ++it)
+      dq_load<D, NP, R>(p, L, sbase, bars, &tk, &tv, b, h, it);
+  }
+  dq_consumer<D, NP, R>(p, smem, sbase, L, bars, &tk, &tv, b, h, q0, threadIdx.x);
+}
+
+// ------------------------------------------------- kernel 2: dk, dv parts ---
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS, 2)
+    bwd_dkv_kernel(const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tg,
+                   const __grid_constant__ CUtensorMap trel, const KParams p) {
+  constexpr int CH = D / 32;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_u32(smem);
+  const int K = p.kt + p.kh + p.kw, KP = relp_cols(K);
+  const KSmem L = k_layout(D, K);
+  // mbarriers: one per ring slot, then K and V
+  const uint32_t bars = sbase + L.bar, full = bars, kvbar = bars + 8 * STAGES;
+  const int per_bh = p.splits * p.ktiles;
+  const int bh = blockIdx.x / per_bh, rem = blockIdx.x - bh * per_bh;
+  const int split = rem / p.ktiles, kb = rem - split * p.ktiles;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int n_qt = (p.Lq + BN - 1) / BN, qt0 = split * p.per;
+  const int n = max(0, min(n_qt, qt0 + p.per) - qt0);  // query tiles of this split
+
+  // query tile `it` of this split (Q, G and its relp rows) into ring slot
+  // it % STAGES, completing on that slot's barrier
+  const int col = h * D, rel_bytes = BN * KP * 4;
+  auto load = [&](int it) {
+    const int s = it % STAGES, q0 = (qt0 + it) * BN;
+    const uint32_t off = s * BN * D * 2;
+    mbar_expect_tx(full + 8 * s, 2 * BN * D * 2 + rel_bytes);
+    for (int c = 0; c < CH; ++c) {
+      tma_load(sbase + L.q + off + c * BN * 64, &tq, full + 8 * s, col + 32 * c, q0, b);
+      tma_load(sbase + L.g + off + c * BN * 64, &tg, full + 8 * s, col + 32 * c, q0, b);
+    }
+    tma_load(sbase + L.rel + s * rel_bytes, &trel, full + 8 * s, 0, q0, bh);
+  };
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  if (t == 0) {
+    for (int s = 0; s <= STAGES; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (t == 0) {  // K and V of this key block, and the first query tiles
+    mbar_expect_tx(kvbar, 2 * BM * D * 2);
+    for (int c = 0; c < CH; ++c) {
+      tma_load(sbase + L.k + c * BM * 64, &tk, kvbar, col + 32 * c, kb * BM, b);
+      tma_load(sbase + L.v + c * BM * 64, &tv, kvbar, col + 32 * c, kb * BM, b);
+    }
+    for (int it = 0; it < STAGES && it < n; ++it) load(it);
+  }
+
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's keys: r0 and r0 + 8 of the block
+  const int cb = 2 * (lane & 3);           // and query columns cb, cb + 1 of each 8
+  const int e0 = key_index(kb * BM + r0, p.Lk, p.kt, p.kh, p.kw);
+  const int e1 = key_index(kb * BM + r0 + 8, p.Lk, p.kt, p.kh, p.kw);
+  const uint32_t ka = sbase + L.k, va = sbase + L.v, qs = sbase + L.qs;
+  float dk[D / 2], dv[D / 2], sc[BN / 2], dp[BN / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] = dp[i] = 0.f;
+  uint32_t pa[BN / 16][4], da[BN / 16][4];
+  mbar_wait(kvbar, 0);
+
+  for (int it = 0; it < n; ++it) {
+    const int s = it % STAGES;
+    const uint32_t qb = sbase + L.q + s * BN * D * 2, gb = sbase + L.g + s * BN * D * 2;
+    const float* rp = reinterpret_cast<const float*>(smem + L.rel + s * BN * KP * 4);
+    // every thread is done with tile it - 1 (its products read the scaled
+    // copy and its ring slot, which now takes tile it - 1 + STAGES)
+    __syncthreads();
+    if (t == 0 && it >= 1 && it - 1 + STAGES < n) load(it - 1 + STAGES);
+    mbar_wait(full + 8 * s, (it / STAGES) & 1);
+    // this tile's Q scaled and rounded to bf16 for S (dK takes it unscaled)
+    for (int i = t; i < CH * 256; i += 128) {
+      uint4 vec = *reinterpret_cast<const uint4*>(smem + L.q + s * BN * D * 2 + i * 16);
+      bf16* e = reinterpret_cast<bf16*>(&vec);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * p.scale_q);
+      *reinterpret_cast<uint4*>(smem + L.qs + i * 16) = vec;
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    reg_fence(sc);
+    reg_fence(dp);
+    wg_fence();
+    issue_abt<D>(sc, ka, qs);  // S^T = K (q * scale)^T
+    issue_abt<D>(dp, va, gb);  // dP^T = V G^T
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(sc);
+    reg_fence(dp);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float* ra = rp + (8 * j + cb) * KP;  // query column 8 j + cb
+      const float* rb = ra + KP;                 // and the next
+      const float la = ra[K + 2] * LOG2E, lb = rb[K + 2] * LOG2E, dla = ra[K + 3],
+                  dlb = rb[K + 3];
+      const float p0 = ex2(fmaf(sc[4 * j + 0] + bias_at(ra, e0), LOG2E, -la));
+      const float p1 = ex2(fmaf(sc[4 * j + 1] + bias_at(rb, e0), LOG2E, -lb));
+      const float p2 = ex2(fmaf(sc[4 * j + 2] + bias_at(ra, e1), LOG2E, -la));
+      const float p3 = ex2(fmaf(sc[4 * j + 3] + bias_at(rb, e1), LOG2E, -lb));
+      pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(p0, p1);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+      da[j >> 1][(j & 1) * 2 + 0] =
+          pack_bf16(p0 * (dp[4 * j + 0] - dla), p1 * (dp[4 * j + 1] - dlb));
+      da[j >> 1][(j & 1) * 2 + 1] =
+          pack_bf16(p2 * (dp[4 * j + 2] - dla), p3 * (dp[4 * j + 3] - dlb));
+    }
+    reg_fence(dk);
+    reg_fence(dv);
+    wg_fence();
+    issue_ab<D>(dv, pa, gb);  // dV += P_lo^T G
+    issue_ab<D>(dk, da, qb);  // dK += dS_lo^T Q
+    wg_commit();
+    wg_wait<0>();
+    reg_fence(dk);
+    reg_fence(dv);
+    reg_fence(pa);
+    reg_fence(da);
+  }
+
+  // partial sums of this split -> work[0 (dk) | 1 (dv)][split][b][key][h * D + d]
+  const int HD = p.H * D;
+  const size_t plane = (size_t)p.splits * p.B * p.Lk * HD;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = kb * BM + r0 + 8 * half;
+    if (key >= p.Lk) continue;
+    float* dst = p.work + ((size_t)split * p.B + b) * p.Lk * HD + (size_t)key * HD + h * D + cb;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(dk[4 * j + 2 * half] * p.scale, dk[4 * j + 2 * half + 1] * p.scale);
+      *reinterpret_cast<float2*>(dst + plane + 8 * j) =
+          make_float2(dv[4 * j + 2 * half], dv[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
+// kernel 3: dk, dv = sum over splits of the partials, in split order
+__global__ void bwd_reduce_kernel(const float* __restrict__ work, bf16* __restrict__ dk,
+                                  bf16* __restrict__ dv, long long n, int splits) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     float sk = 0.f, sv = 0.f;
@@ -536,92 +641,169 @@ __global__ void attn_bwd_reduce_kernel(const float* __restrict__ work, bf16* __r
   }
 }
 
+// --------------------------------------------------------------- host ---
+
+// (batches * heads, Lq, KP) f32 relp rows, boxes of KP columns x 64 rows x
+// 1, no swizzle; rows past Lq read as zeros
+bool make_relp_map(CUtensorMap* map, const void* ptr, int BH, int Lq, int KP) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)KP, (cuuint64_t)Lq, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)KP * 4, (cuuint64_t)Lq * KP * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)KP, (cuuint32_t)BN, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename KernelT>
+cudaError_t set_smem(KernelT kernel, int bytes, int& done) {
+  if (bytes <= done) return cudaSuccess;  // the attribute only grows; set it once per size
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done = bytes;
+  return err;
+}
+
+struct Args {
+  const void *q, *k, *v, *g, *lse;
+  void *dq, *dk, *dv, *relp, *e_all, *ktab, *work;
+  int B, Lq, Lk, H, D, kt, kh, kw, splits;
+  float scale_q, scale;
+  cudaStream_t stream;
+};
+
+template <int D, int NP, typename R>
+int launch_dq(const Args& a, const QParams<R>& p, const CUtensorMap& tq, const CUtensorMap& tg,
+              const CUtensorMap& tk, const CUtensorMap& tv, int smem) {
+  static int done = 0;
+  cudaError_t err = set_smem(bwd_dq_kernel<D, NP, R>, smem, done);
+  if (err != cudaSuccess) return (int)err;
+  bwd_dq_kernel<D, NP, R><<<a.B * a.H * p.qtiles, NTHREADS, smem, a.stream>>>(tq, tg, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv(const Args& a, const KParams& p, const CUtensorMap& tk, const CUtensorMap& tv,
+               const CUtensorMap& tq, const CUtensorMap& tg, const CUtensorMap& trel, int smem) {
+  static int done = 0;
+  cudaError_t err = set_smem(bwd_dkv_kernel<D>, smem, done);
+  if (err != cudaSuccess) return (int)err;
+  bwd_dkv_kernel<D><<<a.B * a.H * p.splits * p.ktiles, NTHREADS, smem, a.stream>>>(tk, tv, tq, tg,
+                                                                                  trel, p);
+  return (int)cudaGetLastError();
+}
+
 template <int D, typename R>
-int launch(const bf16* q, const bf16* k, const bf16* v, RelIn<R> rel, const bf16* g, bf16* dq,
-           bf16* dk, bf16* dv, RelOut<R> drel, float* lse, float* delta, float* work, int B,
-           int Lq, int Lk, int H, int kt, int kh, int kw, int splits, float scale_q, float scale,
-           int res_from, cudaStream_t stream) {
-  const int K = kt + kh + kw;
-  const Layout L1 = make_layout(D, K, false), L2 = make_layout(D, K, true);
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_q_kernel<D, R>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L1.total);
+int run(const Args& a, RelIn<R> rel, RelOut<R> drel, int res_from) {
+  const int K = a.kt + a.kh + a.kw, NP = pad_bins(K), KP = relp_cols(K);
+  const int HD = a.H * D, ntiles = (a.Lk + BN - 1) / BN;
+  const QSmem LQ = q_layout(D, K);
+  const KSmem LK = k_layout(D, K);
+  if (LQ.total > SMEM_MAX || LK.total > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tg, tk, tv, trel;
+  if (!make_map(&tq, a.q, a.B, a.Lq, HD, BM) || !make_map(&tg, a.g, a.B, a.Lq, HD, BM) ||
+      !make_map(&tk, a.k, a.B, a.Lk, HD, BN) || !make_map(&tv, a.v, a.B, a.Lk, HD, BN) ||
+      !make_relp_map(&trel, a.relp, a.B * a.H, a.Lq, KP))
+    return (int)cudaErrorInvalidValue;
+
+  const int tb = (ntiles * NP * 8 + 255) / 256;
+  bwd_tables_kernel<<<tb, 256, 0, a.stream>>>(static_cast<unsigned char*>(a.e_all),
+                                              static_cast<int*>(a.ktab), ntiles, a.Lk, a.kt, a.kh,
+                                              a.kw);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(attn_bwd_kv_kernel<D, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)L2.total);
-  if (err != cudaSuccess) return (int)err;
-  dim3 g1((Lq + BM - 1) / BM, H, B);
-  attn_bwd_q_kernel<D, R><<<g1, NT, L1.total, stream>>>(q, k, v, rel, g, dq, drel, lse, delta,
-                                                        Lq, Lk, H, kt, kh, kw, scale_q, scale,
-                                                        res_from);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dim3 g2((Lk + BM - 1) / BM, H * splits, B);
-  attn_bwd_kv_kernel<D, R><<<g2, NT, L2.total, stream>>>(q, k, v, rel, g, lse, delta, work, B,
-                                                         Lq, Lk, H, kt, kh, kw, splits, scale_q,
-                                                         scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long n = (long long)B * Lk * H * D;
+
+  QParams<R> qp;
+  qp.rel = rel;
+  qp.drel = drel;
+  qp.g = static_cast<const bf16*>(a.g);
+  qp.dq = static_cast<bf16*>(a.dq);
+  qp.lse = static_cast<const float*>(a.lse);
+  qp.relp = static_cast<float*>(a.relp);
+  qp.e_all = static_cast<const unsigned char*>(a.e_all);
+  qp.ktab_all = static_cast<const int*>(a.ktab);
+  qp.Lq = a.Lq; qp.Lk = a.Lk; qp.H = a.H; qp.kt = a.kt; qp.kh = a.kh; qp.kw = a.kw;
+  qp.res_from = res_from;
+  qp.ntiles = ntiles;
+  qp.qtiles = (a.Lq + BM - 1) / BM;
+  qp.scale_q = a.scale_q;
+  qp.scale = a.scale;
+  int rc;
+  switch (NP) {
+    case 32: rc = launch_dq<D, 32, R>(a, qp, tq, tg, tk, tv, LQ.total); break;
+    case 48: rc = launch_dq<D, 48, R>(a, qp, tq, tg, tk, tv, LQ.total); break;
+    default: rc = launch_dq<D, 128, R>(a, qp, tq, tg, tk, tv, LQ.total); break;
+  }
+  if (rc != 0) return rc;
+
+  KParams kp;
+  kp.work = static_cast<float*>(a.work);
+  kp.B = a.B; kp.Lq = a.Lq; kp.Lk = a.Lk; kp.H = a.H; kp.kt = a.kt; kp.kh = a.kh; kp.kw = a.kw;
+  kp.ktiles = (a.Lk + BM - 1) / BM;
+  kp.splits = a.splits;
+  const int n_qt = (a.Lq + BN - 1) / BN;
+  kp.per = (n_qt + a.splits - 1) / a.splits;
+  kp.scale_q = a.scale_q;
+  kp.scale = a.scale;
+  rc = launch_dkv<D>(a, kp, tk, tv, tq, tg, trel, LK.total);
+  if (rc != 0) return rc;
+
+  const long long n = (long long)a.B * a.Lk * HD;
   const long long blocks = (n + 255) / 256;
-  attn_bwd_reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
-      work, dk, dv, n, splits);
+  bwd_reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, a.stream>>>(
+      static_cast<const float*>(a.work), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), n,
+      a.splits);
   return (int)cudaGetLastError();
 }
 
 template <typename R>
-int dispatch(const void* q, const void* k, const void* v, RelIn<R> rel, const void* g, void* dq,
-             void* dk, void* dv, RelOut<R> drel, void* lse, void* delta, void* work, int B,
-             int Lq, int Lk, int H, int D, int kt, int kh, int kw, int splits, float scale_q,
-             float scale, int res_from, void* stream) {
-  const bf16* qp = static_cast<const bf16*>(q);
-  const bf16* kp = static_cast<const bf16*>(k);
-  const bf16* vp = static_cast<const bf16*>(v);
-  const bf16* gp = static_cast<const bf16*>(g);
-  bf16* dqp = static_cast<bf16*>(dq);
-  bf16* dkp = static_cast<bf16*>(dk);
-  bf16* dvp = static_cast<bf16*>(dv);
-  float* lp = static_cast<float*>(lse);
-  float* dp = static_cast<float*>(delta);
-  float* wp = static_cast<float*>(work);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DSAL_BWD(DD)                                                                            \
-  return launch<DD>(qp, kp, vp, rel, gp, dqp, dkp, dvp, drel, lp, dp, wp, B, Lq, Lk, H, kt, kh, \
-                    kw, splits, scale_q, scale, res_from, s)
-  switch (D) {
-    case 64: DSAL_BWD(64);
-    case 96: DSAL_BWD(96);
-    case 128: DSAL_BWD(128);
+int dispatch(const Args& a, RelIn<R> rel, RelOut<R> drel, int res_from) {
+  const int K = a.kt + a.kh + a.kw;
+  if (a.Lq < 1 || a.Lk < 1 || a.splits < 1 || K < 1 || K > 128 || a.lse == nullptr)
+    return (int)cudaErrorInvalidValue;
+  switch (a.D) {
+    case 64: return run<64, R>(a, rel, drel, res_from);
+    case 96: return run<96, R>(a, rel, drel, res_from);
+    case 128: return run<128, R>(a, rel, drel, res_from);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef DSAL_BWD
 }
 
 }  // namespace
 
+// K5: q, k, v, g, dq, dk, dv (B, L, H*D) bf16; rel, drel (B, Lq, H,
+// kt+kh+kw) bf16; lse (B, H, Lq) f32 from the forward; workspaces relp (B,
+// H, Lq, KP) f32, e_all and ktab (the tables of every key tile), work (2,
+// splits, B, Lk, H*D) f32
 extern "C" int dsal_bias_attention_bwd(const void* q, const void* k, const void* v,
-                                       const void* rel, const void* g, void* dq, void* dk,
-                                       void* dv, void* drel, void* lse, void* delta, void* work,
-                                       int B, int Lq, int Lk, int H, int D, int kt, int kh, int kw,
-                                       int splits, float scale_q, float scale, int residual,
-                                       void* stream) {
+                                       const void* rel, const void* g, const void* lse, void* dq,
+                                       void* dk, void* dv, void* drel, void* relp, void* e_all,
+                                       void* ktab, void* work, int B, int Lq, int Lk, int H, int D,
+                                       int kt, int kh, int kw, int splits, float scale_q,
+                                       float scale, int residual, void* stream) {
   const bf16* rp = static_cast<const bf16*>(rel);
   bf16* drp = static_cast<bf16*>(drel);
   const int K = kt + kh + kw;
   const RelIn<bf16> r = {{rp, rp + kt, rp + kt + kh}, {H * K, H * K, H * K}, K};
   const RelOut<bf16> dr = {{drp, drp + kt, drp + kt + kh}, {H * K, H * K, H * K}, K};
-  return dispatch(q, k, v, r, g, dq, dk, dv, dr, lse, delta, work, B, Lq, Lk, H, D, kt, kh, kw,
-                  splits, scale_q, scale, residual ? 0 : Lq, stream);
+  const Args a = {q, k, v, g, lse, dq, dk, dv, relp, e_all, ktab, work, B, Lq, Lk, H, D, kt, kh,
+                  kw, splits, scale_q, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(a, r, dr, residual ? 0 : Lq);
 }
 
 // K12's backward: q, k, v, g, dq, dk, dv (BH, L, D) bf16 with cls at row 0;
-// rel_t/h/w and drel_t/h/w (BH, Lq, kt/kh/kw) f32; dq's residual skips row 0
+// rel_t/h/w and drel_t/h/w (BH, Lq, kt/kh/kw) f32; lse (BH, Lq) f32; dq's
+// residual skips row 0; workspaces as for K5 with B = BH, H = 1
 extern "C" int dsal_cls_attention_bwd(const void* q, const void* k, const void* v,
                                       const void* rel_t, const void* rel_h, const void* rel_w,
-                                      const void* g, void* dq, void* dk, void* dv, void* drel_t,
-                                      void* drel_h, void* drel_w, void* lse, void* delta,
-                                      void* work, int BH, int Lq, int Lk, int D, int kt, int kh,
-                                      int kw, int splits, float scale_q, float scale,
-                                      int residual, void* stream) {
+                                      const void* g, const void* lse, void* dq, void* dk, void* dv,
+                                      void* drel_t, void* drel_h, void* drel_w, void* relp,
+                                      void* e_all, void* ktab, void* work, int BH, int Lq, int Lk,
+                                      int D, int kt, int kh, int kw, int splits, float scale_q,
+                                      float scale, int residual, void* stream) {
   const RelIn<float> r = {{static_cast<const float*>(rel_t), static_cast<const float*>(rel_h),
                            static_cast<const float*>(rel_w)},
                           {kt, kh, kw},
@@ -630,6 +812,7 @@ extern "C" int dsal_cls_attention_bwd(const void* q, const void* k, const void* 
                              static_cast<float*>(drel_w)},
                             {kt, kh, kw},
                             0};
-  return dispatch(q, k, v, r, g, dq, dk, dv, dr, lse, delta, work, BH, Lq, Lk, 1, D, kt, kh, kw,
-                  splits, scale_q, scale, residual ? 1 : Lq, stream);
+  const Args a = {q, k, v, g, lse, dq, dk, dv, relp, e_all, ktab, work, BH, Lq, Lk, 1, D, kt, kh,
+                  kw, splits, scale_q, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(a, r, dr, residual ? 1 : Lq);
 }

@@ -21,6 +21,14 @@
 // Layouts: q (Bt, L, C), k and v (Bt, S, C), out (Bt, L, C), all bf16 and
 // contiguous, C = heads * hd with hd % 16 == 0, S <= 128, the whole tile
 // set within the 227 KB of shared memory a CTA may use.
+//
+// The f32 instance (`dsal_cvt_attention_f32`, for an f32 model) keeps the
+// products in f32 by FFMA on the CUDA cores (TF32 keeps too few mantissa
+// bits for the f32 tolerance): a CTA of four warps owns 32 query rows of one
+// head, stages them and the head's k and v in shared memory (f32, key rows
+// padded by one float against bank conflicts), lane u of a warp takes keys
+// u, u + 32, .. for the scores of the warp's 8 rows, the softmax reduces by
+// warp shuffles, and p v runs over the lanes' head-dim columns.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -153,6 +161,83 @@ cvt_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __rest
   }
 }
 
+constexpr int FR = 32;           // query rows per CTA of the f32 instance, 8 per warp
+constexpr int MAX_HD32 = 384 / 32;  // head-dim columns per lane (hd <= 384)
+
+__host__ __device__ inline size_t smem_f32(int S, int hd) {
+  return ((size_t)FR * hd + 2 * (size_t)S * (hd + 1)) * 4;
+}
+
+__global__ void __launch_bounds__(THREADS)
+cvt_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ out, int L, int S, int C,
+                    int hd, float scale) {
+  extern __shared__ float fs[];
+  float* qs = fs;                   // FR x hd
+  float* ks = qs + FR * hd;         // S x (hd + 1)
+  float* vs = ks + S * (hd + 1);    // S x (hd + 1)
+  const int bt = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * FR;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int i = threadIdx.x; i < S * hd; i += THREADS) {
+    const int j = i / hd, c = i - j * hd;
+    const long long src = ((long long)bt * S + j) * C + h * hd + c;
+    ks[j * (hd + 1) + c] = k[src];
+    vs[j * (hd + 1) + c] = v[src];
+  }
+  for (int i = threadIdx.x; i < FR * hd; i += THREADS) {
+    const int r = i / hd, c = i - r * hd, row = row0 + r;
+    qs[i] = row < L ? q[((long long)bt * L + row) * C + h * hd + c] : 0.f;
+  }
+  __syncthreads();
+  for (int rr = 0; rr < FR / WARPS; ++rr) {
+    const int r = warp * (FR / WARPS) + rr, row = row0 + r;
+    float sc[MAX_S / 32];
+    float m = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < MAX_S / 32; ++u) {
+      const int j = lane + 32 * u;
+      float s = -INFINITY;
+      if (j < S) {
+        s = 0.f;
+        for (int c = 0; c < hd; ++c) s = fmaf(qs[r * hd + c], ks[j * (hd + 1) + c], s);
+        s *= scale;
+      }
+      sc[u] = s;
+      m = fmaxf(m, s);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    float sum = 0.f;
+#pragma unroll
+    for (int u = 0; u < MAX_S / 32; ++u) {
+      sc[u] = lane + 32 * u < S ? expf(sc[u] - m) : 0.f;
+      sum += sc[u];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    float o[MAX_HD32];
+#pragma unroll
+    for (int c = 0; c < MAX_HD32; ++c) o[c] = 0.f;
+#pragma unroll
+    for (int u = 0; u < MAX_S / 32; ++u) {
+      if (32 * u >= S) break;
+      const float pu = sc[u] / sum;
+      for (int jj = 0; jj < 32 && 32 * u + jj < S; ++jj) {
+        const float pj = __shfl_sync(0xffffffffu, pu, jj);
+        const float* vr = vs + (32 * u + jj) * (hd + 1);
+#pragma unroll
+        for (int c = 0; c < MAX_HD32; ++c)
+          if (lane + 32 * c < hd) o[c] = fmaf(pj, vr[lane + 32 * c], o[c]);
+      }
+    }
+    if (row < L) {
+#pragma unroll
+      for (int c = 0; c < MAX_HD32; ++c)
+        if (lane + 32 * c < hd) out[((long long)bt * L + row) * C + h * hd + lane + 32 * c] = o[c];
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int dsal_cvt_attention(const void* q, const void* k, const void* v, void* out,
@@ -171,5 +256,25 @@ extern "C" int dsal_cvt_attention(const void* q, const void* k, const void* v, v
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), L, S, C, hd,
       scale);
+  return (int)cudaGetLastError();
+}
+
+// the f32 instance: q, k, v, out f32; S <= 128, hd <= 384, the tiles within
+// one CTA's shared memory
+extern "C" int dsal_cvt_attention_f32(const void* q, const void* k, const void* v, void* out,
+                                      int Bt, int L, int S, int C, int heads, float scale,
+                                      void* stream) {
+  const int hd = heads > 0 ? C / heads : 0;
+  if (S < 1 || S > MAX_S || hd < 1 || hd > 32 * MAX_HD32 || hd * heads != C)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_f32(S, hd);
+  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(cvt_attn_f32_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((L + FR - 1) / FR, heads, Bt);
+  cvt_attn_f32_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), L, S, C, hd, scale);
   return (int)cudaGetLastError();
 }

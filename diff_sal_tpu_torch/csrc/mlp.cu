@@ -20,6 +20,17 @@
 // Weight fragments are loaded straight from global memory (L2-resident:
 // 2.4 MB per matrix at C = 768) instead of being held in shared memory.
 // Rows past R are zero and are not written.
+//
+// The f32 instance (`dsal_block_tail_f32`, the tail of an f32 model, which
+// the JAX K3 takes as well) computes every product in f32 by FFMA on the
+// CUDA cores: TF32 keeps too few mantissa bits for the f32 tolerance. A CTA
+// of eight warps owns BRF = 16 rows: LN(y) in f32 in shared memory, then
+// per hidden chunk of 64 h = LN(y) w1[chunk]^T + b1 with w1 staged in
+// 32-column slices (thread: one hidden unit, four rows), GELU, and out +=
+// h w2[:, chunk]^T with w2 staged in 16-unit slices (thread: every 256th
+// output column of all 16 rows, in registers). Its shared memory, 16 * C +
+// 16 * 64 + 32 * 64 + 16 * C floats, is 110.6 KB at C = 768 (`f32_smem` in
+// ops/mlp.py checks it for every C up to MAX_C).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -180,6 +191,117 @@ __global__ void __launch_bounds__(NT) block_tail_kernel(
   }
 }
 
+constexpr int BRF = 16;  // rows per CTA of the f32 instance
+constexpr int MAXCOL = MAXC / NT;  // output columns per thread (3)
+
+__host__ __device__ inline size_t smem_f32(int C) {
+  return ((size_t)BRF * C * 2 + BRF * HC + 32 * HC) * 4;
+}
+
+__global__ void __launch_bounds__(NT) block_tail_f32_kernel(
+    const float* __restrict__ skip, const float* __restrict__ attn,
+    const float* __restrict__ ln_w, const float* __restrict__ ln_b,
+    const float* __restrict__ w1, const float* __restrict__ b1,
+    const float* __restrict__ w2, const float* __restrict__ b2, float* __restrict__ out,
+    int R, int C, int Hd, float eps, int act) {
+  extern __shared__ float fs[];
+  float* Xn = fs;                 // BRF x C: LN(y)
+  float* Hs = Xn + BRF * C;       // BRF x HC: the hidden chunk after GELU
+  float* W1s = Hs + BRF * HC;     // 32 x HC: a slice of w1[chunk]^T
+  float* W2s = W1s + 32 * HC;     // 16 x C: a slice of w2[:, chunk]^T
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const long long row0 = (long long)blockIdx.x * BRF;
+
+  // y and LN(y) in f32, two rows per warp
+  for (int rr = 0; rr < BRF / NW; ++rr) {
+    const int r = warp * (BRF / NW) + rr;
+    const long long row = row0 + r;
+    if (row >= R) {
+      for (int c = lane; c < C; c += 32) Xn[r * C + c] = 0.f;
+      continue;
+    }
+    float v[MAXV], s = 0.f, ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < MAXV; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = c < C ? skip[row * C + c] + attn[row * C + c] : 0.f;
+      s += v[i];
+      ss += v[i] * v[i];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+      ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    }
+    const float mean = s / C;
+    const float rs = 1.f / sqrtf(fmaxf(ss / C - mean * mean, 0.f) + eps);
+#pragma unroll
+    for (int i = 0; i < MAXV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < C) Xn[r * C + c] = (v[i] - mean) * rs * ln_w[c] + ln_b[c];
+    }
+  }
+
+  float acc[BRF][MAXCOL];
+#pragma unroll
+  for (int r = 0; r < BRF; ++r)
+#pragma unroll
+    for (int m = 0; m < MAXCOL; ++m) acc[r][m] = 0.f;
+  const int hn = tid % HC, hr = (tid / HC) * 4;  // this thread's hidden unit and four rows
+  for (int hc0 = 0; hc0 < Hd; hc0 += HC) {
+    float h[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c0 = 0; c0 < C; c0 += 32) {
+      __syncthreads();  // the previous slice is consumed (and, first, Xn is written)
+      for (int i = tid; i < HC * 32; i += NT) {
+        const int n = i >> 5, c = i & 31;
+        W1s[c * HC + n] = w1[(size_t)(hc0 + n) * C + c0 + c];
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int c = 0; c < 32; ++c) {
+        const float w = W1s[c * HC + hn];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) h[u] = fmaf(Xn[(hr + u) * C + c0 + c], w, h[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) Hs[(hr + u) * HC + hn] = gelu(h[u] + b1[hc0 + hn], act);
+    for (int k0 = 0; k0 < HC; k0 += 16) {
+      __syncthreads();  // Hs is written, the previous w2 slice consumed
+      for (int i = tid; i < 16 * C; i += NT) {
+        const int col = i >> 4, k = i & 15;
+        W2s[k * C + col] = w2[(size_t)col * Hd + hc0 + k0 + k];
+      }
+      __syncthreads();
+      for (int k = 0; k < 16; ++k) {
+#pragma unroll
+        for (int m = 0; m < MAXCOL; ++m) {
+          const int col = tid + NT * m;
+          if (col < C) {
+            const float w = W2s[k * C + col];
+#pragma unroll
+            for (int r = 0; r < BRF; ++r) acc[r][m] = fmaf(Hs[r * HC + k0 + k], w, acc[r][m]);
+          }
+        }
+      }
+    }
+  }
+  // out = y + (h w2^T + b2), as the plain version adds
+#pragma unroll
+  for (int m = 0; m < MAXCOL; ++m) {
+    const int col = tid + NT * m;
+    if (col >= C) continue;
+#pragma unroll
+    for (int r = 0; r < BRF; ++r) {
+      const long long row = row0 + r;
+      if (row < R) {
+        const long long off = row * C + col;
+        out[off] = (skip[off] + attn[off]) + (acc[r][m] + b2[col]);
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int dsal_block_tail(const void* skip, const void* attn, const float* ln_w,
@@ -196,5 +318,23 @@ extern "C" int dsal_block_tail(const void* skip, const void* attn, const float* 
       static_cast<const bf16*>(skip), static_cast<const bf16*>(attn), ln_w, ln_b,
       static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
       static_cast<bf16*>(out), R, C, Hd, eps, act);
+  return (int)cudaGetLastError();
+}
+
+// the f32 instance: every tensor f32, the same shapes and conditions
+extern "C" int dsal_block_tail_f32(const void* skip, const void* attn, const float* ln_w,
+                                   const float* ln_b, const void* w1, const float* b1,
+                                   const void* w2, const float* b2, void* out, int R, int C,
+                                   int Hd, float eps, int act, void* stream) {
+  if (C % 32 != 0 || C > MAXC || Hd % HC != 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes = smem_f32(C);
+  cudaError_t err = cudaFuncSetAttribute(
+      block_tail_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((R + BRF - 1) / BRF);
+  block_tail_f32_kernel<<<blocks, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(skip), static_cast<const float*>(attn), ln_w, ln_b,
+      static_cast<const float*>(w1), b1, static_cast<const float*>(w2), b2,
+      static_cast<float*>(out), R, C, Hd, eps, act);
   return (int)cudaGetLastError();
 }

@@ -18,36 +18,51 @@ On the H100 the work is dominated by the two products (4*Lq*Lk*D flops
 per head; Lq = 43008, Lk = 673 at block 0, Lk = 2689 at block 1), well
 above the bytes of q, k, v, rel and out, so it is bound by operations.
 The kernel (`csrc/attention.cu`) is a warp-specialised Hopper forward: a
-producer warpgroup keeps TMA loads of Q (once) and of 128-key K/V tiles
-(a ring of `stages` buffers behind mbarriers) in flight; one or two
-consumer warpgroups of 64 query rows each run S = Q K^T and O += P V with
-`wgmma` (bf16 in, f32 accumulated in registers), add the bias from a
-per-row table of rel_t + rel_h and rel_w in shared memory, and keep the
-online softmax, P and O in registers. TMA zero-fills rows past L, so
-nothing is padded; key columns past Lk get -inf. `fwd_plan` chooses the
-geometry (rows per CTA, stages, shared memory) on the host, so the CPU
-tests reach it. head_dim is 96 at every MViT stage (64 and 128 are taken
-too).
+producer warpgroup keeps TMA loads of Q (once) and of K/V tiles (a ring of
+`stages` buffers behind mbarriers) in flight; one or two consumer
+warpgroups of 64 query rows each run S = Q K^T and O += P V with `wgmma`
+(bf16 in, f32 accumulated in registers), add the bias from a per-row table
+of rel_t + rel_h and rel_w in shared memory, and keep the online softmax,
+P and O in registers. `fwd_plan` chooses the geometry on the host, so the
+CPU tests reach it: 128 rows per CTA (two consumer warpgroups) with 64-key
+tiles where that fills the card, else 64 rows with 128-key tiles. TMA
+zero-fills rows past L, so nothing is padded; key columns past Lk get
+-inf. When the caller asks (the autograd Function, when a gradient will
+be taken), the kernel also writes each row's logsumexp in f32 for the
+backward. head_dim is 96 at every MViT stage (64 and 128 are taken too).
 
 K5 replaces the TPU kernel `diff_sal_tpu/ops/attention.py:761 _fba2_bwd`
 (body `_attn_v2_bwd_kernel` :697): dq, dk, dv and drel of K1 from the
-output gradient g. It recomputes the probabilities (the score matrix is
-never stored) and is bound by operations: five (Lq, Lk, D) products per
-head, ~10*Lq*Lk*D flops. The kernel (`csrc/attention_bwd.cu`) has two
-parts. A q-major kernel, one CTA per (batch, head, 64 query rows), walks
-the key tiles three times: the row logsumexp, then delta = rowsum(dp * p),
-then ds, accumulating dq in WMMA fragments and drel as a product of ds
-with the tile's one-hot (key -> t, h, w) matrix, as the TPU kernel does
-(ds as bf16 hi + lo parts, f32 accumulation); it writes dq and drel once
-and leaves logsumexp and delta for the second part. A k-major kernel, one CTA per (batch, head, 64 keys, q split),
-walks its split of the query tiles and accumulates dk and dv in
-registers; the splits (enough CTAs to fill the card where Lk is small)
-go to an f32 workspace and a third small kernel sums them in a fixed
-order, so no atomics touch device memory and results are deterministic.
+output gradient g. It recomputes p = exp(s - lse) from the logsumexp the
+forward saved (the score matrix is never stored) and is bound by
+operations: five (Lq, Lk, D) products per head, ~10*Lq*Lk*D flops. The
+kernels (`csrc/attention_bwd.cu`) take the forward's Hopper machinery: TMA
+loads (Q, G, K, V tiles) and bulk copies into mbarrier rings, issued one
+tile ahead by one thread, and every product a `wgmma` of the CTA's one
+warpgroup, two CTAs per SM. A q-major kernel,
+one CTA per (batch, head, 64 query rows), walks the key tiles twice: delta
+= rowsum(dp * p) (the TPU's delta, which keeps the plain version's
+rounding points; FlashAttention's rowsum(g * o) would need o, which exists
+only rounded inside out = o + q), then ds in registers, dq += ds_lo k and
+drel += ds E^T with E each tile's one-hot (key -> t, h, w) matrix, as the
+TPU kernel does (ds as bf16 hi + lo parts, f32 accumulation). It writes
+dq and drel once, and each row's rel terms, lse and delta as one padded
+f32 row for the second part. A k-major kernel, one CTA per (batch, head,
+64 keys, q split), streams its split of the query tiles and accumulates dk
+and dv in registers; the splits (enough CTAs to fill the card where Lk is
+small) go to an f32 workspace and a small kernel sums them in a fixed
+order, so no atomics touch device memory and two runs give the same bits.
+`bwd_plan` mirrors the geometry and shared memory on the host.
 
 `bias_attention` is differentiable: on either device it is an autograd
 Function whose forward is K1 (plain on the CPU) and whose backward is K5
-(plain on the CPU).
+(plain on the CPU); the forward's logsumexp is saved between them.
+
+Every wrapper takes bf16 or f32 on the card, routed by q's dtype: bf16 to
+the Hopper kernels above, f32 (both packages' default compute dtype) to
+their f32 instances in `csrc/attention_f32.cu` (and K7's in
+`csrc/cvt_attention.cu`), which compute in f32 by FFMA and round nowhere
+in between, as the plain versions do at f32. Other dtypes raise.
 
 K12 replaces the TPU kernel `diff_sal_tpu/ops/attention.py:119
 fused_bias_attention` (body `_attn_kernel` :62) and its backward `_fba_bwd`
@@ -95,13 +110,13 @@ from diff_sal_tpu_torch.ops import kernels as K
 
 KERNEL = K.Kernel(
     "bias_attention", "attention.cu", "dsal_bias_attention",
-    [K.P] * 5 + [K.I] * 8 + [K.F, K.I, K.I, K.I, K.P],
+    [K.P] * 6 + [K.I] * 8 + [K.F, K.I, K.I, K.I, K.P],
     replaces="diff_sal_tpu/ops/attention.py:601 fused_bias_attention_v2 "
              "(_attn_v2_kernel :477)",
 )
 BWD_KERNEL = K.Kernel(
     "bias_attention_bwd", "attention_bwd.cu", "dsal_bias_attention_bwd",
-    [K.P] * 12 + [K.I] * 9 + [K.F, K.F, K.I, K.P],
+    [K.P] * 14 + [K.I] * 9 + [K.F, K.F, K.I, K.P],
     replaces="diff_sal_tpu/ops/attention.py:761 _fba2_bwd "
              "(_attn_v2_bwd_kernel :697)",
 )
@@ -118,19 +133,41 @@ CVT_KERNEL = K.Kernel(
 
 CLS_KERNEL = K.Kernel(
     "fused_bias_attention", "attention.cu", "dsal_cls_attention",
-    [K.P] * 7 + [K.I] * 7 + [K.F, K.I, K.I, K.I, K.P],
+    [K.P] * 8 + [K.I] * 7 + [K.F, K.I, K.I, K.I, K.P],
     replaces="diff_sal_tpu/ops/attention.py:119 fused_bias_attention "
              "(_attn_kernel :62)",
 )
 CLS_BWD_KERNEL = K.Kernel(
     "fused_bias_attention_bwd", "attention_bwd.cu", "dsal_cls_attention_bwd",
-    [K.P] * 16 + [K.I] * 8 + [K.F, K.F, K.I, K.P],
+    [K.P] * 18 + [K.I] * 8 + [K.F, K.F, K.I, K.P],
     replaces="diff_sal_tpu/ops/attention.py:280 _fba_bwd "
              "(_attn_bwd_kernel :193)",
 )
 
+# the f32 instances (csrc/attention_f32.cu; K7's in csrc/cvt_attention.cu):
+# the same TPU kernels, which take f32 as they take bf16
+F32_KERNEL = K.Kernel(
+    "bias_attention_f32", "attention_f32.cu", "dsal_bias_attention_f32",
+    [K.P] * 6 + [K.I] * 8 + [K.F, K.I, K.P], replaces=KERNEL.replaces)
+F32_BWD_KERNEL = K.Kernel(
+    "bias_attention_bwd_f32", "attention_f32.cu", "dsal_bias_attention_bwd_f32",
+    [K.P] * 12 + [K.I] * 9 + [K.F, K.I, K.P], replaces=BWD_KERNEL.replaces)
+CLS_F32_KERNEL = K.Kernel(
+    "fused_bias_attention_f32", "attention_f32.cu", "dsal_cls_attention_f32",
+    [K.P] * 8 + [K.I] * 7 + [K.F, K.I, K.P], replaces=CLS_KERNEL.replaces)
+CLS_F32_BWD_KERNEL = K.Kernel(
+    "fused_bias_attention_bwd_f32", "attention_f32.cu", "dsal_cls_attention_bwd_f32",
+    [K.P] * 16 + [K.I] * 8 + [K.F, K.I, K.P], replaces=CLS_BWD_KERNEL.replaces)
+CVT_F32_KERNEL = K.Kernel(
+    "cvt_attention_f32", "cvt_attention.cu", "dsal_cvt_attention_f32",
+    [K.P] * 4 + [K.I] * 5 + [K.F, K.P], replaces=CVT_KERNEL.replaces)
+F32_KERNELS = (F32_KERNEL, F32_BWD_KERNEL, CLS_F32_KERNEL, CLS_F32_BWD_KERNEL, CVT_F32_KERNEL)
+
 BWD_BLOCK = 64        # rows per CTA and keys per tile of K5 and K12's backward
-BWD_TARGET_CTAS = 264  # two waves of 132 SMs for the k-major part of K5
+BWD_TARGET_CTAS = 264  # two CTAs on each of 132 SMs for the k-major part of K5
+BWD_STAGES = 2        # ring buffers of either backward kernel
+BWD_THREADS = 128     # one warpgroup; its thread 0 issues the loads
+F32_BLOCK = 32        # rows per CTA and keys per tile of the f32 instances
 
 SMEM_MAX = 232_448    # dynamic shared memory one CTA may use on the H100
 NUM_SMS = 132
@@ -202,6 +239,79 @@ def fwd_plan(B: int, H: int, Lq: int, Lk: int, D: int,
                      f"than {SMEM_MAX} bytes of shared memory")
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """Geometry of one K5 / K12 backward launch (`csrc/attention_bwd.cu`).
+
+    Both kernels run `threads` threads per CTA (one warpgroup of `rows`
+    rows) with `stages` ring buffers. The q-major kernel: `q_ctas` CTAs of 64 query rows walking `ntiles` key tiles of
+    `block_n` twice, `smem_q` bytes; its dRel product has N = `bins`. The
+    k-major kernel: `k_ctas` CTAs of 64 keys, each over one of `splits`
+    query splits, `smem_k` bytes. Workspaces: `relp_cols` floats per query
+    row (raw rel terms, 0, -inf, lse, delta), the key tables (`ntiles` E
+    tiles of 64 x `bins` bf16 and 64 key indices) and the split partials."""
+
+    rows: int
+    block_n: int
+    stages: int
+    threads: int
+    bins: int
+    relp_cols: int
+    ntiles: int
+    splits: int
+    q_ctas: int
+    k_ctas: int
+    smem_q: int
+    smem_k: int
+
+
+def _bwd_bins(K: int) -> int:
+    """The bias bins padded to the N of the dRel product (`pad_bins`)."""
+    return 32 if K <= 32 else (48 if K <= 48 else 128)
+
+
+def _relp_cols(K: int) -> int:
+    """Floats per relp row: K raw terms, 0, -inf, lse, delta, padded to 16
+    bytes (`relp_cols`)."""
+    return -(-(K + 4) // 4) * 4
+
+
+def bwd_smem(D: int, K: int) -> Tuple[int, int]:
+    """Dynamic shared memory of the q-major and the k-major backward CTA,
+    as `q_layout` and `k_layout` in csrc/attention_bwd.cu lay them out."""
+    tile = BWD_BLOCK * D * 2
+    st = BWD_STAGES
+    q = (2 * tile + 2 * st * tile + st * BWD_BLOCK * _bwd_bins(K) * 2 + st * BWD_BLOCK * 4
+         + BWD_BLOCK * ((K + 4) | 1) * 4)
+    q = -(-q // 8) * 8 + (st + 1) * 8 + 1024
+    k = 3 * tile + 2 * st * tile + st * BWD_BLOCK * _relp_cols(K) * 4 + (st + 1) * 8 + 1024
+    return q, k
+
+
+@functools.lru_cache(maxsize=None)  # the wrappers ask once per call, with few distinct shapes
+def bwd_plan(B: int, H: int, Lq: int, Lk: int, D: int,
+             k_shape: Tuple[int, int, int]) -> BwdPlan:
+    """The backward's geometry for B batches of H heads (K12: B*heads
+    batches of one head). Raises ValueError on a head_dim, key grid or
+    shared-memory need the kernels do not take."""
+    K = sum(k_shape)
+    if D not in HEAD_DIMS:
+        raise ValueError(f"bias attention backward: head_dim {D} not in {HEAD_DIMS}")
+    if not 1 <= K <= MAX_REL_BWD:
+        raise ValueError(f"bias attention backward: kt+kh+kw = {K} not in 1..{MAX_REL_BWD}")
+    if Lq < 1 or Lk < 1:
+        raise ValueError(f"bias attention backward: Lq {Lq}, Lk {Lk}")
+    smem_q, smem_k = bwd_smem(D, K)
+    if max(smem_q, smem_k) > SMEM_MAX:
+        raise ValueError(f"bias attention backward: head_dim {D}, kt+kh+kw = {K} need more "
+                         f"than {SMEM_MAX} bytes of shared memory")
+    ntiles = -(-Lk // BWD_BLOCK)
+    splits = bwd_splits(B, H, Lq, Lk)
+    return BwdPlan(BWD_BLOCK, BWD_BLOCK, BWD_STAGES, BWD_THREADS, _bwd_bins(K), _relp_cols(K),
+                   ntiles, splits, B * H * -(-Lq // BWD_BLOCK), B * H * ntiles * splits, smem_q,
+                   smem_k)
+
+
 def _shapes(q, k, rel, k_shape, num_heads):
     B, Lq, HD = q.shape
     H = num_heads
@@ -216,9 +326,9 @@ def _shapes(q, k, rel, k_shape, num_heads):
     return B, Lq, H, D, k.shape[1]
 
 
-def _probs(q, k, rel, k_shape, H, scale):
-    """Softmax probabilities (B, H, Lq, Lk) of the biased scores in the
-    accumulation dtype, q*scale rounded in q's dtype first."""
+def _logits(q, k, rel, k_shape, H, scale):
+    """The biased scores (B, H, Lq, Lk) in the accumulation dtype, q*scale
+    rounded in q's dtype first."""
     B, Lq, _, D, Lk = _shapes(q, k, rel, k_shape, H)
     kt, kh, kw = k_shape
     f = K.acc_dtype(q.dtype)
@@ -228,38 +338,49 @@ def _probs(q, k, rel, k_shape, H, scale):
     bias = (r[..., :kt, None, None] + r[..., None, kt:kt + kh, None]
             + r[..., None, None, kt + kh:]).reshape(B, Lq, H, kt * kh * kw)
     bias = torch.nn.functional.pad(bias, (1, 0))  # zero bias for the cls key
-    return torch.softmax(scores + bias.permute(0, 2, 1, 3), dim=-1)
+    return scores + bias.permute(0, 2, 1, 3)
+
+
+def _probs(q, k, rel, k_shape, H, scale):
+    """Softmax probabilities (B, H, Lq, Lk) of the biased scores in the
+    accumulation dtype."""
+    return torch.softmax(_logits(q, k, rel, k_shape, H, scale), dim=-1)
 
 
 def bias_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          rel: torch.Tensor, k_shape: Tuple[int, int, int],
                          num_heads: int, scale: float,
-                         residual: bool = True) -> torch.Tensor:
+                         residual: bool = True, return_lse: bool = False):
     """K1's plain version: materialized f32 scores, the bias broadcast from
     rel, softmax, probabilities rounded to the input dtype before the
     product with v, f32 accumulation, residual added before the final
-    rounding."""
+    rounding. With `return_lse`, also each row's logsumexp of the biased
+    scores, (B, H, Lq) in the accumulation dtype, as the kernel saves it
+    for the backward."""
     B, Lq, H, D, Lk = _shapes(q, k, rel, k_shape, num_heads)
     f = K.acc_dtype(q.dtype)
-    probs = _probs(q, k, rel, k_shape, H, scale)
+    logits = _logits(q, k, rel, k_shape, H, scale)
+    probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhlk,bkhd->blhd", probs.to(q.dtype).to(f),
                        v.reshape(B, Lk, H, D).to(f)).reshape(B, Lq, H * D)
     if residual:
         out = out + q.to(f)
-    return out.to(q.dtype)
+    out = out.to(q.dtype)
+    return (out, torch.logsumexp(logits, dim=-1)) if return_lse else out
 
 
 def bias_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              rel: torch.Tensor, g: torch.Tensor,
                              k_shape: Tuple[int, int, int], num_heads: int,
-                             scale: float, residual: bool = True):
+                             scale: float, residual: bool = True, lse=None):
     """K5's plain version: (dq, dk, dv, drel) of K1 for the output gradient
     g, rounding where the TPU kernel rounds: probabilities recomputed in
     f32, p rounded to q's dtype for dv, ds = p * (dp - rowsum(dp * p)) in
     f32 and rounded for dq and dk, f32 accumulation, dq scaled by `scale`
     (plus g when `residual`), drel = ds summed over the keys sharing each
     t, h and w (the cls key left out) in f32; every output in its input's
-    dtype."""
+    dtype. `lse`, the forward's logsumexp that the kernel reads, is not
+    needed here: the softmax is recomputed whole."""
     B, Lq, H, D, Lk = _shapes(q, k, rel, k_shape, num_heads)
     kt, kh, kw = k_shape
     dt, f = q.dtype, K.acc_dtype(q.dtype)
@@ -308,9 +429,21 @@ def _rounded_scale(scale: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(scale, dtype=dtype))
 
 
+CARD_DTYPES = (torch.bfloat16, torch.float32)  # the instances the card has
+
+
+def _card_dtype(name, q):
+    """q's dtype, if a kernel instance takes it (bf16: the Hopper kernels;
+    f32: the f32 instances), else ValueError."""
+    if q.dtype not in CARD_DTYPES:
+        raise ValueError(f"{name}: q must be bfloat16 or float32 on the card, got {q.dtype}")
+    return q.dtype
+
+
 def _check_cuda_inputs(name, q, k, v, rel, k_shape, num_heads, max_rel, extra=()):
     B, Lq, H, D, Lk = _shapes(q, k, rel, k_shape, num_heads)
-    _check_tensors(name, q.device, [(what, t, torch.bfloat16) for what, t in
+    dt = _card_dtype(name, q)
+    _check_tensors(name, q.device, [(what, t, dt) for what, t in
                                     (("q", q), ("k", k), ("v", v), ("rel", rel)) + tuple(extra)])
     _check_common(name, q, k, v, D, k_shape, max_rel)
     return B, Lq, H, D, Lk
@@ -319,38 +452,78 @@ def _check_cuda_inputs(name, q, k, v, rel, k_shape, num_heads, max_rel, extra=()
 def bias_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        rel: torch.Tensor, k_shape: Tuple[int, int, int],
                        num_heads: int, scale: float,
-                       residual: bool = True) -> torch.Tensor:
-    """Kernel K1 on CUDA (bf16 only), the plain version on the CPU; no
-    autograd."""
+                       residual: bool = True, return_lse: bool = False):
+    """Kernel K1 on CUDA (bf16, or its f32 instance for f32), the plain
+    version on the CPU; no autograd. With `return_lse`, (out, lse): each
+    row's logsumexp (B, H, Lq), f32 from the kernel."""
     if q.device.type == "cpu":
-        return bias_attention_plain(q, k, v, rel, k_shape, num_heads, scale, residual)
+        return bias_attention_plain(q, k, v, rel, k_shape, num_heads, scale, residual,
+                                    return_lse)
     K.require_cuda(q, "bias_attention")
     B, Lq, H, D, Lk = _check_cuda_inputs("bias_attention", q, k, v, rel, k_shape,
                                          num_heads, MAX_REL)
     kt, kh, kw = k_shape
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device) if return_lse else None
+    lse_ptr = lse.data_ptr() if return_lse else None
     scale_q = _rounded_scale(float(scale), q.dtype)
-    plan = fwd_plan(B, H, Lq, Lk, D, tuple(k_shape))
-    KERNEL.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), out.data_ptr(),
-        B, Lq, Lk, H, D, kt, kh, kw, scale_q, int(residual), plan.rows, plan.stages,
-        K.stream(),
-    )
-    return out
+    if q.dtype == torch.float32:
+        if sum(k_shape) > MAX_REL_BWD:
+            raise ValueError(f"bias_attention: kt+kh+kw > {MAX_REL_BWD} in f32")
+        F32_KERNEL.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), out.data_ptr(), lse_ptr,
+            B, Lq, Lk, H, D, kt, kh, kw, scale_q, int(residual), K.stream(),
+        )
+    else:
+        plan = fwd_plan(B, H, Lq, Lk, D, tuple(k_shape))
+        KERNEL.launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), out.data_ptr(), lse_ptr,
+            B, Lq, Lk, H, D, kt, kh, kw, scale_q, int(residual), plan.rows, plan.stages,
+            K.stream(),
+        )
+    return (out, lse) if return_lse else out
 
 
-def bwd_splits(B: int, H: int, Lq: int, Lk: int) -> int:
-    """Number of query splits of K5's k-major part: enough CTAs for two
-    waves on the card, at most one query tile per split."""
-    ctas = B * H * -(-Lk // BWD_BLOCK)
-    return max(1, min(-(-BWD_TARGET_CTAS // ctas), -(-Lq // BWD_BLOCK)))
+def bwd_splits(B: int, H: int, Lq: int, Lk: int, block: int = BWD_BLOCK) -> int:
+    """Number of query splits of the backward's k-major part (`block` keys
+    and query rows per tile: 64, or 32 for the f32 instances): enough CTAs
+    for two on each SM, at most one query tile per split."""
+    ctas = B * H * -(-Lk // block)
+    return max(1, min(-(-BWD_TARGET_CTAS // ctas), -(-Lq // block)))
+
+
+def _bwd_workspaces(q, k, B, H, Lq, Lk, D, k_shape):
+    """(splits, scratch) of the backward kernels, allocated here (the
+    kernels allocate nothing): for bf16 the relp rows, the key tables (E
+    tiles, key indices) and the split partials; for the f32 instances
+    delta and the split partials."""
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if q.dtype == torch.float32:
+        splits = bwd_splits(B, H, Lq, Lk, F32_BLOCK)
+        return splits, (torch.empty((B, H, Lq), **f32),
+                        torch.empty((2, splits) + tuple(k.shape), **f32))
+    plan = bwd_plan(B, H, Lq, Lk, D, tuple(k_shape))
+    return plan.splits, (
+        torch.empty((B * H, Lq, plan.relp_cols), **f32),
+        torch.empty(plan.ntiles * plan.block_n * plan.bins * 2, dtype=torch.uint8,
+                    device=q.device),
+        torch.empty(plan.ntiles * plan.block_n, dtype=torch.int32, device=q.device),
+        torch.empty((2, plan.splits) + tuple(k.shape), **f32))
+
+
+def _check_lse(name, lse, shape, device):
+    if lse is None:
+        raise ValueError(f"{name}: the kernel reads the forward's logsumexp; pass lse=")
+    _check_tensors(name, device, [("lse", lse, torch.float32)])
+    K.check(tuple(lse.shape) == shape, f"{name}: lse {tuple(lse.shape)} != {shape}")
 
 
 def bias_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        rel: torch.Tensor, g: torch.Tensor,
                        k_shape: Tuple[int, int, int], num_heads: int,
-                       scale: float, residual: bool = True):
-    """(dq, dk, dv, drel) of K1: kernel K5 on CUDA (bf16 only), the plain
+                       scale: float, residual: bool = True, lse=None):
+    """(dq, dk, dv, drel) of K1: kernel K5 on CUDA (bf16, or its f32
+    instance for f32; `lse` the forward's (B, H, Lq) logsumexp), the plain
     version on the CPU."""
     if q.device.type == "cpu":
         return bias_attention_bwd_plain(q, k, v, rel, g, k_shape, num_heads, scale, residual)
@@ -358,36 +531,38 @@ def bias_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Lq, H, D, Lk = _check_cuda_inputs("bias_attention_bwd", q, k, v, rel, k_shape,
                                          num_heads, MAX_REL_BWD, (("g", g),))
     K.check(tuple(g.shape) == tuple(q.shape), "bias_attention_bwd: g shape != q shape")
+    _check_lse("bias_attention_bwd", lse, (B, H, Lq), q.device)
     kt, kh, kw = k_shape
-    f32 = dict(dtype=torch.float32, device=q.device)
     dq, drel = torch.empty_like(q), torch.empty_like(rel)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty((B, H, Lq), **f32)
-    delta = torch.empty((B, H, Lq), **f32)
-    splits = bwd_splits(B, H, Lq, Lk)
-    work = torch.empty((2, splits) + tuple(k.shape), **f32)
+    splits, ws = _bwd_workspaces(q, k, B, H, Lq, Lk, D, k_shape)
     scale_q = _rounded_scale(float(scale), q.dtype)
-    BWD_KERNEL.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), drel.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), work.data_ptr(),
-        B, Lq, Lk, H, D, kt, kh, kw, splits, scale_q, float(scale), int(residual),
-        K.stream(),
-    )
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), drel.data_ptr(),
+            *(w.data_ptr() for w in ws))
+    sizes = (B, Lq, Lk, H, D, kt, kh, kw, splits)
+    if q.dtype == torch.float32:
+        F32_BWD_KERNEL.launch(*ptrs, *sizes, scale_q, int(residual), K.stream())
+    else:
+        BWD_KERNEL.launch(*ptrs, *sizes, scale_q, float(scale), int(residual), K.stream())
     return dq, dk, dv, drel
 
 
 class _BiasAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, rel, k_shape, num_heads, scale, residual):
-        ctx.save_for_backward(q, k, v, rel)
         ctx.args = (k_shape, num_heads, scale, residual)
-        return bias_attention_fwd(q, k, v, rel, k_shape, num_heads, scale, residual)
+        if not any(ctx.needs_input_grad[:4]):
+            return bias_attention_fwd(q, k, v, rel, k_shape, num_heads, scale, residual)
+        out, lse = bias_attention_fwd(q, k, v, rel, k_shape, num_heads, scale, residual,
+                                      return_lse=True)
+        ctx.save_for_backward(q, k, v, rel, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, rel = ctx.saved_tensors
-        grads = bias_attention_bwd(q, k, v, rel, g.contiguous(), *ctx.args)
+        q, k, v, rel, lse = ctx.saved_tensors
+        grads = bias_attention_bwd(q, k, v, rel, g.contiguous(), *ctx.args, lse=lse)
         return grads + (None, None, None, None)
 
 
@@ -412,10 +587,10 @@ def _cls_shapes(q, k, rels, k_shape):
     return BH, Lq, D, k.shape[1]
 
 
-def _cls_probs(q, k, rels, k_shape, scale):
-    """K12's softmax probabilities (BH, Lq, Lk) in the accumulation dtype:
-    q*scale rounded in q's dtype, the bias terms summed in f32 (t + h, then
-    + w, as the TPU body's three products add), zero bias for key 0."""
+def _cls_logits(q, k, rels, k_shape, scale):
+    """K12's biased scores (BH, Lq, Lk) in the accumulation dtype: q*scale
+    rounded in q's dtype, the bias terms summed in f32 (t + h, then + w, as
+    the TPU body's three products add), zero bias for key 0."""
     BH, Lq, _, _ = _cls_shapes(q, k, rels, k_shape)
     f = K.acc_dtype(q.dtype)
     qs = q * torch.tensor(scale, dtype=q.dtype)
@@ -423,38 +598,46 @@ def _cls_probs(q, k, rels, k_shape, scale):
     rt, rh, rw = (r.to(f) for r in rels)
     bias = (rt[..., :, None, None] + rh[..., None, :, None]
             + rw[..., None, None, :]).reshape(BH, Lq, -1)
-    return torch.softmax(scores + torch.nn.functional.pad(bias, (1, 0)), dim=-1)
+    return scores + torch.nn.functional.pad(bias, (1, 0))
+
+
+def _cls_probs(q, k, rels, k_shape, scale):
+    """K12's softmax probabilities (BH, Lq, Lk) in the accumulation dtype."""
+    return torch.softmax(_cls_logits(q, k, rels, k_shape, scale), dim=-1)
 
 
 def fused_bias_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                rel_t: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor,
                                k_shape: Tuple[int, int, int], scale: float,
-                               residual: bool = False) -> torch.Tensor:
+                               residual: bool = False, return_lse: bool = False):
     """K12's plain version, rounding where the TPU body rounds: q*scale in
     q's dtype, f32 scores and bias, the softmax normalised in f32 and
     rounded to q's dtype before the product with v (f32 accumulation),
     q added to rows >= 1 in f32 when `residual`, one rounding to q's
-    dtype."""
+    dtype. With `return_lse`, also each row's logsumexp (BH, Lq)."""
     f = K.acc_dtype(q.dtype)
-    p = _cls_probs(q, k, (rel_t, rel_h, rel_w), k_shape, scale)
+    logits = _cls_logits(q, k, (rel_t, rel_h, rel_w), k_shape, scale)
+    p = torch.softmax(logits, dim=-1)
     out = torch.einsum("blk,bkd->bld", p.to(q.dtype).to(f), v.to(f))
     if residual:
         out = torch.cat([out[:, :1], out[:, 1:] + q[:, 1:].to(f)], 1)
-    return out.to(q.dtype)
+    out = out.to(q.dtype)
+    return (out, torch.logsumexp(logits, dim=-1)) if return_lse else out
 
 
 def fused_bias_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                    rel_t: torch.Tensor, rel_h: torch.Tensor,
                                    rel_w: torch.Tensor, g: torch.Tensor,
                                    k_shape: Tuple[int, int, int], scale: float,
-                                   residual: bool = False):
+                                   residual: bool = False, lse=None):
     """K12's backward, plain (JAX `_attn_bwd_kernel`, attention.py:193):
     p recomputed in f32, dv = p_lo^T g, dp = g v^T, ds = p * (dp -
     rowsum(dp * p)) in f32, dq = (ds_lo k) * scale (+ g on rows >= 1 when
     `residual`), dk = (ds_lo^T q) * scale with p_lo and ds_lo rounded to
     q's dtype and f32 accumulation; drel_t/h/w the unrounded ds summed over
     the keys sharing each t, h and w (key 0 left out). Returns (dq, dk,
-    dv, drel_t, drel_h, drel_w), each in its input's dtype."""
+    dv, drel_t, drel_h, drel_w), each in its input's dtype. `lse`, the
+    forward's logsumexp that the kernel reads, is not needed here."""
     kt, kh, kw = k_shape
     dt, f = q.dtype, K.acc_dtype(q.dtype)
     rels = (rel_t, rel_h, rel_w)
@@ -476,9 +659,10 @@ def fused_bias_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
 
 def _check_cls_cuda_inputs(name, q, k, v, rels, k_shape, max_rel, extra=()):
     BH, Lq, D, Lk = _cls_shapes(q, k, rels, k_shape)
-    bf16 = [(what, t, torch.bfloat16) for what, t in (("q", q), ("k", k), ("v", v)) + extra]
+    dt = _card_dtype(name, q)
+    qkv = [(what, t, dt) for what, t in (("q", q), ("k", k), ("v", v)) + extra]
     f32 = [(what, t, torch.float32) for what, t in zip(("rel_t", "rel_h", "rel_w"), rels)]
-    _check_tensors(name, q.device, bf16 + f32)
+    _check_tensors(name, q.device, qkv + f32)
     _check_common(name, q, k, v, D, k_shape, max_rel)
     return BH, Lq, D, Lk
 
@@ -486,33 +670,41 @@ def _check_cls_cuda_inputs(name, q, k, v, rels, k_shape, max_rel, extra=()):
 def fused_bias_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              rel_t: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor,
                              k_shape: Tuple[int, int, int], scale: float,
-                             residual: bool = False) -> torch.Tensor:
-    """Kernel K12 on CUDA (q, k, v bf16, rel f32), the plain version on the
-    CPU; no autograd."""
+                             residual: bool = False, return_lse: bool = False):
+    """Kernel K12 on CUDA (q, k, v bf16, or f32 for its f32 instance; rel
+    f32), the plain version on the CPU; no autograd. With `return_lse`,
+    (out, lse): each row's logsumexp (BH, Lq), f32 from the kernel."""
     if q.device.type == "cpu":
         return fused_bias_attention_plain(q, k, v, rel_t, rel_h, rel_w, k_shape, scale,
-                                          residual)
+                                          residual, return_lse)
     K.require_cuda(q, "fused_bias_attention")
     BH, Lq, D, Lk = _check_cls_cuda_inputs("fused_bias_attention", q, k, v,
                                            (rel_t, rel_h, rel_w), k_shape, MAX_REL)
     kt, kh, kw = k_shape
     out = torch.empty_like(q)
-    plan = fwd_plan(BH, 1, Lq, Lk, D, tuple(k_shape))
-    CLS_KERNEL.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_t.data_ptr(), rel_h.data_ptr(),
-        rel_w.data_ptr(), out.data_ptr(), BH, Lq, Lk, D, kt, kh, kw,
-        _rounded_scale(float(scale), q.dtype), int(residual), plan.rows, plan.stages,
-        K.stream(),
-    )
-    return out
+    lse = torch.empty((BH, Lq), dtype=torch.float32, device=q.device) if return_lse else None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_t.data_ptr(), rel_h.data_ptr(),
+            rel_w.data_ptr(), out.data_ptr(), lse.data_ptr() if return_lse else None)
+    scale_q = _rounded_scale(float(scale), q.dtype)
+    if q.dtype == torch.float32:
+        if sum(k_shape) > MAX_REL_BWD:
+            raise ValueError(f"fused_bias_attention: kt+kh+kw > {MAX_REL_BWD} in f32")
+        CLS_F32_KERNEL.launch(*ptrs, BH, Lq, Lk, D, kt, kh, kw, scale_q, int(residual),
+                              K.stream())
+    else:
+        plan = fwd_plan(BH, 1, Lq, Lk, D, tuple(k_shape))
+        CLS_KERNEL.launch(*ptrs, BH, Lq, Lk, D, kt, kh, kw, scale_q, int(residual), plan.rows,
+                          plan.stages, K.stream())
+    return (out, lse) if return_lse else out
 
 
 def fused_bias_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              rel_t: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor,
                              g: torch.Tensor, k_shape: Tuple[int, int, int], scale: float,
-                             residual: bool = False):
+                             residual: bool = False, lse=None):
     """(dq, dk, dv, drel_t, drel_h, drel_w) of K12: its backward kernel on
-    CUDA (bf16 q, k, v, g; f32 rel and d-rel), the plain version on the
+    CUDA (q, k, v, g bf16, or f32 for the f32 instance; f32 rel and d-rel;
+    `lse` the forward's (BH, Lq) logsumexp), the plain version on the
     CPU."""
     if q.device.type == "cpu":
         return fused_bias_attention_bwd_plain(q, k, v, rel_t, rel_h, rel_w, g, k_shape, scale,
@@ -522,33 +714,39 @@ def fused_bias_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     BH, Lq, D, Lk = _check_cls_cuda_inputs("fused_bias_attention_bwd", q, k, v, rels, k_shape,
                                            MAX_REL_BWD, (("g", g),))
     K.check(tuple(g.shape) == tuple(q.shape), "fused_bias_attention_bwd: g shape != q shape")
+    _check_lse("fused_bias_attention_bwd", lse, (BH, Lq), q.device)
     kt, kh, kw = k_shape
-    f32 = dict(dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     drels = [torch.empty_like(r) for r in rels]
-    lse, delta = torch.empty((BH, Lq), **f32), torch.empty((BH, Lq), **f32)
-    splits = bwd_splits(BH, 1, Lq, Lk)
-    work = torch.empty((2, splits) + tuple(k.shape), **f32)
-    CLS_BWD_KERNEL.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), *(r.data_ptr() for r in rels), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *(d.data_ptr() for d in drels),
-        lse.data_ptr(), delta.data_ptr(), work.data_ptr(),
-        BH, Lq, Lk, D, kt, kh, kw, splits, _rounded_scale(float(scale), q.dtype),
-        float(scale), int(residual), K.stream(),
-    )
+    splits, ws = _bwd_workspaces(q, k, BH, 1, Lq, Lk, D, k_shape)
+    scale_q = _rounded_scale(float(scale), q.dtype)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *(r.data_ptr() for r in rels),
+            g.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *(d.data_ptr() for d in drels), *(w.data_ptr() for w in ws))
+    sizes = (BH, Lq, Lk, D, kt, kh, kw, splits)
+    if q.dtype == torch.float32:
+        CLS_F32_BWD_KERNEL.launch(*ptrs, *sizes, scale_q, int(residual), K.stream())
+    else:
+        CLS_BWD_KERNEL.launch(*ptrs, *sizes, scale_q, float(scale), int(residual), K.stream())
     return (dq, dk, dv, *drels)
 
 
 class _FusedBiasAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, rel_t, rel_h, rel_w, k_shape, scale, residual):
-        ctx.save_for_backward(q, k, v, rel_t, rel_h, rel_w)
         ctx.args = (k_shape, scale, residual)
-        return fused_bias_attention_fwd(q, k, v, rel_t, rel_h, rel_w, k_shape, scale, residual)
+        if not any(ctx.needs_input_grad[:6]):
+            return fused_bias_attention_fwd(q, k, v, rel_t, rel_h, rel_w, k_shape, scale,
+                                            residual)
+        out, lse = fused_bias_attention_fwd(q, k, v, rel_t, rel_h, rel_w, k_shape, scale,
+                                            residual, return_lse=True)
+        ctx.save_for_backward(q, k, v, rel_t, rel_h, rel_w, lse)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        grads = fused_bias_attention_bwd(*ctx.saved_tensors, g.contiguous(), *ctx.args)
+        *ins, lse = ctx.saved_tensors
+        grads = fused_bias_attention_bwd(*ins, g.contiguous(), *ctx.args, lse=lse)
         return grads + (None, None, None)
 
 
@@ -582,10 +780,11 @@ def reference_cvt_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def cvt_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         num_heads: int, scale: float) -> torch.Tensor:
     """softmax(q k^T * scale) v per head for q (Bt, L, C) and k, v (Bt, S,
-    C): kernel K7 on CUDA (bf16), the plain version on the CPU. Eval only.
-    The C entry refuses, and `launch` raises on, what its tiles do not hold:
-    S outside 1..128, head_dim not a multiple of 16, or k and v beyond one
-    CTA's shared memory."""
+    C): kernel K7 on CUDA (bf16, or its f32 instance for f32), the plain
+    version on the CPU. Eval only. The C entry refuses, and `launch` raises
+    on, what its tiles do not hold: S outside 1..128, head_dim not a
+    multiple of 16 (bf16) or above 384 (f32), or k and v beyond one CTA's
+    shared memory."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("cvt_cross_attention (kernel K7) is eval-only and has no "
                            "backward; call it under torch.no_grad() or take the einsum path")
@@ -597,15 +796,12 @@ def cvt_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K.check(tuple(k.shape) == (Bt, S, C) and tuple(v.shape) == (Bt, S, C),
             f"cvt_cross_attention: k {tuple(k.shape)}, v {tuple(v.shape)} for q "
             f"{tuple(q.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        K.check(t.dtype == torch.bfloat16, f"cvt_cross_attention: {name} must be bf16, "
-                                           f"got {t.dtype}")
-        K.check(t.device == q.device and t.is_contiguous() and t.data_ptr() % 16 == 0,
-                f"cvt_cross_attention: {name} must be contiguous, 16-byte aligned, on "
-                f"{q.device}")
+    dt = _card_dtype("cvt_cross_attention", q)
+    _check_tensors("cvt_cross_attention", q.device, [("q", q, dt), ("k", k, dt), ("v", v, dt)])
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    CVT_KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), Bt, L, S, C,
-                      num_heads, float(scale), K.stream())
+    kern = CVT_F32_KERNEL if dt == torch.float32 else CVT_KERNEL
+    kern.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), Bt, L, S, C,
+                num_heads, float(scale), K.stream())
     return out

@@ -2,10 +2,12 @@
 
 Each kernel is a plain C entry point in one CUDA C++ source under
 `diff_sal_tpu_torch/csrc/` (a source may hold several: K1 and K12 share
-`attention.cu`, K5 and K12's backward `attention_bwd.cu`, K4 and K10
-`resize.cu`). Each source is compiled with nvcc for `sm_90a` into one
-shared library, named by the source and the hash of its text, in
-`diff_sal_tpu_torch/_build/` (git-ignored), and loaded with ctypes.
+`attention.cu`, K5 and K12's backward `attention_bwd.cu`, the f32
+instances of all four `attention_f32.cu`, K4 and K10 `resize.cu`). Each
+source is compiled with nvcc for `sm_90a` into one shared library, named
+by the source and the hash of its text and of the local headers it
+includes (`#include "hopper.cuh"`), in `diff_sal_tpu_torch/_build/`
+(git-ignored), and loaded with ctypes.
 Nothing is compiled when a module is imported: the first CUDA launch
 builds its library, and `build_all()` builds every library at once with
 one nvcc per source, all started together.
@@ -23,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -86,7 +89,11 @@ class Kernel:
         return CSRC_DIR / self.source
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source_path.read_bytes())
+        text = self.source_path.read_bytes()
+        digest = hashlib.sha256(text)
+        # an edited header rebuilds every source that includes it
+        for header in sorted(set(re.findall(rb'#include "([^"]+)"', text))):
+            digest.update((CSRC_DIR / header.decode()).read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source_path.stem}-{digest.hexdigest()[:16]}.so"
 
@@ -157,7 +164,8 @@ def registry() -> Dict[str, Kernel]:
                                 resize.KERNEL, attention.BWD_KERNEL,
                                 layernorm.BWD_KERNEL, attention.CVT_KERNEL,
                                 resize.CONV_KERNEL, resize.PHASE_KERNEL, resize.ADD_KERNEL,
-                                pool.KERNEL, attention.CLS_KERNEL, attention.CLS_BWD_KERNEL)}
+                                pool.KERNEL, attention.CLS_KERNEL, attention.CLS_BWD_KERNEL,
+                                *attention.F32_KERNELS, mlp.F32_KERNEL)}
 
 
 def build_all() -> Dict[str, float]:

@@ -18,6 +18,14 @@ memory). The weights are read from L2 by every CTA rather than held
 resident; the TPU kernel's "weights too big" fallback has no counterpart
 here, since one kernel serves all four decoder widths (C = 96..768).
 
+An f32 model runs K3's f32 instance (`dsal_block_tail_f32` in the same
+source): the same tail with every product in f32 by FFMA on the CUDA
+cores, 16 rows per CTA, w1 and w2 staged through shared memory in slices
+(`f32_smem` gives its plan, within one CTA's shared memory for every
+width up to MAX_C). The JAX K3 takes f32 too, falling back to its
+reference where f32 weights exceed its VMEM budget; here one instance
+serves every width.
+
 K3 has no backward, in the JAX package or here: the decoder takes it only
 at eval (JAX `sal_unet.py:387-391`, `fused_tail and not train`) and runs
 the module path when training. `block_tail` raises when grad mode is on
@@ -37,8 +45,22 @@ KERNEL = K.Kernel(
     replaces="diff_sal_tpu/ops/mlp.py:132 fused_block_tail (_tail_kernel :47)",
 )
 
+F32_KERNEL = K.Kernel(
+    "block_tail_f32", "mlp.cu", "dsal_block_tail_f32",
+    [K.P] * 9 + [K.I] * 3 + [K.F, K.I, K.P], replaces=KERNEL.replaces,
+)
+
 ACT_MODES = ("tanh", "exact")
 MAX_C = 768
+F32_ROWS, F32_CHUNK = 16, 64  # rows per CTA and hidden units per chunk of the f32 instance
+SMEM_MAX = 232_448
+
+
+def f32_smem(C: int) -> int:
+    """Shared memory of one f32-instance CTA (`smem_f32` in csrc/mlp.cu):
+    LN(y) and a w2 slice (16 x C floats each), the hidden chunk (16 x 64)
+    and a w1 slice (32 x 64)."""
+    return (2 * F32_ROWS * C + F32_ROWS * F32_CHUNK + 32 * F32_CHUNK) * 4
 
 
 def gelu(h: torch.Tensor, mode: str) -> torch.Tensor:
@@ -72,7 +94,7 @@ def block_tail(skip: torch.Tensor, attn: torch.Tensor, ln_w: torch.Tensor,
                act_mode: str = "tanh") -> torch.Tensor:
     """skip/attn (R, C); w1 (Hd, C), w2 (C, Hd) in the compute dtype; LN
     and bias vectors any float dtype. Kernel K3 on CUDA (bf16 rows and
-    weights), the plain version on the CPU."""
+    weights, or its f32 instance for f32), the plain version on the CPU."""
     if act_mode not in ACT_MODES:
         raise ValueError(f"unknown activation mode {act_mode!r}")
     args = (skip, attn, ln_w, ln_b, w1, b1, w2, b2)
@@ -87,10 +109,14 @@ def block_tail(skip: torch.Tensor, attn: torch.Tensor, ln_w: torch.Tensor,
     K.check(tuple(attn.shape) == (R, C), "block_tail: attn shape != skip shape")
     K.check(tuple(w1.shape) == (Hd, C) and tuple(w2.shape) == (C, Hd),
             f"block_tail: w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)} for C={C}")
-    K.check(C % 16 == 0 and Hd % 64 == 0 and C <= MAX_C,
-            f"block_tail: needs C % 16 == 0, C <= {MAX_C}, Hd % 64 == 0 (C={C}, Hd={Hd})")
+    dt = skip.dtype
+    K.check(dt in (torch.bfloat16, torch.float32),
+            f"block_tail: skip must be bfloat16 or float32 on the card, got {dt}")
+    mult = 32 if dt == torch.float32 else 16
+    K.check(C % mult == 0 and Hd % 64 == 0 and C <= MAX_C,
+            f"block_tail: needs C % {mult} == 0, C <= {MAX_C}, Hd % 64 == 0 (C={C}, Hd={Hd})")
     for name, t in (("skip", skip), ("attn", attn), ("w1", w1), ("w2", w2)):
-        K.check(t.dtype == torch.bfloat16, f"block_tail: {name} must be bf16, got {t.dtype}")
+        K.check(t.dtype == dt, f"block_tail: {name} must be {dt}, got {t.dtype}")
         K.check(t.device == skip.device and t.is_contiguous(),
                 f"block_tail: {name} must be contiguous, on {skip.device}")
     # the kernel loads weight fragments straight from global memory
@@ -100,7 +126,7 @@ def block_tail(skip: torch.Tensor, attn: torch.Tensor, ln_w: torch.Tensor,
     out = torch.empty_like(skip)
     if R == 0:
         return out
-    KERNEL.launch(
+    (F32_KERNEL if dt == torch.float32 else KERNEL).launch(
         skip.data_ptr(), attn.data_ptr(), *[p.data_ptr() for p in vecs[:2]], w1.data_ptr(),
         vecs[2].data_ptr(), w2.data_ptr(), vecs[3].data_ptr(), out.data_ptr(), R, C, Hd,
         float(eps), ACT_MODES.index(act_mode), K.stream(),

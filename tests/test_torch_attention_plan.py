@@ -109,3 +109,79 @@ def test_plan_mirrors_the_kernel_source():
     for entry in ("dsal_bias_attention", "dsal_cls_attention"):
         sig = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", src).group(1)
         assert [a.split()[-1] for a in sig.split(",")][-3:] == ["rows", "stages", "stream"]
+
+
+# ---------------------------------------------------------------- backward ---
+
+BWD_CSRC = CSRC.parent / "attention_bwd.cu"
+BWD_CASES = [(B, layout, H, Lq, ks, D) for B, layout, H, Lq, ks in CASES for D in (64, 96, 128)]
+BWD_IDS = [f"{i}-D{D}" for i, (*_, D) in zip([i for i in IDS for _ in range(3)], BWD_CASES)]
+
+
+def _bwd_launch(B, layout, H, Lq, ks, D):
+    """(batches, heads, Lq, Lk, plan) as the backward wrapper of that layout
+    calls it."""
+    Lk = 1 + ks[0] * ks[1] * ks[2]
+    if layout == "k12":
+        B, H, Lq = B * H, 1, Lq + 1
+    return B, H, Lq, Lk, t_attn.bwd_plan(B, H, Lq, Lk, D, ks)
+
+
+@pytest.mark.parametrize("B,layout,H,Lq,ks,D", BWD_CASES, ids=BWD_IDS)
+def test_bwd_plan_fits_a_cta(B, layout, H, Lq, ks, D):
+    """Both backward kernels' shared memory fits one CTA (227 KB), as the
+    source lays it out, with the launch bound's 128 threads; at MViT's
+    head_dim 96 two CTAs fit on an SM."""
+    *_, Lk, plan = _bwd_launch(B, layout, H, Lq, ks, D)
+    assert (plan.smem_q, plan.smem_k) == t_attn.bwd_smem(D, sum(ks))
+    assert max(plan.smem_q, plan.smem_k) <= 232_448
+    assert plan.threads == 128 and plan.rows == plan.block_n == 64 and plan.stages == 2
+    assert plan.bins >= sum(ks) and plan.bins % 16 == 0
+    assert plan.relp_cols >= sum(ks) + 4 and plan.relp_cols % 4 == 0
+    if D == 96:  # two CTAs per SM: 228 KB less 1 KB reserved per CTA
+        assert max(plan.smem_q, plan.smem_k) + 1024 <= 233_472 // 2
+
+
+@pytest.mark.parametrize("B,layout,H,Lq,ks,D", BWD_CASES, ids=BWD_IDS)
+def test_bwd_grids_cover_every_row_and_key(B, layout, H, Lq, ks, D):
+    """The q-major grid covers every query row once; the k-major grid every
+    key once per split, and the splits (as `bwd_splits` gives them) every
+    query tile once."""
+    B, H, Lq, Lk, plan = _bwd_launch(B, layout, H, Lq, ks, D)
+    q_tiles = -(-Lq // plan.rows)
+    assert plan.q_ctas == B * H * q_tiles and (q_tiles - 1) * plan.rows < Lq
+    assert plan.ntiles == -(-Lk // plan.block_n) and (plan.ntiles - 1) * 64 < Lk
+    assert plan.splits == t_attn.bwd_splits(B, H, Lq, Lk)
+    assert plan.k_ctas == B * H * plan.ntiles * plan.splits
+    n_qt = -(-Lq // plan.block_n)
+    per = -(-n_qt // plan.splits)  # the kernel's split of the query tiles
+    seen = np.zeros(n_qt, np.int32)
+    for split in range(plan.splits):
+        seen[split * per:min(n_qt, (split + 1) * per)] += 1
+    assert (seen == 1).all()
+    # enough CTAs for the card, unless every split already holds one tile
+    assert plan.k_ctas >= 132 or plan.splits == n_qt
+
+
+@pytest.mark.parametrize("D,ks", [(80, (8, 7, 12)), (96, (60, 40, 29)), (64, (0, 0, 0))])
+def test_bwd_plan_refuses_what_the_kernels_do_not_take(D, ks):
+    with pytest.raises(ValueError):
+        t_attn.bwd_plan(2, 1, 100, 1 + max(1, ks[0] * ks[1] * ks[2]), D, ks)
+
+
+def test_bwd_plan_mirrors_the_kernel_source():
+    """What the plan shares with csrc/attention_bwd.cu: the shared-memory
+    limit, the tile, the stages, the threads per CTA and the padding of the
+    bias bins and relp rows."""
+    src = BWD_CSRC.read_text()
+    consts = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert consts["SMEM_MAX"] == str(t_attn.SMEM_MAX)
+    assert consts["BM"] == consts["BN"] == str(t_attn.BWD_BLOCK)
+    assert consts["STAGES"] == str(t_attn.BWD_STAGES)
+    assert consts["NTHREADS"] == str(t_attn.BWD_THREADS)
+    assert "return K <= 32 ? 32 : (K <= 48 ? 48 : 128);" in src
+    assert "return (K + 4 + 3) / 4 * 4;" in src and "return (K + 4) | 1;" in src
+    for K, bins, cols in ((8, 32, 12), (27, 32, 32), (46, 48, 52), (49, 128, 56),
+                          (128, 128, 132)):
+        plan = t_attn.bwd_plan(2, 1, 100, 1 + (K - 2), 96, (K - 2, 1, 1))
+        assert (plan.bins, plan.relp_cols) == (bins, cols)

@@ -14,7 +14,9 @@ magnitude. In f32 the difference is the order of f32 sums: 1e-5; K6's
 parameter gradients sum ~1000 rows in another order: 1e-4 relative. K12's
 f32 bias gradients come from dS as bf16 hi + lo parts on the tensor cores
 (~16 mantissa bits) and p recomputed from the row logsumexp: they are held
-to the bf16 bound too.
+to the bf16 bound too. The attention backward kernels read the forward's
+logsumexp, so each test takes it from the forward kernel first. The f32
+instances (f32 models) are held to 1e-5 like every f32 kernel.
 """
 
 import dataclasses
@@ -175,8 +177,9 @@ def test_bias_attention_bwd_kernel(card, Lq, k_shape, H, residual):
     q, k, v, go = (_randn(g, B, n, H * D) for n in (Lq, Lk, Lk, Lq))
     rel = _randn(g, B, Lq, H, kt + kh + kw, scale=0.5)
     args = (q, k, v, rel, go, k_shape, H, D ** -0.5, residual)
+    lse = t_attn.bias_attention_fwd(q, k, v, rel, k_shape, H, D ** -0.5, return_lse=True)[1]
     before = t_attn.BWD_KERNEL.launches
-    got = t_attn.bias_attention_bwd(*args)
+    got = t_attn.bias_attention_bwd(*args, lse=lse)
     assert t_attn.BWD_KERNEL.launches == before + 1
     ref = t_attn.bias_attention_bwd_plain(*args)
     for name, a, b in zip(("dq", "dk", "dv", "drel"), got, ref):
@@ -241,8 +244,8 @@ def test_kernels_refuse_what_they_do_not_take(card):
     q = _randn(g, 1, 10, 96, dtype=torch.float32)
     k = _randn(g, 1, 5, 96, dtype=torch.float32)
     rel = _randn(g, 1, 10, 1, 5, dtype=torch.float32)
-    with pytest.raises(ValueError):  # K1 takes bf16 only
-        t_attn.bias_attention(q, k, k, rel, (1, 2, 2), 1, 0.1)
+    with pytest.raises(ValueError):  # K1 takes bf16 and f32 (its f32 instance), not f16
+        t_attn.bias_attention(q.half(), k.half(), k.half(), rel.half(), (1, 2, 2), 1, 0.1)
     with pytest.raises(ValueError):  # non-contiguous rows
         t_ln.layer_norm(_randn(g, 8, 64)[:, ::2], torch.ones(32), torch.zeros(32))
 
@@ -462,8 +465,8 @@ def test_eval_only_kernels_raise_under_grad(card):
 
 def test_new_kernels_refuse_what_they_do_not_take(card):
     g = torch.Generator().manual_seed(9)
-    with pytest.raises(ValueError):  # K7 takes bf16 only
-        t_attn.cvt_cross_attention(*(_randn(g, 1, n, 64, dtype=torch.float32)
+    with pytest.raises(ValueError):  # K7 takes bf16 and f32 (its f32 instance), not f16
+        t_attn.cvt_cross_attention(*(_randn(g, 1, n, 64, dtype=torch.float16)
                                      for n in (8, 2, 2)), 2, 0.125)
     with pytest.raises(K.KernelLaunchError):  # K7: more keys than the TPU kernel takes
         t_attn.cvt_cross_attention(_randn(g, 1, 8, 64), _randn(g, 1, 129, 64),
@@ -535,8 +538,10 @@ def test_fused_bias_attention_bwd_kernel(card, BH, Lq, k_shape, residual):
     q, k, v, rels = _k12_args(g, BH, Lq, k_shape)
     go = _randn(g, *q.shape)
     args = (q, k, v, *rels, go, k_shape, 96 ** -0.5, residual)
+    lse = t_attn.fused_bias_attention_fwd(q, k, v, *rels, k_shape, 96 ** -0.5, residual,
+                                          return_lse=True)[1]
     before = t_attn.CLS_BWD_KERNEL.launches
-    got = t_attn.fused_bias_attention_bwd(*args)
+    got = t_attn.fused_bias_attention_bwd(*args, lse=lse)
     assert t_attn.CLS_BWD_KERNEL.launches == before + 1
     ref = t_attn.fused_bias_attention_bwd_plain(*args)
     for name, a, b in zip(("dq", "dk", "dv", "drel_t", "drel_h", "drel_w"), got, ref):
@@ -598,7 +603,7 @@ def test_k10_k12_record_a_backward_or_raise(card):
     assert K.launch_counts()["fused_bias_attention_bwd"] == 1
     for t in ins + [acc, x]:
         assert t.grad is not None and t.grad.dtype == t.dtype and bool(torch.isfinite(t.grad).all())
-    with pytest.raises(ValueError):  # K12 takes bf16 q, k, v
+    with pytest.raises(ValueError):  # K12 takes q, k, v of one dtype
         t_attn.fused_bias_attention_fwd(q.detach().float(), k.detach(), v.detach(),
                                         *(r.detach() for r in rels), (1, 3, 4), 0.125)
     with pytest.raises(ValueError):  # and f32 bias terms
@@ -646,3 +651,204 @@ def test_tiny_mvit_launches_follow_the_layout(card, cls_stream):
     assert fwd["layer_norm"] == 7 * L + len(cfg.out_scales), fwd
     assert (fwd["depthwise_pool3d"] > 0) == cls_stream, fwd
     assert all(torch.isfinite(o.float()).all() for o in outs)
+
+
+# ------------------------------- the attention backward (wgmma, TMA) -------
+
+
+def _bwd_case(layout, H, Lq, k_shape, seed, dtype=torch.bfloat16, B=2):
+    """Inputs, the plain and the kernel backward of K5 (cls stream) or K12
+    (token concat, B*H batches of one head, the cls row at row 0)."""
+    g = torch.Generator().manual_seed(seed)
+    scale = 96 ** -0.5
+    if layout == "k1":
+        Lk = 1 + k_shape[0] * k_shape[1] * k_shape[2]
+        q, k, v, go = (_randn(g, B, n, H * 96, dtype=dtype) for n in (Lq, Lk, Lk, Lq))
+        rel = _randn(g, B, Lq, H, sum(k_shape), dtype=dtype, scale=0.5)
+        ins = (q, k, v, rel)
+        fwd, bwd, plain = t_attn.bias_attention_fwd, t_attn.bias_attention_bwd, \
+            t_attn.bias_attention_bwd_plain
+        extra = (k_shape, H, scale)
+    else:
+        q, k, v, rels = _k12_args(g, B * H, Lq + 1, k_shape)
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        go = _randn(g, *q.shape, dtype=dtype)
+        ins = (q, k, v, *rels)
+        fwd, bwd, plain = t_attn.fused_bias_attention_fwd, t_attn.fused_bias_attention_bwd, \
+            t_attn.fused_bias_attention_bwd_plain
+        extra = (k_shape, scale)
+    return ins, go, extra, fwd, bwd, plain
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("layout", ["k1", "k12"])
+@pytest.mark.parametrize("H,Lq,k_shape", MVIT_BLOCKS)
+def test_attention_bwd_kernel_block_shapes(card, H, Lq, k_shape, layout, residual):
+    """K5 and K12's backward at every MViT block shape (B=2, full Lq: Lq a
+    multiple of 64 for K5 and one more for K12; Lk = 673 ends in a 33-key
+    tile), against their plain versions, with the forward kernel's
+    logsumexp."""
+    ins, go, extra, fwd, bwd, plain = _bwd_case(layout, H, Lq, k_shape, Lq + H)
+    lse = fwd(*ins, *extra, residual, return_lse=True)[1]
+    kern = t_attn.BWD_KERNEL if layout == "k1" else t_attn.CLS_BWD_KERNEL
+    before = kern.launches
+    got = bwd(*ins, go, *extra, residual, lse=lse)
+    assert kern.launches == before + 1
+    ref = plain(*ins, go, *extra, residual)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert a.shape == b.shape and a.dtype == b.dtype, i
+        _close_bf16(a, b)
+
+
+@pytest.mark.parametrize("layout", ["k1", "k12"])
+@pytest.mark.parametrize("H,Lq,k_shape", [(1, 43008, (8, 7, 12)), (2, 10752, (8, 14, 24))])
+def test_attention_bwd_kernel_is_deterministic(card, H, Lq, k_shape, layout):
+    """No atomics: two runs on the same inputs give the same bits."""
+    ins, go, extra, fwd, bwd, _ = _bwd_case(layout, H, Lq, k_shape, 5)
+    lse = fwd(*ins, *extra, True, return_lse=True)[1]
+    a = bwd(*ins, go, *extra, True, lse=lse)
+    b = bwd(*ins, go, *extra, True, lse=lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_forward_lse_matches_the_plain_logsumexp(card):
+    """The forward kernel's saved logsumexp against the plain scores', in
+    both layouts (f32; ex2.approx in the kernel)."""
+    g = torch.Generator().manual_seed(21)
+    q, k, v = (_randn(g, 2, n, 192) for n in (1000, 673, 673))
+    rel = _randn(g, 2, 1000, 2, 27, scale=0.5)
+    _, lse = t_attn.bias_attention_fwd(q, k, v, rel, (8, 7, 12), 2, 96 ** -0.5, return_lse=True)
+    _, ref = t_attn.bias_attention_plain(q, k, v, rel, (8, 7, 12), 2, 96 ** -0.5,
+                                         return_lse=True)
+    torch.testing.assert_close(lse, ref, atol=1e-4, rtol=1e-5)
+    q, k, v, rels = _k12_args(g, 4, 701, (8, 14, 24))
+    _, lse = t_attn.fused_bias_attention_fwd(q, k, v, *rels, (8, 14, 24), 96 ** -0.5,
+                                             return_lse=True)
+    _, ref = t_attn.fused_bias_attention_plain(q, k, v, *rels, (8, 14, 24), 96 ** -0.5,
+                                               return_lse=True)
+    torch.testing.assert_close(lse, ref, atol=1e-4, rtol=1e-5)
+
+
+# ------------------------------------------------------ the f32 instances ---
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("layout", ["k1", "k12"])
+@pytest.mark.parametrize("H,Lq,k_shape", [(1, 1000, (8, 7, 12)), (2, 333, (8, 14, 24)),
+                                          (8, 96, (2, 3, 4))])
+def test_attention_f32_kernels(card, H, Lq, k_shape, layout, residual):
+    """The f32 instances of K1 / K12 forward and of their backward against
+    the plain versions at f32 (1e-5), at MViT's key grids with Lq ragged
+    against the 32-row tiles, and a small grid with eight heads."""
+    ins, go, extra, fwd, bwd, plain = _bwd_case(layout, H, Lq, k_shape, Lq, torch.float32)
+    plain_fwd = t_attn.bias_attention_plain if layout == "k1" else t_attn.fused_bias_attention_plain
+    kerns = ((t_attn.F32_KERNEL, t_attn.F32_BWD_KERNEL) if layout == "k1"
+             else (t_attn.CLS_F32_KERNEL, t_attn.CLS_F32_BWD_KERNEL))
+    before = [k.launches for k in kerns]
+    out, lse = fwd(*ins, *extra, residual, return_lse=True)
+    ref_out, ref_lse = plain_fwd(*ins, *extra, residual, return_lse=True)
+    _check(out, ref_out, torch.float32)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-6)
+    got = bwd(*ins, go, *extra, residual, lse=lse)
+    assert [k.launches for k in kerns] == [n + 1 for n in before]
+    for i, (a, b) in enumerate(zip(got, plain(*ins, go, *extra, residual))):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32, i
+        _check(a, b, torch.float32)
+
+
+@pytest.mark.parametrize("C,R", [(768, 840), (384, 337), (192, 1000), (96, 50)])
+def test_block_tail_f32_kernel(card, C, R):
+    """K3's f32 instance at the decoder's four widths (R ragged against
+    the 16-row CTA)."""
+    g = torch.Generator().manual_seed(C + R)
+    f = torch.float32
+    Hd = 2 * C
+    skip, attn = _randn(g, R, C, dtype=f), _randn(g, R, C, dtype=f)
+    lw, lb = _randn(g, C, dtype=f) + 1, _randn(g, C, dtype=f, scale=0.1)
+    w1, b1 = _randn(g, Hd, C, dtype=f, scale=C ** -0.5), _randn(g, Hd, dtype=f, scale=0.1)
+    w2, b2 = _randn(g, C, Hd, dtype=f, scale=Hd ** -0.5), _randn(g, C, dtype=f, scale=0.1)
+    args = (skip, attn, lw, lb, w1, b1, w2, b2, 1e-6, "tanh")
+    before = t_mlp.F32_KERNEL.launches
+    out = t_mlp.block_tail(*args)
+    assert t_mlp.F32_KERNEL.launches == before + 1
+    _check(out, t_mlp.block_tail_plain(*args), f)
+
+
+@pytest.mark.parametrize("L,S,C,heads", [(84, 18, 768, 2), (5376, 18, 96, 2), (77, 128, 96, 3),
+                                         (130, 33, 64, 2)])
+def test_cvt_attention_f32_kernel(card, L, S, C, heads):
+    """K7's f32 instance at the decoder's coarsest and finest stage and at
+    ragged sizes (128 keys, three heads)."""
+    g = torch.Generator().manual_seed(L + S)
+    f = torch.float32
+    q, k, v = _randn(g, 2, L, C, dtype=f), _randn(g, 2, S, C, dtype=f), _randn(g, 2, S, C, dtype=f)
+    before = t_attn.CVT_F32_KERNEL.launches
+    out = t_attn.cvt_cross_attention(q, k, v, heads, C ** -0.5)
+    assert t_attn.CVT_F32_KERNEL.launches == before + 1
+    _check(out, t_attn.reference_cvt_attention(q, k, v, heads, C ** -0.5), f)
+
+
+@pytest.mark.parametrize("cls_stream", [True, False])
+def test_small_av_model_f32_on_card_matches_cpu(card, cls_stream):
+    """The whole port in f32 (both packages' default) at the small AV size,
+    in both MViT layouts: through the kernels' f32 instances on the card
+    against the plain versions on the CPU, same weights and noise. The map
+    within 1e-4 (PERF.md's per-network f32 tolerance), and one training
+    step's gradients within 1e-2 relative L2 per tensor (two f32
+    implementations at random weights differ by ~1e-3, PERF.md)."""
+    from diff_sal_tpu_torch.config import (AudioAttnConfig, DataTransformConfig,
+                                           ExperimentConfig, ModelConfig, MViTConfig,
+                                           SalUNetConfig, SamplingConfig, VGGishConfig)
+    from diff_sal_tpu_torch.diffusion.schedule import make_schedule
+    from diff_sal_tpu_torch.inference import sample_saliency
+    from diff_sal_tpu_torch.models.diff_model import VideoSaliencyModel, build_model
+    from diff_sal_tpu_torch.train.optim import make_optimizer
+    from diff_sal_tpu_torch.train.train_step import make_train_step
+
+    hw = (128, 96)
+    cfg = ModelConfig(visual=MViTConfig.tiny(spatial_size=hw, cls_stream=cls_stream),
+                      audio=VGGishConfig(), spatiotemp=AudioAttnConfig(),
+                      decoder=SalUNetConfig(img_size=hw, dropout=0.0, drop_path_rate=(0.0,) * 4))
+    g = torch.Generator().manual_seed(7)
+    rgb, audio = torch.randn(2, 16, *hw, 3, generator=g), torch.randn(2, 9, 64, 48, 1, generator=g)
+    noise = torch.randn(2, *hw, 1, generator=g)
+    args = (make_schedule(), SamplingConfig(), DataTransformConfig())
+    cpu = build_model(cfg, 8, device="cpu")
+    ref = sample_saliency(cpu, *args, rgb, audio, noise=noise)
+    gpu = VideoSaliencyModel(cfg).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(card)
+    K.reset_launch_counts()
+    out = sample_saliency(gpu, *args, rgb.to(card), audio.to(card), noise=noise)
+    counts = K.launch_counts()
+    attn = "bias_attention_f32" if cls_stream else "fused_bias_attention_f32"
+    assert counts[attn] > 0 and counts["block_tail_f32"] > 0, counts
+    assert counts["bias_attention"] == counts["fused_bias_attention"] == 0, counts
+    assert float((out.cpu() - ref).abs().max()) <= 1e-4
+
+    sd = cpu.state_dict()
+    batch = {"rgb": rgb, "salmap": torch.rand(2, *hw, 1, generator=g), "audio": audio}
+    draws = {"deq": torch.randn(2, *hw, 1, generator=g), "noise": torch.randn(2, *hw, 1, generator=g),
+             "t": torch.tensor(300)}
+
+    def step(device):
+        m = VideoSaliencyModel(cfg).train()
+        m.load_state_dict(sd)
+        m.to(device)
+        ecfg = ExperimentConfig(model=cfg)
+        met = make_train_step(m, make_schedule(), ecfg)(make_optimizer(m, ecfg.optim, 10, 2),
+                                                         batch, draws=draws)
+        return float(met["total"]), {n: p.grad.cpu() for n, p in m.named_parameters()
+                                     if p.grad is not None}
+
+    l_cpu, g_cpu = step("cpu")
+    K.reset_launch_counts()
+    l_card, g_card = step(card)
+    assert K.launch_counts()[attn.replace("_f32", "_bwd_f32")] > 0
+    assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+    assert set(g_card) == set(g_cpu)
+    top = max(float(t.abs().max()) for t in g_cpu.values())
+    for n, ref_g in g_cpu.items():
+        if float(ref_g.abs().max()) > 1e-6 * top:
+            assert float((g_card[n] - ref_g).norm() / ref_g.norm()) <= 1e-2, n
