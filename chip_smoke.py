@@ -22,13 +22,18 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
   4. each kernel against its plain version on exactly the recorded inputs
      (working dtype, stated tolerance), with the kernel, the plain version,
      the one PyTorch call that computes the same function where there is
-     one, and the least time the card could take (bytes over 3.35 TB/s or
-     operations over the peak rate of their type, whichever is larger),
-     and for K1 (K12 forward in phase 9; K5 and K12 backward where they
-     are held) one line per MViT block shape with the kernel's and SDPA's
-     ms per call, the share of the bound and the launch plan (forward:
-     rows per CTA, keys per tile, stages, shared memory; backward: query
-     splits, q-major and k-major CTAs and their shared memory);
+     one, each timed by CUDA events, the kernel's and the library call's
+     device time under torch.profiler (every kernel, memcpy and memset the
+     call issues, each recorded call run once: `device_ms`,
+     `library_device_ms`), and the least time the card could take (bytes
+     over 3.35 TB/s or operations over the peak rate of their type,
+     whichever is larger); for K1 (K12 forward in phase 9; K5 and K12
+     backward where they are held) one line per MViT block shape with the
+     kernel's and SDPA's ms per call, device time, the share of the bound
+     and the launch plan (forward: rows per CTA, keys per tile, stages,
+     shared memory; backward: query splits, q-major and k-major CTAs and
+     their shared memory), and for K2 and K3 one line per (rows, C) with
+     the device time per call, the bound per call and the share of it;
      then K10, which no model path calls: the four recorded task maps added
      one by one into a zero accumulator (launches counted in that run),
      against K4's sum of the same maps and each call against K10's plain
@@ -428,10 +433,79 @@ def _tolerance(name: str, i: int, ref: torch.Tensor, args):
     return TOL[ref.dtype]
 
 
+# device_ms's sessions: how many ran, how many lost events in their
+# prologue (absorbed there), and how many were run again
+DEVICE_MS_TALLY = {"sessions": 0, "prologue_lost": 0, "retried": 0}
+PROLOGUE_SPINS = 8
+
+
+def device_ms(thunks, attempts: int = 24):
+    """The profiler's device time (ms) of the thunks, each run once: the sum
+    over every CUDA kernel, memcpy and memset they issue, so a cast or a
+    workspace fill inside a wrapper counts against its kernel. On the card
+    the tracer loses the first device events of a session now and then: the
+    first three, or all of them. So a session first gives it a prologue to
+    lose, ~1 ms of spinning (`torch.cuda._sleep`) and PROLOGUE_SPINS short
+    spins, waited for; then it runs the thunks three times, each pass
+    followed by a short spin on the same stream, and one more spin after.
+    Counted back from that last pair, the second pass is summed when its
+    window and the third's hold the same number of events; else the session
+    is run again. Returns (ms, number of device events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        DEVICE_MS_TALLY["sessions"] += 1
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.2)
+            torch.cuda._sleep(2_000_000)
+            for _ in range(PROLOGUE_SPINS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(3):
+                for f in thunks:
+                    f()
+                torch.cuda._sleep(1000)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA and e.time_range.start >= 0),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+        if len(marks) < PROLOGUE_SPINS + 5:
+            DEVICE_MS_TALLY["prologue_lost"] += 1
+        if len(marks) >= 4 and marks[-1] == marks[-2] + 1:
+            second = events[marks[-4] + 1:marks[-3]]
+            if second and len(second) == marks[-2] - marks[-3] - 1:
+                return sum(e.time_range.elapsed_us() for e in second) / 1e3, len(second)
+        DEVICE_MS_TALLY["retried"] += 1
+        log(f"[device time] the profiler dropped events ({len(marks)} of "
+            f"{PROLOGUE_SPINS + 5} spins traced); measuring again")
+    raise AssertionError(f"the profiler dropped events in {attempts} sessions in a row")
+
+
+def shape_key(name, args):
+    """The calls of a kernel grouped for the per-shape lines: attention by
+    (q shape, k shape, launch plan), LayerNorm by (rows, C, bulk path), the
+    block tail by (R, C); other kernels form one group."""
+    base = name.removesuffix("_f32")
+    if name in ATTENTION:
+        return tuple(args[0].shape), tuple(args[1].shape), attention_plan(name, args)
+    if base == "layer_norm":  # and whether the bulk path takes it (else the row kernel)
+        x = args[0]
+        C = x.shape[-1]
+        return x.numel() // C, C, C * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
+    if base == "block_tail":
+        return tuple(args[0].shape)
+    return None
+
+
 def hold_kernels(names, recorders, plain, counts, profile=False):
     """Each recorded call of each kernel against its plain version, with
-    the kernel's, the plain version's and the library call's times and the
-    least time the card could take; returns the `kernels` rows. With
+    the kernel's, the plain version's and the library call's times (CUDA
+    events, and the profiler's device time) and the least time the card
+    could take; returns the `kernels` rows. Per shape group (`shape_key`)
+    one line of ms per call, device time and share of the bound. With
     `profile`, also the device time of each attention kernel's recorded
     calls by CUDA kernel (the backward is four)."""
     from diff_sal_tpu_torch.ops import kernels
@@ -443,7 +517,9 @@ def hold_kernels(names, recorders, plain, counts, profile=False):
         err = kern_ms = plain_ms = lib_ms = 0.0
         t_bytes = t_ops = 0.0
         has_lib = False
-        per_shape = {}  # attention: (q, k shape, plan) -> [calls, ms, library ms, bound ms]
+        # shape key -> calls, kernel thunks, library thunks, event ms, library
+        # event ms, bound ms
+        groups = {}
         for args, kw in rec.calls:
             got = _outputs(rec.fn(*args, **kw))
             ref = _outputs(plain[name](*args, **kw))
@@ -456,7 +532,12 @@ def hold_kernels(names, recorders, plain, counts, profile=False):
                     f"{name}: kernel output {i} disagrees with its plain version at shape "
                     f"{tuple(a.shape)}: max|d| {float(diff.max()):.3e}")
                 err = max(err, float(diff.max()))
-            call_ms = cuda_ms(lambda: rec.fn(*args, **kw))
+            del got, ref
+
+            def call(args=args, kw=kw):
+                rec.fn(*args, **kw)
+
+            call_ms = cuda_ms(call)
             kern_ms += call_ms
             plain_ms += cuda_ms(lambda: plain[name](*args, **kw), reps=3, warmup=1)
             lib = library_call(name, args, kw)
@@ -468,14 +549,25 @@ def hold_kernels(names, recorders, plain, counts, profile=False):
             nbytes, ops = bound_terms(name, args, kw)
             t_bytes += nbytes / HBM_BYTES_PER_S * 1e3
             t_ops += sum(n / peak for n, peak in ops) * 1e3
-            if name in ATTENTION:
-                acc = per_shape.setdefault((tuple(args[0].shape), tuple(args[1].shape),
-                                            attention_plan(name, args)), [0, 0.0, 0.0, 0.0])
-                acc[0] += 1
-                acc[1] += call_ms
-                acc[2] += call_lib or 0.0
-                acc[3] += max(nbytes / HBM_BYTES_PER_S, sum(n / p for n, p in ops)) * 1e3
+            g = groups.setdefault(shape_key(name, args), [0, [], [], 0.0, 0.0, 0.0])
+            g[0] += 1
+            g[1].append(call)
+            if lib is not None:
+                g[2].append(lib)
+            g[3] += call_ms
+            g[4] += call_lib or 0.0
+            g[5] += max(nbytes / HBM_BYTES_PER_S, sum(n / p for n, p in ops)) * 1e3
+        dev_ms = lib_dev_ms = 0.0
+        dev_events = 0
+        for key, g in groups.items():
+            ms, n_ev = device_ms(g[1])
+            lms = device_ms(g[2])[0] if g[2] else None
+            g.extend([ms, lms])
+            dev_ms += ms
+            dev_events += n_ev
+            lib_dev_ms += lms or 0.0
         kern = kernels.registry()[name]
+        bound = max(t_bytes, t_ops)
         rows.append({
             "name": name,
             "route": "cuda",
@@ -485,14 +577,18 @@ def hold_kernels(names, recorders, plain, counts, profile=False):
             "max_abs_err": err,
             "ms": kern_ms,
             "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
+            "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms if has_lib else None,
+            "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms if has_lib else None,
         })
         log(f"[kernel {name}] {len(rec.calls)} calls per run: kernel {kern_ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, library {lib_ms if has_lib else None}, "
-            f"bound {max(t_bytes, t_ops):.3f} ms (bytes {t_bytes:.3f}, ops {t_ops:.3f}), "
-            f"max|d| {err:.3e}")
+            f"bound {bound:.3f} ms (bytes {t_bytes:.3f}, ops {t_ops:.3f}), "
+            f"max|d| {err:.3e}; device (profiler) kernel {dev_ms:.4f} ms ({dev_events} device "
+            f"events), library {lib_dev_ms if has_lib else None}, "
+            f"{100.0 * bound / dev_ms:.1f}% of bound by device time")
         if profile and name in ATTENTION:
             from torch.profiler import ProfilerActivity
             from torch.profiler import profile as profiler
@@ -504,10 +600,20 @@ def hold_kernels(names, recorders, plain, counts, profile=False):
             log(f"[profile {name}] the {len(rec.calls)} recorded calls once, device time by "
                 "CUDA kernel")
             log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=8))
-        for (qs, ks, plan), (n, ms, lms, bound) in per_shape.items():
-            log(f"[block {name}] q {qs} k {ks} plan {plan}: {n} calls, kernel {ms / n:.4f} ms, "
-                f"SDPA {lms / n:.4f} ms, bound {bound / n:.4f} ms (operations), "
-                f"{100.0 * bound / ms:.1f}% of bound, SDPA / kernel {lms / ms:.2f}")
+        for key, (n, _, _, ms, lms, bound, dms, ldms) in groups.items():
+            if name in ATTENTION:
+                qs, ks, plan = key
+                log(f"[block {name}] q {qs} k {ks} plan {plan}: {n} calls, kernel {ms / n:.4f} "
+                    f"ms, SDPA {lms / n:.4f} ms, bound {bound / n:.4f} ms (operations), "
+                    f"{100.0 * bound / ms:.1f}% of bound, SDPA / kernel {lms / ms:.2f}; device "
+                    f"{1e3 * dms / n:.2f} us per call ({100.0 * bound / dms:.1f}% of bound), "
+                    f"SDPA {1e3 * ldms / n if ldms else 0.0:.2f} us")
+            elif key is not None:
+                lib_us = f"{1e3 * ldms / n:.2f} us" if ldms is not None else "none"
+                log(f"[shape {name}] (rows, C{', bulk' if len(key) == 3 else ''}) {key}: {n} calls, device {1e3 * dms / n:.2f} us "
+                    f"per call, bound {1e3 * bound / n:.2f} us per call, "
+                    f"{100.0 * bound / dms:.1f}% of bound; events {ms / n:.4f} ms per call; "
+                    f"library device {lib_us} per call")
         rec.calls.clear()
     return rows
 
@@ -1106,10 +1212,11 @@ def main() -> int:
     logs = {k.source: k.build_log for k in kernels.registry().values()}
     for source, text in logs.items():
         for line in text.splitlines():
-            # the forward attention's lines also name each instance (head_dim, consumer
-            # warpgroups) and its shared memory
-            if ("Used" in line or "spill" in line
-                    or (source == "attention.cu" and "entry function" in line)):
+            # the forward attention's, K2's and K3's lines also name each template
+            # instance; a warning line (C7514, C7512: wgmma serialised) is kept
+            if ("Used" in line or "spill" in line or "warning" in line
+                    or (source in ("attention.cu", "layernorm.cu", "mlp.cu")
+                        and "entry function" in line)):
                 log(f"[ptxas {source}] {line.strip()}")
 
     # -- phase 3: main path -----------------------------------------------
@@ -1374,6 +1481,7 @@ def main() -> int:
     rows += f32_phase(dev, schedule, data_cfg, recorders, plain)
     log(f"[f32] phase {time.perf_counter() - t0:.1f} s")
 
+    log("[device time] profiler sessions " + json.dumps(DEVICE_MS_TALLY))
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

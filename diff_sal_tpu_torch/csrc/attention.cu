@@ -291,7 +291,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, ui
     for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * p.scale);
     *ptr = vec;
   }
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  fence_async_smem();
   named_sync(1, NC * 128);
 
   const int r0 = warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
@@ -405,7 +405,7 @@ __global__ void __launch_bounds__((NC + 1) * 128, 1)
       mbar_init(bars + 8 * (3 * p.stages + s), NC * 128);        // V empty
     }
     mbar_init(qbar, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
 

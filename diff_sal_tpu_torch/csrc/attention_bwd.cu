@@ -128,22 +128,6 @@ __host__ __device__ inline KSmem k_layout(int D, int K) {
 
 // -------------------------------------------------------------- helpers ---
 
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
-          "r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// shared-memory matrix descriptor without swizzle (layout type 0), K-major:
-// 8 x 16-byte core matrices, lbo bytes apart along K, sbo bytes apart along N
-__device__ __forceinline__ uint64_t plain_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((saddr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
-}
-
 // a = bf16(x) (two values per register) and b = bf16(x - a): the hi and lo
 // parts of two f32 values
 __device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
@@ -307,7 +291,7 @@ __device__ __forceinline__ void dq_consumer(const QParams<R>& p, unsigned char* 
     for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * p.scale_q);
     *ptr = vec;
   }
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  fence_async_smem();
   __syncthreads();
 
   const float* rel0 = rel + r0 * LD;
@@ -471,7 +455,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s <= STAGES; ++s) mbar_init(bars + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
   if (threadIdx.x == 0) {  // Q, G and the first key tiles
@@ -525,7 +509,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   if (t == 0) {
     for (int s = 0; s <= STAGES; ++s) mbar_init(bars + 8 * s, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_mbar_init();
   }
   __syncthreads();
   if (t == 0) {  // K and V of this key block, and the first query tiles
@@ -567,7 +551,7 @@ __global__ void __launch_bounds__(NTHREADS, 2)
       for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * p.scale_q);
       *reinterpret_cast<uint4*>(smem + L.qs + i * 16) = vec;
     }
-    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    fence_async_smem();
     __syncthreads();
     reg_fence(sc);
     reg_fence(dp);

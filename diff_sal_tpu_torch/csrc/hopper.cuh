@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the attention kernels (csrc/attention.cu,
-// csrc/attention_bwd.cu): mbarriers, TMA loads and tensor maps, wgmma
+// csrc/attention_bwd.cu), LayerNorm (csrc/layernorm.cu) and the block tail
+// (csrc/mlp.cu): mbarriers, bulk copies, TMA loads and tensor maps, wgmma
 // wrappers and shared-memory matrix descriptors. Each including source is
 // its own library; ops/kernels.py hashes this header with each of them, so
-// an edit here rebuilds both.
+// an edit here rebuilds them all.
 
 #pragma once
 
@@ -58,6 +59,27 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// generic-proxy writes to shared memory made visible to the async proxy
+// (wgmma operands, bulk copies into a buffer the threads read)
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
@@ -94,6 +116,14 @@ __device__ __forceinline__ void reg_fence(uint32_t (&d)[M][N]) {
 __device__ __forceinline__ uint64_t sw64_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((saddr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
+}
+
+// shared-memory matrix descriptor without swizzle (layout type 0), K-major:
+// 8 x 16-byte core matrices, lbo bytes apart along K, sbo bytes apart along
+// M or N
+__device__ __forceinline__ uint64_t plain_desc(uint32_t saddr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((saddr >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
 }
 
 __device__ __forceinline__ float ex2(float x) {

@@ -1,25 +1,55 @@
-// K3: fused transformer-block tail,
+// K3: fused transformer-block tail, written for Hopper (sm_90a),
 //   y = skip + attn;  out = y + fc2(gelu(fc1(LayerNorm(y))))
 //
 // Replaces the TPU kernel diff_sal_tpu/ops/mlp.py:132 fused_block_tail (body
-// _tail_kernel :47). At the decoder's widths (C = 96..768, hidden Hd = 2C)
-// the tail is bound by operations, so both products run on the tensor cores
-// (WMMA, bf16 in, f32 accumulation), and the (R, Hd) hidden activation never
-// reaches device memory ("flash-MLP"):
-//   1. a CTA of eight warps owns BR = 32 rows; each warp takes four rows,
-//      computes y = skip + attn and its LayerNorm in f32 (warp shuffles) and
-//      stores LN(y) in shared memory as bf16;
-//   2. the hidden axis is walked in chunks of 64: the eight warps compute the
-//      32x64 chunk h = LN(y) w1[chunk]^T (one 16x16 fragment each), add b1 and
-//      apply GELU in f32, round to bf16 in shared memory, then every warp adds
-//      h w2[:, chunk]^T into its own output fragments, which stay in registers
-//      for the whole walk (warp w owns row half w & 1 and column blocks
-//      (w >> 1) + 4i, at most 12 fragments for C = 768);
-//   3. each fragment is staged through shared memory and written as
-//      bf16(y + out + b2), with y re-read from skip and attn.
-// Weight fragments are loaded straight from global memory (L2-resident:
-// 2.4 MB per matrix at C = 768) instead of being held in shared memory.
-// Rows past R are zero and are not written.
+// _tail_kernel :47). Rounding as the TPU kernel: y and LN(y) in f32, LN(y)
+// rounded to bf16 for fc1, h = LN(y) w1^T + b1 and GELU (tanh or exact) in
+// f32, rounded to bf16 for fc2, f32 accumulation, out = bf16(y + (h w2^T +
+// b2)). The (R, Hd) hidden activation never reaches device memory.
+//
+// Bound by operations at the decoder's widths (8 R C^2 flops with Hd = 2C
+// against three (R, C) row passes; the bytes bound only at C = 96). What
+// held the old WMMA kernel back: weight fragments read from L2 by every warp
+// for every 16x16 block, 32-row CTAs (about 42 of them at C = 768 for 132
+// SMs) each walking all 24 hidden chunks. The design:
+// - A CTA owns BM = 64 rows. Its threads compute y and LN(y) in f32 and
+//   store LN(y) as bf16 in shared memory, K-major without swizzle (8x8 core
+//   matrices): the A operand of the first product.
+// - Every product is a wgmma (bf16 in, f32 accumulated in registers):
+//   h = LN(y) w1[chunk]^T, m64n64k16 with A and B from shared memory, over
+//   hidden chunks of 64; then h + b1 and GELU in registers, rounded to bf16
+//   straight into the A fragments of out += GELU(h) w2[cols, chunk]^T
+//   (m64n64k16, A from registers).
+// - Weights by TMA. w1 and w2 are read as 64x64 tiles (two 32-column boxes,
+//   64-byte swizzle, the layout the wgmma descriptors name) into a ring of
+//   8 KB buffers behind mbarriers; thread 0 of each consumer warpgroup keeps
+//   its part of the ring full (one or two hidden chunks ahead), so loads are
+//   in flight while the tensor cores work. One product group stays in
+//   flight while the next tile's group is issued.
+// - The accumulator does not fit: 64 rows x 768 columns of f32 are 384
+//   registers a thread. A CTA owns NT <= 4 output tiles of 64 columns (at
+//   most 128 accumulator registers a thread); `col_splits` CTAs cover C and
+//   each recomputes h for its rows (C = 768: three splits).
+// - One warpgroup issuing one chain of m64n64k16 products reached about a
+//   quarter of the tensor-core peak on the H100, and where the CTAs are about
+//   one per SM that chain was the kernel's time. There NW = 2 consumer
+//   warpgroups share the CTA's rows and LN(y) and split its hidden chunks,
+//   each with its own half of the ring; their partial sums meet in shared
+//   memory before the epilogue. Where CTAs are
+//   many (C <= 192 at the decoder's rows), one warpgroup and a 4-buffer ring
+//   let several CTAs share an SM instead.
+// - Filling the card at small R: where the row tiles and column splits leave
+//   more than half of the SMs idle (C = 768: R = 840-1344 gives 42-63 CTAs),
+//   `k_splits` CTAs share the hidden axis. Each writes its f32 partial sum to
+//   a workspace and a second kernel adds the splits in a fixed order with y
+//   and b2: no atomics, so two runs give the same bits.
+// - The epilogue stages the f32 sums in the shared memory of LN(y) and the
+//   ring, then every thread reads y and writes the output as 16-byte
+//   vectors along rows.
+// `tail_plan` in ops/mlp.py chooses nt, the splits, the warpgroups and the
+// stages and mirrors the shared memory (`tail_smem`); the entry refuses a
+// plan that does not fit. C must be a multiple of 32 (a w1 tile of one or
+// two boxes), Hd of 64. Rows past R are zero and are not written.
 //
 // The f32 instance (`dsal_block_tail_f32`, the tail of an f32 model, which
 // the JAX K3 takes as well) computes every product in f32 by FFMA on the
@@ -30,34 +60,14 @@
 // h w2[:, chunk]^T with w2 staged in 16-unit slices (thread: every 256th
 // output column of all 16 rows, in registers). Its shared memory, 16 * C +
 // 16 * 64 + 32 * 64 + 16 * C floats, is 110.6 KB at C = 768 (`f32_smem` in
-// ops/mlp.py checks it for every C up to MAX_C).
+// ops/mlp.py checks it for every C up to MAXC).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BR = 32;     // rows per CTA
-constexpr int HC = 64;     // hidden chunk
-constexpr int NW = 8;      // warps
-constexpr int NT = NW * 32;
+constexpr int HC = 64;     // hidden units per chunk (both instances)
 constexpr int MAXC = 768;
-constexpr int MAXF = MAXC / 16 / 4;  // output column blocks per warp (12)
-constexpr int MAXV = MAXC / 32;      // LayerNorm values per lane (24)
-constexpr int LDH = HC + 4;          // f32 hidden chunk
-constexpr int LDHB = HC + 8;         // bf16 hidden chunk
-
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~size_t(127); }
-
-__host__ __device__ inline size_t smem_bytes(int C) {
-  return align128((size_t)BR * (C + 8) * 2) + align128((size_t)BR * LDH * 4) +
-         align128((size_t)BR * LDHB * 2);
-}
 
 __device__ __forceinline__ float gelu(float h, int mode) {
   if (mode == 0) {
@@ -67,129 +77,330 @@ __device__ __forceinline__ float gelu(float h, int mode) {
   return 0.5f * h * (1.f + erff(h * 0.7071067811865476f));
 }
 
-__global__ void __launch_bounds__(NT) block_tail_kernel(
-    const bf16* __restrict__ skip, const bf16* __restrict__ attn,
-    const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-    const bf16* __restrict__ w1, const float* __restrict__ b1,
-    const bf16* __restrict__ w2, const float* __restrict__ b2, bf16* __restrict__ out,
-    int R, int C, int Hd, float eps, int act) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldx = C + 8;
-  bf16* Xn = reinterpret_cast<bf16*>(smem);
-  float* Hs = reinterpret_cast<float*>(smem + align128((size_t)BR * ldx * 2));
-  bf16* Hb = reinterpret_cast<bf16*>(smem + align128((size_t)BR * ldx * 2) +
-                                     align128((size_t)BR * LDH * 4));
+// ------------------------------------------------------------ bf16 (K3) ---
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long row0 = (long long)blockIdx.x * BR;
+constexpr int BM = 64;           // rows per CTA: one warpgroup, one wgmma M
+constexpr int BOX = 64 * 64;     // one TMA box: 64 rows x 32 bf16 columns (bytes)
+constexpr int TILE = 2 * BOX;    // one ring buffer: a 64 x 64 weight tile
+constexpr int MAX_NT = 4;        // 64-column output tiles per CTA
+constexpr int MAX_STAGES = 8;
+constexpr int MAX_KSPLIT = 8;
+constexpr int SMEM_MAX = 232448;
 
-  // 1. y and LN(y), four rows per warp
-  for (int rr = 0; rr < BR / NW; ++rr) {
-    const int r = warp * (BR / NW) + rr;
-    const long long row = row0 + r;
-    if (row < R) {
-      const bf16* sp = skip + row * C;
-      const bf16* ap = attn + row * C;
-      float v[MAXV];
-      float s = 0.f, ss = 0.f;
+// LN(y) (BM x C bf16), the ring, its mbarriers and 1024 bytes to align the
+// base. Mirrored by `tail_smem` in ops/mlp.py.
+__host__ __device__ inline int tail_smem(int C, int stages) {
+  return BM * C * 2 + stages * (TILE + 8) + 1024;
+}
+
+struct TailArgs {
+  const bf16* skip;
+  const bf16* attn;
+  const float* ln_w;
+  const float* ln_b;
+  const float* b1;
+  const float* b2;
+  bf16* out;
+  float* ws;  // (k_splits, R, C) f32 partial sums, or null with one split
+  int R, C, chunks, stages;  // chunks: hidden chunks of one split
+  float eps;
+  int act;
+};
+
+// y = skip + attn at 8 channels from element `off`, in f32
+__device__ __forceinline__ void load_y(const TailArgs& a, size_t off, float (&y)[8]) {
+  const uint4 s = *reinterpret_cast<const uint4*>(a.skip + off);
+  const uint4 t = *reinterpret_cast<const uint4*>(a.attn + off);
+  const __nv_bfloat162* sp = reinterpret_cast<const __nv_bfloat162*>(&s);
+  const __nv_bfloat162* tp = reinterpret_cast<const __nv_bfloat162*>(&t);
 #pragma unroll
-      for (int i = 0; i < MAXV; ++i) {
-        const int c = lane + 32 * i;
-        v[i] = c < C ? __bfloat162float(sp[c]) + __bfloat162float(ap[c]) : 0.f;
-        s += v[i];
-        ss += v[i] * v[i];
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-        ss += __shfl_xor_sync(0xffffffffu, ss, off);
-      }
-      const float mean = s / C;
-      const float rs = rsqrtf(fmaxf(ss / C - mean * mean, 0.f) + eps);
-#pragma unroll
-      for (int i = 0; i < MAXV; ++i) {
-        const int c = lane + 32 * i;
-        if (c < C) Xn[r * ldx + c] = __float2bfloat16((v[i] - mean) * rs * ln_w[c] + ln_b[c]);
-      }
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(sp[i]), v = __bfloat1622float2(tp[i]);
+    y[2 * i] = u.x + v.x;
+    y[2 * i + 1] = u.y + v.y;
+  }
+}
+
+// The CTA (blockIdx.x, y, z) owns rows 64 x, output columns [64 NT y, +64 NT)
+// and hidden chunks [chunks z, +chunks), shared by its NW consumer
+// warpgroups: warpgroup w takes the chunks [half w, half (w + 1)) and ring
+// buffers [S w, S (w + 1)) (S = stages / NW), its thread 0 issues its
+// loads. A warpgroup's tiles, in the order it consumes them, per hidden
+// chunk: the C / (32 KB) w1 tiles (hidden x input columns), then the NT w2
+// tiles (output columns x hidden). With two warpgroups the second adds its
+// partial sums to the first's through shared memory before the epilogue.
+template <int NT, int KB, int NW>
+__global__ void __launch_bounds__(NW * 128, 1)
+    block_tail_kernel(const __grid_constant__ CUtensorMap tw1,
+                      const __grid_constant__ CUtensorMap tw2, const TailArgs a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t xn = smem_u32(smem), ring0 = xn + BM * a.C * 2, bars0 = ring0 + a.stages * TILE;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127, warp = t >> 5, lane = tid & 31;
+  const int row0 = blockIdx.x * BM, n0 = blockIdx.y * NT * 64, hbase = blockIdx.z * a.chunks * HC;
+  const int kt1 = a.C / (32 * KB), per_chunk = kt1 + NT;
+  const int half = (a.chunks + NW - 1) / NW, c0 = wg * half;
+  const int nch = max(0, min(half, a.chunks - c0));  // this warpgroup's chunks
+  const int S = a.stages / NW, total = nch * per_chunk;
+  const uint32_t ring = ring0 + wg * S * TILE, bars = bars0 + 8 * wg * S;
+
+  // tile q of this warpgroup into its ring buffer q % S
+  auto issue = [&](int q) {
+    const int slot = q % S, c = q / per_chunk, i = q - c * per_chunk;
+    const uint32_t dst = ring + slot * TILE, bar = bars + 8 * slot;
+    const int h0 = hbase + (c0 + c) * HC;
+    if (i < kt1) {
+      mbar_expect_tx(bar, KB * BOX);
+      for (int x = 0; x < KB; ++x) tma_load(dst + x * BOX, &tw1, bar, (i * KB + x) * 32, h0, 0);
     } else {
-      for (int c = lane; c < C; c += 32) Xn[r * ldx + c] = __float2bfloat16(0.f);
+      mbar_expect_tx(bar, TILE);
+      for (int x = 0; x < 2; ++x) tma_load(dst + x * BOX, &tw2, bar, h0 + 32 * x, n0 + (i - kt1) * 64, 0);
     }
+  };
+  // the product reading tile q is complete in every thread of the
+  // warpgroup: its thread 0 refills the buffer with tile q + S
+  auto release = [&](int q) {
+    named_sync(1 + wg, 128);
+    if (t == 0 && q + S < total) issue(q + S);
+  };
+  auto wait_tile = [&](int q) { mbar_wait(bars + 8 * (q % S), (q / S) & 1); };
+
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) mbar_init(bars0 + 8 * s, 1);
+    fence_mbar_init();
   }
   __syncthreads();
+  if (t == 0)
+    for (int q = 0; q < S && q < total; ++q) issue(q);
 
-  const int rf = warp & 1;         // row half of this warp's output fragments
-  const int cf0 = warp >> 1;       // first output column block
-  const int ncf = C / 16;          // output column blocks
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[MAXF];
+  // y and LN(y) of the CTA's rows (zeros past R) while the first tiles
+  // load. A warp takes 8 rows at a time, four lanes per row, 8 channels a
+  // lane per step: the sums in one pass, the normalised row in a second
+  // (from L1). LN(y) element (r, k) lands at (k / 16) 2048 + (r / 8) 256 +
+  // (k / 8 % 2) 128 + (r % 8) 16 + (k % 8) 2: the eight lanes of a store
+  // phase write eight rows of one core matrix, no bank conflicts.
+  const int nv = a.C / 8;
+  for (int pass = 0; pass < 2 / NW; ++pass) {
+    const int r = (tid >> 5) * (16 / NW) + pass * 8 + (lane & 7), row = row0 + r;
+    const bool live = row < a.R;
+    const size_t base = (size_t)(live ? row : 0) * a.C;
+    float s = 0.f, ss = 0.f;
+    if (live)
+      for (int j = lane >> 3; j < nv; j += 4) {
+        float y[8];
+        load_y(a, base + 8 * j, y);
 #pragma unroll
-  for (int i = 0; i < MAXF; ++i) wmma::fill_fragment(acc[i], 0.f);
-
-  for (int hc0 = 0; hc0 < Hd; hc0 += HC) {
-    // 2a. one 16x16 block of h = LN(y) w1[chunk]^T per warp
-    {
-      const int hf = warp >> 1;  // hidden column block within the chunk
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc;
-      wmma::fill_fragment(hacc, 0.f);
-      for (int kk = 0; kk < C / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, Xn + rf * 16 * ldx + kk * 16, ldx);
-        wmma::load_matrix_sync(b, w1 + (size_t)(hc0 + hf * 16) * C + kk * 16, C);
-        wmma::mma_sync(hacc, a, b, hacc);
+        for (int e = 0; e < 8; ++e) {
+          s += y[e];
+          ss += y[e] * y[e];
+        }
       }
-      wmma::store_matrix_sync(Hs + rf * 16 * LDH + hf * 16, hacc, LDH, wmma::mem_row_major);
+    s += __shfl_xor_sync(0xffffffffu, s, 8);
+    s += __shfl_xor_sync(0xffffffffu, s, 16);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 8);
+    ss += __shfl_xor_sync(0xffffffffu, ss, 16);
+    const float mean = s / a.C;
+    const float rs = rsqrtf(fmaxf(ss / a.C - mean * mean, 0.f) + a.eps);
+    for (int j = lane >> 3; j < nv; j += 4) {
+      float y[8];
+      if (live) {
+        load_y(a, base + 8 * j, y);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          y[e] = (y[e] - mean) * rs * a.ln_w[8 * j + e] + a.ln_b[8 * j + e];
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) y[e] = 0.f;
+      }
+      const int k = 8 * j;
+      *reinterpret_cast<uint4*>(smem + (k >> 4) * 2048 + (r >> 3) * 256 + ((k >> 3) & 1) * 128 +
+                                (r & 7) * 16) =
+          make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
+                     pack_bf16(y[6], y[7]));
     }
-    __syncthreads();
-    // 2b. bias + GELU in f32, rounded to bf16
-    for (int i = tid; i < BR * HC; i += NT) {
-      const int r = i / HC, c = i % HC;
-      Hb[r * LDHB + c] = __float2bfloat16(gelu(Hs[r * LDH + c] + b1[hc0 + c], act));
+  }
+  fence_async_smem();
+  __syncthreads();
+
+  float acc[NT][32];
+#pragma unroll
+  for (int u = 0; u < NT; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[u][i] = 0.f;
+  const int r0 = warp * 16 + (lane >> 2), cb = 2 * (lane & 3);  // rows r0, r0 + 8
+  float h[32];
+  uint32_t pa[4][4];
+  int q = 0;
+  for (int c = 0; c < nch; ++c) {
+    // h = LN(y) w1[chunk]^T: one group per w1 tile, the previous one waited
+    // for (and its buffer released) once the next is issued
+    auto issue_h = [&](int i) {
+      const uint32_t wt = ring + (q % S) * TILE;
+      reg_fence(h);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 2 * KB; ++kk) {
+        const int k = i * 32 * KB + 16 * kk;
+        wgmma_ss<64>(h, plain_desc(xn + (k >> 4) * 2048, 128, 256),
+                     sw64_desc(wt + (kk >> 1) * BOX + (kk & 1) * 32, 16, 512), i > 0 || kk > 0);
+      }
+      wg_commit();
+    };
+    wait_tile(q);
+    issue_h(0);
+    for (int i = 1; i < kt1; ++i) {
+      ++q;
+      wait_tile(q);
+      issue_h(i);
+      wg_wait<1>();
+      release(q - 1);
     }
-    __syncthreads();
-    // 2c. out += h w2[:, chunk]^T into this warp's fragments
-    {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ha[HC / 16];
+    wg_wait<0>();
+    reg_fence(h);
+    release(q);
+    ++q;
+
+    // h + b1 and GELU in f32, rounded to bf16 as the A fragments of the
+    // second product (k-step kk: hidden columns 16 kk .. 16 kk + 15)
+    const int h0 = hbase + (c0 + c) * HC;
 #pragma unroll
-      for (int kk = 0; kk < HC / 16; ++kk)
-        wmma::load_matrix_sync(ha[kk], Hb + rf * 16 * LDHB + kk * 16, LDHB);
+    for (int j = 0; j < 8; ++j) {
+      const float b0 = a.b1[h0 + 8 * j + cb], b1 = a.b1[h0 + 8 * j + cb + 1];
+      pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16(gelu(h[4 * j] + b0, a.act), gelu(h[4 * j + 1] + b1, a.act));
+      pa[j >> 1][(j & 1) * 2 + 1] =
+          pack_bf16(gelu(h[4 * j + 2] + b0, a.act), gelu(h[4 * j + 3] + b1, a.act));
+    }
+
+    // out[:, tile u] += GELU(h) w2[tile u, chunk]^T, w2 K-major
 #pragma unroll
-      for (int i = 0; i < MAXF; ++i) {
-        const int cf = cf0 + 4 * i;
-        if (cf < ncf) {
+    for (int u = 0; u < NT; ++u) {
+      if (u > 0) ++q;
+      wait_tile(q);
+      const uint32_t wt = ring + (q % S) * TILE;
+      reg_fence(acc[u]);
+      reg_fence(pa);
+      wg_fence();
 #pragma unroll
-          for (int kk = 0; kk < HC / 16; ++kk) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-            wmma::load_matrix_sync(b, w2 + (size_t)cf * 16 * Hd + hc0 + kk * 16, Hd);
-            wmma::mma_sync(acc[i], ha[kk], b, acc[i]);
+      for (int kk = 0; kk < 4; ++kk)
+        Wg<64>::template rs<0>(acc[u], pa[kk], sw64_desc(wt + (kk >> 1) * BOX + (kk & 1) * 32, 16, 512));
+      wg_commit();
+      if (u > 0) {
+        wg_wait<1>();
+        release(q - 1);
+      }
+    }
+    wg_wait<0>();
+#pragma unroll
+    for (int u = 0; u < NT; ++u) reg_fence(acc[u]);
+    release(q);
+    ++q;
+  }
+
+  // epilogue: the sums (both warpgroups' partial sums added) staged as f32
+  // [64 rows][64 NT columns] in the shared memory of LN(y) and the ring
+  // (every load is consumed by now), each row's 8-column groups rotated by
+  // its row (no bank conflicts), then every thread writes 16-byte vectors:
+  // out = bf16(y + (sum + b2)), or the f32 partial sum of this hidden split
+  float* red = reinterpret_cast<float*>(smem);
+  auto stage = [&](bool add) {
+#pragma unroll
+    for (int u = 0; u < NT; ++u)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = r0 + 8 * hf, col = u * 64 + ((8 * j) ^ ((r & 7) << 3)) + cb;
+          float2* d = reinterpret_cast<float2*>(red + r * NT * 64 + col);
+          float2 v = make_float2(acc[u][4 * j + 2 * hf], acc[u][4 * j + 2 * hf + 1]);
+          if (add) {
+            v.x += d->x;
+            v.y += d->y;
           }
+          *d = v;
         }
-      }
-    }
+  };
+  __syncthreads();
+  if (wg == NW - 1) stage(false);
+  if constexpr (NW == 2) {
+    __syncthreads();
+    if (wg == 0) stage(true);
   }
   __syncthreads();
-
-  // 3. epilogue through a per-warp 16x16 staging tile (reusing Hs)
-  float* stage = Hs + warp * 256;
+  const int groups = NT * 8;  // 8-column groups of a row
+  for (int e = tid; e < BM * groups; e += NW * 128) {
+    const int r = e / groups, gc = e - r * groups, row = row0 + r, col = n0 + 8 * gc;
+    if (row >= a.R || col >= a.C) continue;
+    const float* src = red + r * NT * 64 + (((gc & 7) ^ (r & 7)) | (gc & ~7)) * 8;
+    const float4 lo = *reinterpret_cast<const float4*>(src);
+    const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+    float o[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const size_t off = (size_t)row * a.C + col;
+    if (a.ws != nullptr) {
+      float4* w = reinterpret_cast<float4*>(a.ws + (size_t)blockIdx.z * a.R * a.C + off);
+      w[0] = lo;
+      w[1] = hi;
+    } else {
+      float y[8];
+      load_y(a, off, y);
 #pragma unroll
-  for (int i = 0; i < MAXF; ++i) {
-    const int cf = cf0 + 4 * i;
-    if (cf < ncf) {
-      wmma::store_matrix_sync(stage, acc[i], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e >> 4, c = e & 15;
-        const long long row = row0 + rf * 16 + r;
-        const int col = cf * 16 + c;
-        if (row < R) {
-          const long long off = row * C + col;
-          const float y = __bfloat162float(skip[off]) + __bfloat162float(attn[off]);
-          out[off] = __float2bfloat16(y + stage[e] + b2[col]);
-        }
-      }
-      __syncwarp();
+      for (int i = 0; i < 8; ++i) o[i] = y[i] + (o[i] + a.b2[col + i]);
+      *reinterpret_cast<uint4*>(a.out + off) =
+          make_uint4(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]), pack_bf16(o[4], o[5]),
+                     pack_bf16(o[6], o[7]));
     }
   }
 }
+
+// out = bf16(y + (sum of the splits' partial sums, in split order, + b2))
+__global__ void tail_reduce_kernel(const TailArgs a, int splits) {
+  const size_t n = (size_t)a.R * a.C / 2, plane = (size_t)a.R * a.C;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t off = 2 * i;
+    const int col = (int)(off % a.C);
+    float o0 = 0.f, o1 = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float2 p = *reinterpret_cast<const float2*>(a.ws + s * plane + off);
+      o0 += p.x;
+      o1 += p.y;
+    }
+    const float2 s = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.skip + off));
+    const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.attn + off));
+    *reinterpret_cast<uint32_t*>(a.out + off) =
+        pack_bf16((s.x + u.x) + (o0 + a.b2[col]), (s.y + u.y) + (o1 + a.b2[col + 1]));
+  }
+}
+
+template <int NT, int KB, int NW>
+int launch_tail(const CUtensorMap& t1, const CUtensorMap& t2, const TailArgs& a, dim3 grid,
+                int smem, cudaStream_t s) {
+  static int smem_set = 0;  // the attribute only grows; set it once per size
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(block_tail_kernel<NT, KB, NW>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  block_tail_kernel<NT, KB, NW><<<grid, NW * 128, smem, s>>>(t1, t2, a);
+  return (int)cudaGetLastError();
+}
+
+template <int KB, int NW>
+int launch_nt(int nt, const CUtensorMap& t1, const CUtensorMap& t2, const TailArgs& a, dim3 grid,
+              int smem, cudaStream_t s) {
+  switch (nt) {
+    case 1: return launch_tail<1, KB, NW>(t1, t2, a, grid, smem, s);
+    case 2: return launch_tail<2, KB, NW>(t1, t2, a, grid, smem, s);
+    case 3: return launch_tail<3, KB, NW>(t1, t2, a, grid, smem, s);
+    default: return launch_tail<4, KB, NW>(t1, t2, a, grid, smem, s);
+  }
+}
+
+// ------------------------------------------------------------- f32 (K3) ---
+
+constexpr int NW = 8;      // warps
+constexpr int NT = NW * 32;
+constexpr int MAXV = MAXC / 32;      // LayerNorm values per lane (24)
 
 constexpr int BRF = 16;  // rows per CTA of the f32 instance
 constexpr int MAXCOL = MAXC / NT;  // output columns per thread (3)
@@ -304,20 +515,56 @@ __global__ void __launch_bounds__(NT) block_tail_f32_kernel(
 
 }  // namespace
 
+// skip, attn, out (R, C) bf16; w1 (Hd, C), w2 (C, Hd) bf16; ln_w, ln_b, b1,
+// b2 f32; ws (k_splits, R, C) f32 when k_splits > 1, else null. nt,
+// col_splits, k_splits and stages from `tail_plan`; a plan that does not
+// cover C and Hd exactly or does not fit a CTA is refused.
 extern "C" int dsal_block_tail(const void* skip, const void* attn, const float* ln_w,
                                const float* ln_b, const void* w1, const float* b1,
-                               const void* w2, const float* b2, void* out, int R, int C,
-                               int Hd, float eps, int act, void* stream) {
-  if (C % 16 != 0 || C > MAXC || Hd % HC != 0) return (int)cudaErrorInvalidValue;
-  const size_t bytes = smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      block_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((R + BR - 1) / BR);
-  block_tail_kernel<<<blocks, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(skip), static_cast<const bf16*>(attn), ln_w, ln_b,
-      static_cast<const bf16*>(w1), b1, static_cast<const bf16*>(w2), b2,
-      static_cast<bf16*>(out), R, C, Hd, eps, act);
+                               const void* w2, const float* b2, void* out, void* ws, int R,
+                               int C, int Hd, float eps, int act, int nt, int col_splits,
+                               int k_splits, int wgs, int stages, void* stream) {
+  if (R < 1 || C < 32 || C % 32 != 0 || C > MAXC || Hd < HC || Hd % HC != 0)
+    return (int)cudaErrorInvalidValue;
+  const int nchunks = Hd / HC;
+  if (nt < 1 || nt > MAX_NT || nt * col_splits != (C + 63) / 64 || k_splits < 1 ||
+      k_splits > MAX_KSPLIT || nchunks % k_splits != 0 || (k_splits > 1) != (ws != nullptr) ||
+      (wgs != 1 && wgs != 2) || stages < 2 * wgs || stages % wgs != 0 ||
+      stages > MAX_STAGES || tail_smem(C, stages) > SMEM_MAX ||
+      BM * nt * 64 * 4 > BM * C * 2 + stages * TILE)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap t1, t2;
+  if (!make_map(&t1, w1, 1, Hd, C, 64) || !make_map(&t2, w2, 1, C, Hd, 64))
+    return (int)cudaErrorInvalidValue;
+  TailArgs a;
+  a.skip = static_cast<const bf16*>(skip);
+  a.attn = static_cast<const bf16*>(attn);
+  a.ln_w = ln_w;
+  a.ln_b = ln_b;
+  a.b1 = b1;
+  a.b2 = b2;
+  a.out = static_cast<bf16*>(out);
+  a.ws = static_cast<float*>(ws);
+  a.R = R;
+  a.C = C;
+  a.chunks = nchunks / k_splits;
+  a.stages = stages;
+  a.eps = eps;
+  a.act = act;
+  const dim3 grid((R + BM - 1) / BM, col_splits, k_splits);
+  const int smem = tail_smem(C, stages);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int err;
+  if (wgs == 2)
+    err = C % 64 == 0 ? launch_nt<2, 2>(nt, t1, t2, a, grid, smem, s)
+                      : launch_nt<1, 2>(nt, t1, t2, a, grid, smem, s);
+  else
+    err = C % 64 == 0 ? launch_nt<2, 1>(nt, t1, t2, a, grid, smem, s)
+                      : launch_nt<1, 1>(nt, t1, t2, a, grid, smem, s);
+  if (err != 0 || k_splits == 1) return err;
+  const size_t pairs = (size_t)R * C / 2;
+  const unsigned blocks = (unsigned)((pairs + 255) / 256 < 132 * 8 ? (pairs + 255) / 256 : 132 * 8);
+  tail_reduce_kernel<<<blocks, 256, 0, s>>>(a, k_splits);
   return (int)cudaGetLastError();
 }
 

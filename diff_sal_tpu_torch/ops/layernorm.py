@@ -9,12 +9,19 @@ and bias, output in the input dtype. `real_dim` normalizes over the first
 zero.
 
 On the H100 it is bound by bytes: one read and one write of the rows
-against ~8 flops per element. The kernel (`csrc/layernorm.cu`) gives each
-row to one warp: every lane keeps its channels in registers (C <= 1024,
-so a row is read from device memory once), the two sums reduce with warp
-shuffles, and the normalized row is written once. Lane-strided access is
-coalesced across the warp; C = 96 needs no padding because lanes past the
-row end are masked.
+against ~8 flops per element. The kernel (`csrc/layernorm.cu`) keeps many
+bytes in flight per SM: persistent CTAs (at most two per SM) walk tiles of
+consecutive rows; thread 0 copies each tile, one contiguous byte range,
+with one bulk copy into a ring of up to four shared-memory buffers behind
+mbarriers; the threads read rows as 16-byte vectors, a power-of-two group
+of lanes per row (4 lanes at C = 96 bf16, a warp at C = 768), reduce the
+two sums by shuffles inside the group, keep w and b in registers for the
+whole CTA and write 16-byte vectors. `ln_plan` chooses the tile rows,
+stages and grid on the host, so the CPU tests reach it; the C entry
+refuses a plan that does not match its input. Rows the bulk copy cannot
+take (a byte length not a multiple of 16, or a pointer not 16-byte
+aligned) run a warp-per-row kernel from the same entry, one K2 launch all
+the same.
 
 K6 replaces the TPU kernel `diff_sal_tpu/ops/layernorm.py:283 _ln_bwd`
 (body `_ln_bwd_kernel` :233): dx with the row statistics recomputed, and
@@ -36,6 +43,8 @@ Function whose forward is K2 (plain on the CPU) and whose backward is K6
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -44,7 +53,7 @@ from diff_sal_tpu_torch.ops import kernels as K
 
 KERNEL = K.Kernel(
     "layer_norm", "layernorm.cu", "dsal_layernorm",
-    [K.P, K.P, K.P, K.P, K.I, K.I, K.I, K.F, K.I, K.P],
+    [K.P, K.P, K.P, K.P, K.I, K.I, K.I, K.F, K.I, K.I, K.I, K.I, K.P],
     replaces="diff_sal_tpu/ops/layernorm.py:134 fused_layernorm (_ln_kernel :39)",
 )
 BWD_KERNEL = K.Kernel(
@@ -56,6 +65,81 @@ BWD_KERNEL = K.Kernel(
 MAX_C = 1024
 BWD_ROWS_PER_CTA = 8    # one warp per row
 BWD_MAX_CTAS = 132 * 4  # grid of K6's row pass (four CTAs per SM)
+
+# K2's geometry, as csrc/layernorm.cu has it
+NUM_SMS = 132
+SMEM_MAX = 232_448
+SM_SMEM = 233_472       # shared memory of one SM; each CTA reserves 1 KB of it
+LN_THREADS = 256
+LN_MAX_VALUES = 32      # values per lane (C <= 32 lanes * 32)
+LN_MAX_STAGES = 4
+LN_CTAS_PER_SM = 2      # the kernel's launch bound
+LN_TILE_BYTES = 16_384  # the tile size aimed at
+LN_ROWS_PER_CTA = 8     # the row kernel: one warp per row
+CARD_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class LnPlan:
+    """Geometry of one K2 launch (`csrc/layernorm.cu`).
+
+    Bulk path (`bulk`): `group` lanes per row, `vpl` 16-byte vectors per
+    lane, tiles of `tile_rows` rows (`tiles` in all) walked by `grid`
+    persistent CTAs through a ring of `stages` buffers, `smem` dynamic
+    shared-memory bytes. Row kernel (not `bulk`): tile_rows = 0, one warp
+    per row, `grid` CTAs of LN_ROWS_PER_CTA rows."""
+
+    bulk: bool
+    group: int
+    vpl: int
+    tile_rows: int
+    stages: int
+    smem: int
+    tiles: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=None)  # the wrapper asks once per call, with few distinct shapes
+def ln_plan(R: int, C: int, dtype: torch.dtype, aligned: bool = True) -> LnPlan:
+    """K2's launch for R rows of C channels of `dtype` (`aligned`: x's
+    address is a multiple of 16). Tiles of about LN_TILE_BYTES, smaller
+    where that leaves a CTA slot of the card without a tile; as many ring
+    stages as a CTA has tiles, up to four and as two CTAs per SM leave
+    room for. Raises ValueError on what no
+    path of the kernel takes."""
+    if dtype not in CARD_DTYPES:
+        raise ValueError(f"layer_norm: dtype {dtype} (the kernel takes bf16 and f32)")
+    if not 1 <= C <= MAX_C or R < 1:
+        raise ValueError(f"layer_norm: needs 1 <= C <= {MAX_C} and R >= 1, got R={R}, C={C}")
+    size = 2 if dtype == torch.bfloat16 else 4
+    row_bytes = C * size
+    if not aligned or row_bytes % 16:
+        blocks = _cdiv(R, LN_ROWS_PER_CTA)
+        return LnPlan(False, 32, 0, 0, 0, 0, blocks, blocks)
+    nvec = row_bytes // 16
+    per_lane = LN_MAX_VALUES // (16 // size)  # vectors a lane may hold
+    group = 1
+    while group * per_lane < nvec:
+        group *= 2
+    vpl = _cdiv(nvec, group)
+    step = LN_THREADS // group  # rows of a tile in flight at once
+    slots = NUM_SMS * LN_CTAS_PER_SM
+    cap = step * max(1, LN_TILE_BYTES // (step * row_bytes))
+    tile_rows = min(cap, step * _cdiv(_cdiv(R, slots), step))
+    tiles = _cdiv(R, tile_rows)
+    grid = min(tiles, slots)
+    # no deeper than a CTA has tiles, and two CTAs' rings on one SM
+    room = (SM_SMEM // LN_CTAS_PER_SM - 1024) // (tile_rows * row_bytes + 8)
+    stages = min(LN_MAX_STAGES, _cdiv(tiles, grid), room)
+    smem = stages * tile_rows * row_bytes + 8 * stages
+    if smem > SMEM_MAX:
+        raise ValueError(f"layer_norm: a tile of {tile_rows} rows of {row_bytes} bytes "
+                         f"needs more than {SMEM_MAX} bytes of shared memory")
+    return LnPlan(True, group, vpl, tile_rows, stages, smem, tiles, grid)
 
 
 def _padded(p: torch.Tensor, C: int) -> torch.Tensor:
@@ -111,11 +195,18 @@ def layer_norm_bwd_plain(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor,
 
 
 def _check_rows(name: str, x: torch.Tensor, real_dim):
+    """(rows, C) of x, or ValueError. The messages are built only on
+    failure: the wrappers check on every launch, and on the host-bound
+    paths that time counts."""
     C = x.shape[-1]
-    K.check(x.dtype in (torch.bfloat16, torch.float32), f"{name} dtype {x.dtype}")
-    K.check(C <= MAX_C, f"{name} needs C <= {MAX_C}, got {C}")
-    K.check(x.is_contiguous(), f"{name} input must be contiguous")
-    K.check(real_dim is None or 0 < real_dim <= C, f"real_dim {real_dim} vs C {C}")
+    if x.dtype not in CARD_DTYPES:
+        raise ValueError(f"{name} dtype {x.dtype}")
+    if C > MAX_C:
+        raise ValueError(f"{name} needs C <= {MAX_C}, got {C}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} input must be contiguous")
+    if real_dim is not None and not 0 < real_dim <= C:
+        raise ValueError(f"real_dim {real_dim} vs C {C}")
     return x.numel() // C, C
 
 
@@ -131,9 +222,11 @@ def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     out = torch.empty_like(x)
     if R == 0:
         return out
+    plan = ln_plan(R, C, x.dtype, x.data_ptr() % 16 == 0)
     KERNEL.launch(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), R, C, real_dim or C,
-        float(eps), int(x.dtype == torch.bfloat16), K.stream(),
+        float(eps), int(x.dtype == torch.bfloat16), plan.tile_rows, plan.stages, plan.grid,
+        K.stream(),
     )
     return out
 
@@ -151,8 +244,8 @@ def layer_norm_bwd(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor,
         return layer_norm_bwd_plain(x, g, weight, eps, real_dim)
     K.require_cuda(x, "layer_norm_bwd")
     R, C = _check_rows("layer_norm_bwd", x, real_dim)
-    K.check(g.shape == x.shape and g.dtype == x.dtype and g.is_contiguous(),
-            "layer_norm_bwd: g must be contiguous, of x's shape and dtype")
+    if not (g.shape == x.shape and g.dtype == x.dtype and g.is_contiguous()):
+        raise ValueError("layer_norm_bwd: g must be contiguous, of x's shape and dtype")
     n_param = weight.shape[0]
     w = _padded(weight, C).contiguous()
     dx = torch.empty_like(x)

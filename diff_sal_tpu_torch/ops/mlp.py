@@ -7,16 +7,25 @@ Replaces the TPU kernel `diff_sal_tpu/ops/mlp.py:132 fused_block_tail`
 Weights use the torch Linear layout: w1 (Hd, C), w2 (C, Hd).
 
 On the H100 the tail is bound by operations at the decoder's widths
-(4 * R * C * Hd flops with Hd = 2C, against three (R, C) row passes), so
-the products run on the tensor cores. The kernel (`csrc/mlp.cu`) is a
-"flash-MLP": a CTA of eight warps owns 32 rows, computes y and its
-LayerNorm in f32 and keeps LN(y) in shared memory as bf16; it then walks
-the hidden axis in chunks of 64, computing h = LN(y) w1[chunk]^T + b1 and
-GELU in f32, and accumulates out += h w2[:, chunk]^T in f32 WMMA
-fragments held in registers (the (R, Hd) hidden never reaches device
-memory). The weights are read from L2 by every CTA rather than held
-resident; the TPU kernel's "weights too big" fallback has no counterpart
-here, since one kernel serves all four decoder widths (C = 96..768).
+(8 * R * C^2 flops with Hd = 2C, against three (R, C) row passes), so
+the products run on the tensor cores and the (R, Hd) hidden never reaches
+device memory. The kernel (`csrc/mlp.cu`) is a Hopper "flash-MLP": a CTA
+owns 64 rows, computes y and LN(y) in f32 and keeps LN(y) in shared
+memory as bf16; a warpgroup walks the hidden axis in chunks of 64,
+h = LN(y) w1[chunk]^T by `wgmma` from shared memory, h + b1 and GELU in
+registers, rounded to bf16 as the register operand of out += GELU(h)
+w2[cols, chunk]^T, also a `wgmma`. w1 and w2 arrive as 64x64 tiles by TMA
+through a ring of shared-memory buffers behind mbarriers. A CTA owns at
+most four 64-column output tiles (its f32 accumulator in registers), so
+wide tails split the output columns over CTAs; where rows and column
+splits leave SMs idle (C = 768 at the decoder's first stage), CTAs also
+split the hidden axis and a second kernel adds their f32 partial sums in
+a fixed order (no atomics: deterministic). Where the CTAs are about one
+per SM (C = 384 and 768), two consumer warpgroups split a CTA's hidden
+chunks and add their partial sums through shared memory. `tail_plan`
+chooses the geometry on the host, so the CPU tests reach it. The TPU kernel's
+"weights too big" fallback has no counterpart here: one kernel serves all
+four decoder widths (C = 96..768).
 
 An f32 model runs K3's f32 instance (`dsal_block_tail_f32` in the same
 source): the same tail with every product in f32 by FFMA on the CUDA
@@ -35,13 +44,16 @@ has no gradient.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
 from diff_sal_tpu_torch.ops import kernels as K
 
 KERNEL = K.Kernel(
     "block_tail", "mlp.cu", "dsal_block_tail",
-    [K.P] * 9 + [K.I] * 3 + [K.F, K.I, K.P],
+    [K.P] * 10 + [K.I] * 3 + [K.F, K.I] + [K.I] * 5 + [K.P],
     replaces="diff_sal_tpu/ops/mlp.py:132 fused_block_tail (_tail_kernel :47)",
 )
 
@@ -54,6 +66,16 @@ ACT_MODES = ("tanh", "exact")
 MAX_C = 768
 F32_ROWS, F32_CHUNK = 16, 64  # rows per CTA and hidden units per chunk of the f32 instance
 SMEM_MAX = 232_448
+# the bf16 kernel's geometry, as csrc/mlp.cu has it
+NUM_SMS = 132
+SM_SMEM = 233_472       # shared memory of one SM; each CTA reserves 1 KB of it
+TAIL_ROWS = 64          # rows per CTA (one warpgroup)
+TAIL_CHUNK = 64         # hidden units per chunk
+TAIL_TILE = 8192        # one ring buffer: a 64 x 64 bf16 weight tile
+TAIL_MAX_NT = 4         # 64-column output tiles per CTA
+TAIL_MAX_STAGES = 8
+TAIL_MAX_KSPLIT = 8
+TAIL_STAGES = {1: 4, 2: 8}  # ring buffers by consumer warpgroups per CTA
 
 
 def f32_smem(C: int) -> int:
@@ -61,6 +83,85 @@ def f32_smem(C: int) -> int:
     LN(y) and a w2 slice (16 x C floats each), the hidden chunk (16 x 64)
     and a w1 slice (32 x 64)."""
     return (2 * F32_ROWS * C + F32_ROWS * F32_CHUNK + 32 * F32_CHUNK) * 4
+
+
+def tail_smem(C: int, stages: int) -> int:
+    """Dynamic shared memory of one bf16 K3 CTA (`tail_smem` in
+    csrc/mlp.cu): LN(y) (64 x C bf16), `stages` weight tiles and their
+    mbarriers, 1024 bytes to align the base."""
+    return TAIL_ROWS * C * 2 + stages * (TAIL_TILE + 8) + 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class TailPlan:
+    """Geometry of one bf16 K3 launch: CTAs of `rows` rows (`row_tiles`
+    of them over R) x `nt` 64-column output tiles (`col_splits` over C) x
+    `chunks` hidden chunks of 64 (`k_splits` over Hd), `ctas` in all, each
+    with `wgs` consumer warpgroups that share its chunks; w1 tiles of `kb`
+    32-column boxes; `stages` ring buffers (split evenly between the
+    warpgroups); `smem` bytes. With k_splits > 1 the partial sums go to a
+    (k_splits, R, C) f32 workspace."""
+
+    rows: int
+    nt: int
+    kb: int
+    col_splits: int
+    k_splits: int
+    chunks: int
+    wgs: int
+    stages: int
+    smem: int
+    row_tiles: int
+    ctas: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=None)  # the wrapper asks once per call, with few distinct shapes
+def tail_plan(R: int, C: int, Hd: int) -> TailPlan:
+    """The bf16 K3 geometry for R rows of width C and hidden Hd. The output
+    tiles of C split over the fewest CTAs that keep each at most four
+    tiles, evenly; the hidden axis splits over CTAs only where row tiles
+    and column splits leave more than half of the SMs idle (the split's
+    partial sums cost a pass through device memory), into the largest
+    divisor of the chunk count (at most 8) that keeps one CTA per SM
+    (measured: fewer, fuller CTAs beat a second wave of short ones).
+    Where the CTAs are few (at most two per SM) two warpgroups share a
+    CTA's chunks;
+    else one, with a smaller ring so that more CTAs fit on an SM. Raises
+    ValueError on what the kernel does not take."""
+    if C % 32 or not 32 <= C <= MAX_C:
+        raise ValueError(f"block_tail: needs C % 32 == 0 and 32 <= C <= {MAX_C}, got {C}")
+    if Hd % TAIL_CHUNK or Hd < TAIL_CHUNK:
+        raise ValueError(f"block_tail: needs Hd % {TAIL_CHUNK} == 0, got {Hd}")
+    if R < 1:
+        raise ValueError(f"block_tail: R = {R}")
+    tiles = _cdiv(C, 64)
+    nt = max(d for d in range(1, TAIL_MAX_NT + 1) if tiles % d == 0)
+    col_splits = tiles // nt
+    row_tiles = _cdiv(R, TAIL_ROWS)
+    n_chunks = Hd // TAIL_CHUNK
+    base = row_tiles * col_splits
+    k_splits = 1
+    if 2 * base <= NUM_SMS:
+        k_splits = max(d for d in range(1, TAIL_MAX_KSPLIT + 1)
+                       if n_chunks % d == 0 and base * d <= NUM_SMS)
+    chunks = n_chunks // k_splits
+    # two warpgroups where the CTAs are about one per SM (each issues its
+    # own chain of products; measured on the H100: C = 768 and 384 at the
+    # decoder's rows 1.5-1.7x faster, PERF.md), with eight ring buffers,
+    # four each; else one warpgroup with four buffers, so that more CTAs
+    # fit on an SM
+    wgs = 2 if base * k_splits <= 2 * NUM_SMS and chunks >= 2 else 1
+    stages = TAIL_STAGES[wgs]
+    # the epilogue stages the f32 sums (64 x 64 nt) where LN(y) and the ring were
+    if (tail_smem(C, stages) > SMEM_MAX
+            or TAIL_ROWS * nt * 64 * 4 > TAIL_ROWS * C * 2 + stages * TAIL_TILE):
+        raise ValueError(f"block_tail: C = {C} leaves no room for the weight ring")
+    return TailPlan(TAIL_ROWS, nt, 2 if C % 64 == 0 else 1, col_splits, k_splits, chunks, wgs,
+                    stages, tail_smem(C, stages), row_tiles, row_tiles * col_splits * k_splits)
 
 
 def gelu(h: torch.Tensor, mode: str) -> torch.Tensor:
@@ -106,29 +207,42 @@ def block_tail(skip: torch.Tensor, attn: torch.Tensor, ln_w: torch.Tensor,
     K.require_cuda(skip, "block_tail")
     R, C = skip.shape
     Hd = w1.shape[0]
-    K.check(tuple(attn.shape) == (R, C), "block_tail: attn shape != skip shape")
-    K.check(tuple(w1.shape) == (Hd, C) and tuple(w2.shape) == (C, Hd),
-            f"block_tail: w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)} for C={C}")
     dt = skip.dtype
-    K.check(dt in (torch.bfloat16, torch.float32),
-            f"block_tail: skip must be bfloat16 or float32 on the card, got {dt}")
-    mult = 32 if dt == torch.float32 else 16
-    K.check(C % mult == 0 and Hd % 64 == 0 and C <= MAX_C,
-            f"block_tail: needs C % {mult} == 0, C <= {MAX_C}, Hd % 64 == 0 (C={C}, Hd={Hd})")
+    if tuple(attn.shape) != (R, C):
+        raise ValueError("block_tail: attn shape != skip shape")
+    if tuple(w1.shape) != (Hd, C) or tuple(w2.shape) != (C, Hd):
+        raise ValueError(f"block_tail: w1 {tuple(w1.shape)}, w2 {tuple(w2.shape)} for C={C}")
+    if dt not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"block_tail: skip must be bfloat16 or float32 on the card, got {dt}")
+    # the four row and weight tensors: one dtype, contiguous, on skip's card
+    # and 16-byte aligned (TMA and vector loads); messages built only on failure
     for name, t in (("skip", skip), ("attn", attn), ("w1", w1), ("w2", w2)):
-        K.check(t.dtype == dt, f"block_tail: {name} must be {dt}, got {t.dtype}")
-        K.check(t.device == skip.device and t.is_contiguous(),
-                f"block_tail: {name} must be contiguous, on {skip.device}")
-    # the kernel loads weight fragments straight from global memory
-    K.check(w1.data_ptr() % 32 == 0 and w2.data_ptr() % 32 == 0,
-            "block_tail: weights must be 32-byte aligned")
+        if t.dtype != dt:
+            raise ValueError(f"block_tail: {name} must be {dt}, got {t.dtype}")
+        if not (t.device == skip.device and t.is_contiguous() and t.data_ptr() % 16 == 0):
+            raise ValueError(f"block_tail: {name} must be contiguous, 16-byte aligned, on "
+                             f"{skip.device}")
     vecs = [p.float().contiguous() for p in (ln_w, ln_b, b1, b2)]
     out = torch.empty_like(skip)
     if R == 0:
         return out
-    (F32_KERNEL if dt == torch.float32 else KERNEL).launch(
-        skip.data_ptr(), attn.data_ptr(), *[p.data_ptr() for p in vecs[:2]], w1.data_ptr(),
-        vecs[2].data_ptr(), w2.data_ptr(), vecs[3].data_ptr(), out.data_ptr(), R, C, Hd,
-        float(eps), ACT_MODES.index(act_mode), K.stream(),
+    if dt == torch.float32:
+        if C % 32 or Hd % 64 or C > MAX_C:
+            raise ValueError(f"block_tail: needs C % 32 == 0, C <= {MAX_C}, Hd % 64 == 0 "
+                             f"(C={C}, Hd={Hd})")
+        F32_KERNEL.launch(
+            skip.data_ptr(), attn.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+            w1.data_ptr(), vecs[2].data_ptr(), w2.data_ptr(), vecs[3].data_ptr(),
+            out.data_ptr(), R, C, Hd, float(eps), ACT_MODES.index(act_mode), K.stream(),
+        )
+        return out
+    plan = tail_plan(R, C, Hd)
+    ws = (torch.empty((plan.k_splits, R, C), dtype=torch.float32, device=skip.device)
+          if plan.k_splits > 1 else None)
+    KERNEL.launch(
+        skip.data_ptr(), attn.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), w1.data_ptr(),
+        vecs[2].data_ptr(), w2.data_ptr(), vecs[3].data_ptr(), out.data_ptr(),
+        None if ws is None else ws.data_ptr(), R, C, Hd, float(eps), ACT_MODES.index(act_mode),
+        plan.nt, plan.col_splits, plan.k_splits, plan.wgs, plan.stages, K.stream(),
     )
     return out

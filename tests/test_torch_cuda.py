@@ -136,6 +136,60 @@ def test_layer_norm_kernel_real_dim(card):
     assert float(out[:, 96:].abs().max()) == 0.0
 
 
+# K2's (rows, C) on the paths at 224x384x16, B=2: MViT's spatial rows at
+# the four stages, its cls rows, the per-head norms over the token-concat
+# rows (2 * 43009), the decoder's first stage and the audio branch
+LN_PATH_SHAPES = [(86016, 96), (86018, 96), (21504, 192), (5376, 384), (1344, 768),
+                  (2, 96), (2, 768), (18, 512), (672, 768)]
+
+
+@pytest.mark.parametrize("R,C", LN_PATH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_kernel_path_shapes(card, R, C, dtype):
+    """K2 at every path shape: one launch, the bulk path (ln_plan), the
+    plain version's values."""
+    g = torch.Generator().manual_seed(R + C)
+    x = _randn(g, R, C, dtype=dtype, scale=2.0) + 0.5
+    w, b = _randn(g, C, dtype=torch.float32) + 1, _randn(g, C, dtype=torch.float32)
+    assert t_ln.ln_plan(R, C, dtype, x.data_ptr() % 16 == 0).bulk
+    before = t_ln.KERNEL.launches
+    out = t_ln.layer_norm_fwd(x, w, b, 1e-6)
+    assert t_ln.KERNEL.launches == before + 1
+    _check(out, t_ln.layer_norm_plain(x, w, b, 1e-6), dtype)
+
+
+@pytest.mark.parametrize("R", [1, 2, 65, 1001, 20003])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_kernel_ragged_rows_and_real_dim(card, R, dtype):
+    """A row count of 1-2 (MViT's cls rows) or not a multiple of the tile,
+    over a zero-padded axis (real_dim < C): the pad channels are written 0."""
+    g = torch.Generator().manual_seed(R)
+    x = torch.nn.functional.pad(_randn(g, R, 96, dtype=dtype) + 1.0, (0, 32))
+    w, b = _randn(g, 96, dtype=torch.float32), _randn(g, 96, dtype=torch.float32)
+    out = t_ln.layer_norm_fwd(x, w, b, 1e-6, real_dim=96)
+    _check(out, t_ln.layer_norm_plain(x, w, b, 1e-6, real_dim=96), dtype)
+    assert float(out[:, 96:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_kernel_takes_unaligned_rows_in_its_row_kernel(card, dtype):
+    """An input that does not start on 16 bytes (a view one element into its
+    storage), or rows that are not whole 16-byte vectors (200 or 392
+    bytes), cannot be bulk-copied: the same entry runs its row kernel, one
+    K2 launch, never the plain version."""
+    g = torch.Generator().manual_seed(5)
+    misaligned = _randn(g, 1000 * 96 + 1, dtype=dtype)[1:].view(1000, 96)
+    ragged = _randn(g, 300, 100 if dtype == torch.bfloat16 else 98, dtype=dtype)
+    for x in (misaligned, ragged):
+        R, C = x.shape
+        assert x.is_contiguous() and not t_ln.ln_plan(R, C, dtype, x.data_ptr() % 16 == 0).bulk
+        w, b = _randn(g, C, dtype=torch.float32), _randn(g, C, dtype=torch.float32)
+        before = t_ln.KERNEL.launches
+        out = t_ln.layer_norm_fwd(x, w, b, 1e-6)
+        assert t_ln.KERNEL.launches == before + 1
+        _check(out, t_ln.layer_norm_plain(x, w, b, 1e-6), dtype)
+
+
 @pytest.mark.parametrize("C,R", [(768, 840), (384, 3360), (192, 1000), (96, 5000)])
 @pytest.mark.parametrize("act", ["tanh", "exact"])
 def test_block_tail_kernel(card, C, R, act):
@@ -148,6 +202,57 @@ def test_block_tail_kernel(card, C, R, act):
     w2, b2 = _randn(g, C, Hd, scale=Hd ** -0.5), _randn(g, C, dtype=torch.float32, scale=0.1)
     args = (skip, attn, lw, lb, w1, b1, w2, b2, 1e-6, act)
     _check(t_mlp.block_tail(*args), t_mlp.block_tail_plain(*args), torch.bfloat16)
+
+
+def _tail_args(g, R, C, act):
+    Hd = 2 * C
+    skip, attn = _randn(g, R, C), _randn(g, R, C)
+    lw, lb = _randn(g, C, dtype=torch.float32) + 1, _randn(g, C, dtype=torch.float32, scale=0.1)
+    w1, b1 = _randn(g, Hd, C, scale=C ** -0.5), _randn(g, Hd, dtype=torch.float32, scale=0.1)
+    w2, b2 = _randn(g, C, Hd, scale=Hd ** -0.5), _randn(g, C, dtype=torch.float32, scale=0.1)
+    return (skip, attn, lw, lb, w1, b1, w2, b2, 1e-6, act)
+
+
+# each decoder width with a small R (one row tile, split over the hidden
+# axis) and the decoder's R at B=2 with eight frames (C = 768: 1344 rows,
+# the hidden split; C = 96: 86016 rows, 1344 CTAs)
+TAIL_SHAPES = [(768, 40), (768, 1344), (768, 2688), (384, 100), (384, 5376), (192, 64),
+               (192, 21504), (96, 1), (96, 86016)]
+
+
+@pytest.mark.parametrize("C,R", TAIL_SHAPES)
+@pytest.mark.parametrize("act", ["tanh", "exact"])
+def test_block_tail_kernel_decoder_shapes(card, C, R, act):
+    """The wgmma K3 at each decoder width, small and large R, both GELUs:
+    one launch (with its split reduction where the plan splits the hidden
+    axis), the plain version's values."""
+    g = torch.Generator().manual_seed(3 * C + R)
+    args = _tail_args(g, R, C, act)
+    before = t_mlp.KERNEL.launches
+    out = t_mlp.block_tail(*args)
+    assert t_mlp.KERNEL.launches == before + 1
+    _check(out, t_mlp.block_tail_plain(*args), torch.bfloat16)
+
+
+def test_block_tail_shapes_take_every_plan(card):
+    """The shapes above launch one and two consumer warpgroups, with and
+    without the hidden split, and w1 tiles of one and two boxes."""
+    plans = [t_mlp.tail_plan(R, C, 2 * C) for C, R in TAIL_SHAPES]
+    assert {p.wgs for p in plans} == {1, 2}
+    assert {p.k_splits > 1 for p in plans} == {False, True}
+    assert {p.kb for p in plans} == {1, 2}
+
+
+@pytest.mark.parametrize("C,R", [(768, 1344), (768, 40), (384, 5376), (96, 5000)])
+def test_block_tail_kernel_is_deterministic(card, C, R):
+    """Two launches give the same bits: the hidden splits' partial sums are
+    added in a fixed order, no atomics."""
+    g = torch.Generator().manual_seed(C - R)
+    args = _tail_args(g, R, C, "tanh")
+    a = t_mlp.block_tail(*args)
+    b = t_mlp.block_tail(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 768), (torch.float32, 96)])
@@ -248,6 +353,19 @@ def test_kernels_refuse_what_they_do_not_take(card):
         t_attn.bias_attention(q.half(), k.half(), k.half(), rel.half(), (1, 2, 2), 1, 0.1)
     with pytest.raises(ValueError):  # non-contiguous rows
         t_ln.layer_norm(_randn(g, 8, 64)[:, ::2], torch.ones(32), torch.zeros(32))
+    with pytest.raises(ValueError):  # K2: rows wider than MAX_C
+        t_ln.layer_norm_fwd(_randn(g, 4, 1040), torch.ones(1040), torch.zeros(1040))
+    with pytest.raises(ValueError):  # K2: f16
+        t_ln.layer_norm_fwd(_randn(g, 4, 96).half(), torch.ones(96), torch.zeros(96))
+    args = list(_tail_args(g, 64, 96, "tanh"))
+    with pytest.raises(ValueError):  # K3: a width that is not whole 32-column boxes
+        t_mlp.block_tail(*_tail_args(g, 64, 48, "tanh"))
+    with pytest.raises(ValueError):  # K3: wider than MAX_C
+        t_mlp.block_tail(*_tail_args(g, 8, 800, "tanh"))
+    w1 = torch.empty(args[4].numel() + 1, dtype=torch.bfloat16, device="cuda")[1:]
+    w1 = w1.view_as(args[4]).copy_(args[4])
+    with pytest.raises(ValueError):  # K3: weights not 16-byte aligned (TMA)
+        t_mlp.block_tail(*args[:4], w1, *args[5:])
 
 
 def test_small_av_model_on_card_matches_cpu(card):
