@@ -94,8 +94,16 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      against `path_launches` with the f32 instances in place of the bf16
      kernels, then each f32 instance held against its plain version on
      the recorded inputs at the f32 tolerance;
+ 11. the f32 attention forward at full width: phase 3's recorded K1 calls
+     and phase 9's recorded K12 forward calls cast to f32, each through the
+     f32 instance, its plain version (computed in f64; the f32 tolerance on
+     the output and the logsumexp) and SDPA in f32, one `[block ...]` line per MViT block
+     shape (device time per call of the kernel and of SDPA, share of the
+     bound at split TF32's rate), and the CUDA kernels SDPA f32 runs;
 then prints the `kernels` JSON line, the nvidia-smi line and, last, the
-result line {"ok": true, "device": {...}}.
+result line {"ok": true, "device": {...}}. The f32 instances' bound takes
+their matrix products at split TF32's rate (495 / 3 TFLOP/s: f32's accuracy
+on the tensor cores); K7 adds one `[shape ...]` line per (Bt, L, C).
 """
 
 from __future__ import annotations
@@ -113,6 +121,9 @@ import torch
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM
 BF16_TENSOR_FLOPS = 989e12      # dense bf16 tensor cores
 F32_FLOPS = 67e12               # f32 outside the tensor cores
+# f32 products at f32's accuracy on the tensor cores: split TF32 (three TF32
+# products per product, 495 TFLOP/s dense TF32), the fastest route to them
+SPLIT_TF32_FLOPS = 495e12 / 3
 B = 2
 B_TRAIN = 4
 TRAIN_ITERS = 5  # timed training steps
@@ -212,11 +223,11 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 def bound_terms(kernel: str, args, kw):
     """(bytes, [(operations, peak rate of their type), ...]) one call must
-    at least move and compute. An f32 instance moves its tensors' bytes and
-    computes on the CUDA cores' f32 rate; the bf16 kernels on the tensor
-    cores'."""
+    at least move and compute: elementwise work at the CUDA cores' f32
+    rate, matrix products at the bf16 tensor cores' rate, an f32
+    instance's at split TF32's (f32's accuracy on the tensor cores)."""
     e = args[0].element_size() if isinstance(args[0], torch.Tensor) else 2
-    mm_peak = BF16_TENSOR_FLOPS if e == 2 else F32_FLOPS
+    mm_peak = BF16_TENSOR_FLOPS if e == 2 else SPLIT_TF32_FLOPS
     kernel = kernel.removesuffix("_f32")
     if kernel == "bias_attention":
         q, k, v, rel, (kt, kh, kw_), H = args[:6]
@@ -311,15 +322,22 @@ def bound_terms(kernel: str, args, kw):
 
 def attention_plan(name, args):
     """The launch plan of K1 or K12 forward (rows per CTA, keys per tile,
-    stages, shared-memory bytes) or of their backward (query splits, q-major
-    and k-major CTAs, their shared-memory bytes) for these arguments."""
+    stages, shared-memory bytes; f32: rows, keys per tile, key splits,
+    shared-memory bytes) or of their backward (query splits, q-major and k-major CTAs,
+    their shared-memory bytes; f32: query splits) for these arguments."""
     from diff_sal_tpu_torch.ops import attention
 
     q, k = args[:2]
     B, Lq, HD = q.shape
+    base = name.removesuffix("_f32")
     k_shape, H = {"bias_attention": (args[4], args[5]), "fused_bias_attention": (args[6], 1),
                   "bias_attention_bwd": (args[5], args[6]),
-                  "fused_bias_attention_bwd": (args[7], 1)}[name]
+                  "fused_bias_attention_bwd": (args[7], 1)}[base]
+    if name.endswith("_bwd_f32"):
+        return (attention.bwd_splits(B, H, Lq, k.shape[1], attention.F32_BLOCK),)
+    if name.endswith("_f32"):
+        p = attention.f32_fwd_plan(B, H, Lq, k.shape[1], HD // H, tuple(k_shape))
+        return p.rows, p.block_n, p.splits, p.smem
     if name.endswith("_bwd"):
         p = attention.bwd_plan(B, H, Lq, k.shape[1], HD // H, tuple(k_shape))
         return p.splits, p.q_ctas, p.k_ctas, p.smem_q, p.smem_k
@@ -487,9 +505,9 @@ def device_ms(thunks, attempts: int = 24):
 def shape_key(name, args):
     """The calls of a kernel grouped for the per-shape lines: attention by
     (q shape, k shape, launch plan), LayerNorm by (rows, C, bulk path), the
-    block tail by (R, C); other kernels form one group."""
+    block tail by (R, C), K7 by (Bt, L, C); other kernels form one group."""
     base = name.removesuffix("_f32")
-    if name in ATTENTION:
+    if base in ATTENTION:
         return tuple(args[0].shape), tuple(args[1].shape), attention_plan(name, args)
     if base == "layer_norm":  # and whether the bulk path takes it (else the row kernel)
         x = args[0]
@@ -497,7 +515,14 @@ def shape_key(name, args):
         return x.numel() // C, C, C * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
     if base == "block_tail":
         return tuple(args[0].shape)
+    if base == "cvt_attention":
+        return tuple(args[0].shape)
     return None
+
+
+# what the key of a `[shape ...]` line lists
+SHAPE_LABEL = {"layer_norm": "(rows, C, bulk)", "block_tail": "(rows, C)",
+               "cvt_attention": "(Bt, L, C)"}
 
 
 def hold_kernels(names, recorders, plain, counts, profile=False):
@@ -601,7 +626,7 @@ def hold_kernels(names, recorders, plain, counts, profile=False):
                 "CUDA kernel")
             log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=8))
         for key, (n, _, _, ms, lms, bound, dms, ldms) in groups.items():
-            if name in ATTENTION:
+            if name.removesuffix("_f32") in ATTENTION:
                 qs, ks, plan = key
                 log(f"[block {name}] q {qs} k {ks} plan {plan}: {n} calls, kernel {ms / n:.4f} "
                     f"ms, SDPA {lms / n:.4f} ms, bound {bound / n:.4f} ms (operations), "
@@ -610,7 +635,8 @@ def hold_kernels(names, recorders, plain, counts, profile=False):
                     f"SDPA {1e3 * ldms / n if ldms else 0.0:.2f} us")
             elif key is not None:
                 lib_us = f"{1e3 * ldms / n:.2f} us" if ldms is not None else "none"
-                log(f"[shape {name}] (rows, C{', bulk' if len(key) == 3 else ''}) {key}: {n} calls, device {1e3 * dms / n:.2f} us "
+                log(f"[shape {name}] {SHAPE_LABEL[name.removesuffix('_f32')]} {key}: {n} calls, "
+                    f"device {1e3 * dms / n:.2f} us "
                     f"per call, bound {1e3 * bound / n:.2f} us per call, "
                     f"{100.0 * bound / dms:.1f}% of bound; events {ms / n:.4f} ms per call; "
                     f"library device {lib_us} per call")
@@ -857,12 +883,13 @@ def visual_config(cls_stream: bool = True):
                                                                cls_stream=cls_stream))
 
 
-def visual_only_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi):
+def visual_only_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi, full_calls):
     """Phase 9: the visual-only model at full width in both MViT layouts,
     same weights, inputs, noise and draws: DDIM NFE 1 at B=2 and the
     training step at B=4; maps, launches, gradients, timings, and K12
     forward and backward against their plain versions. Returns K12's
-    `kernels` rows."""
+    `kernels` rows; K12's recorded forward calls also go into
+    `full_calls` (phase 11)."""
     from diff_sal_tpu_torch.config import ExperimentConfig, SamplingConfig
     from diff_sal_tpu_torch.inference import sample_saliency
     from diff_sal_tpu_torch.models.diff_model import VideoSaliencyModel, build_model
@@ -1017,6 +1044,7 @@ def visual_only_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi)
 
     counts = dict(counts["token_concat"])
     counts["fused_bias_attention_bwd"] = tcounts["token_concat"]["fused_bias_attention_bwd"]
+    full_calls["fused_bias_attention"] = list(recorders["fused_bias_attention"].calls)
     return hold_kernels(("fused_bias_attention", "fused_bias_attention_bwd"), recorders,
                         plain, counts, cli.profile)
 
@@ -1141,6 +1169,87 @@ def f32_phase(dev, schedule, data_cfg, recorders, plain):
     return hold_kernels(F32_KERNELS, recs, plain, counts)
 
 
+def f32_block_phase(full_calls):
+    """Phase 11: the f32 attention forward at full width. Phase 3's recorded
+    K1 calls and phase 9's recorded K12 forward calls, cast to f32, each
+    through the f32 instance (with its logsumexp), its plain version and
+    SDPA in f32; one `[block ...]` line per MViT block shape with the device
+    time per call of the kernel and of SDPA and the share of the bound, and
+    the CUDA kernels SDPA f32 runs. The kernel is held to the f32 tolerance
+    against the plain version on the same inputs computed in f64: at these
+    magnitudes (|out| up to ~8, sums over up to 2689 keys) the plain
+    version's own f32 result sits up to ~1e-5 from it, a distance logged
+    beside the kernel's. These launches compare a kernel with its plain
+    version: no path's count reads them. Returns {name: (kernel device ms,
+    SDPA device ms, bound ms, max|d|)} over the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diff_sal_tpu_torch.ops import attention
+
+    fns = {"bias_attention": (attention.bias_attention_fwd, attention.bias_attention_plain),
+           "fused_bias_attention": (attention.fused_bias_attention_fwd,
+                                    attention.fused_bias_attention_plain)}
+    atol, rtol = TOL[torch.float32]
+    summary = {}
+    for name, calls in full_calls.items():
+        fn, plain_fn = fns[name]
+        groups = {}  # shape key -> kernel thunks, SDPA thunks, bound ms
+        err = plain_err = 0.0
+        for args, kw in calls:
+            a32 = tuple(x.float() if isinstance(x, torch.Tensor) else x for x in args)
+            out, lse = fn(*a32, **kw, return_lse=True)
+            ref, ref_lse = plain_fn(*(x.double() if isinstance(x, torch.Tensor) else x
+                                      for x in a32), **kw, return_lse=True)
+            torch.cuda.synchronize()
+            d_out = float((out.double() - ref).abs().max())
+            d_lse = (lse.double() - ref_lse).abs()
+            assert d_out <= atol, f"{name}_f32 at {tuple(a32[0].shape)}: max|d| {d_out:.3e}"
+            assert not bool((d_lse > 1e-5 + 1e-6 * ref_lse.abs()).any()), (
+                f"{name}_f32 at {tuple(a32[0].shape)}: logsumexp max|d| {float(d_lse.max()):.3e}")
+            err = max(err, d_out)
+            plain_err = max(plain_err, float((plain_fn(*a32, **kw).double() - ref).abs().max()))
+            del out, lse, ref, ref_lse
+            q, k = a32[:2]
+            k_shape, H = (a32[4], a32[5]) if name == "bias_attention" else (a32[6], 1)
+            plan = attention.f32_fwd_plan(q.shape[0], H, q.shape[1], k.shape[1], q.shape[2] // H,
+                                          tuple(k_shape))
+            key = (tuple(q.shape), tuple(k.shape), (plan.rows, plan.block_n, plan.splits,
+                                                    plan.smem))
+            nbytes, ops = bound_terms(name + "_f32", a32, kw)
+            g = groups.setdefault(key, [[], [], 0.0])
+            g[0].append(lambda a=a32, kw=kw: fn(*a, **kw))
+            g[1].append(library_call(name + "_f32", a32, kw))
+            g[2] += max(nbytes / HBM_BYTES_PER_S, sum(n / p for n, p in ops)) * 1e3
+        tot = [0.0, 0.0, 0.0]
+        for (qs, ks, plan), (kern, lib, bound) in groups.items():
+            n = len(kern)
+            dms, lms = device_ms(kern)[0], device_ms(lib)[0]
+            tot = [tot[0] + dms, tot[1] + lms, tot[2] + bound]
+            log(f"[block {name}_f32] q {qs} k {ks} plan (rows, block_n, splits, smem) {plan}: {n} "
+                f"calls, device {1e3 * dms / n:.2f} us per call ({100.0 * bound / dms:.1f}% of "
+                f"bound), SDPA f32 device {1e3 * lms / n:.2f} us ({100.0 * bound / lms:.1f}% of "
+                f"bound), bound {1e3 * bound / n:.2f} us (split TF32), SDPA / kernel "
+                f"{lms / dms:.2f}")
+        summary[name] = (*tot, err)
+        log(f"[f32 full width] {name}_f32: {len(calls)} calls, device {tot[0]:.4f} ms, SDPA f32 "
+            f"{tot[1]:.4f} ms, bound {tot[2]:.4f} ms; max|d| from the plain version in f64: "
+            f"kernel {err:.3e}, the plain version in f32 {plain_err:.3e}")
+        # what SDPA runs in f32, on the first block shape
+        lib = next(iter(groups.values()))[1][0]
+        names = set()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                lib()
+                torch.cuda.synchronize()
+            names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+            if names:
+                break
+        log(f"[f32 full width] SDPA f32 ({name}, first block shape) runs: {names}")
+        del groups
+    return summary
+
+
 def resize_add_phase(k4_call, recorders, plain):
     """K10, which no model path calls: the four task maps K4 summed in the
     main path's run added one by one into a zero bf16 accumulator (counts
@@ -1215,7 +1324,8 @@ def main() -> int:
             # the forward attention's, K2's and K3's lines also name each template
             # instance; a warning line (C7514, C7512: wgmma serialised) is kept
             if ("Used" in line or "spill" in line or "warning" in line
-                    or (source in ("attention.cu", "layernorm.cu", "mlp.cu")
+                    or (source in ("attention.cu", "layernorm.cu", "mlp.cu",
+                                   "attention_f32_fwd.cu", "cvt_attention.cu")
                         and "entry function" in line)):
                 log(f"[ptxas {source}] {line.strip()}")
 
@@ -1313,6 +1423,9 @@ def main() -> int:
     }
     plain.update({n: plain[n.removesuffix("_f32")] for n in F32_KERNELS})
     k4_call = recorders["bilinear_resize_sum"].calls[0]
+    # phase 11 casts the main path's K1 calls (and phase 9's K12 forward
+    # calls) to f32; hold_kernels empties the recorders
+    full_calls = {"bias_attention": list(recorders["bias_attention"].calls)}
     rows = hold_kernels(INFER_KERNELS, recorders, plain, counts, cli.profile)
     rows += resize_add_phase(k4_call, recorders, plain)
     del k4_call
@@ -1473,13 +1586,20 @@ def main() -> int:
 
     # -- phase 9: the visual-only model in both MViT layouts ----------------
     t0 = time.perf_counter()
-    rows += visual_only_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi)
+    rows += visual_only_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi,
+                              full_calls)
     log(f"[visual] phase {time.perf_counter() - t0:.1f} s")
 
     # -- phase 10: f32 through the kernels' f32 instances -----------------
     t0 = time.perf_counter()
     rows += f32_phase(dev, schedule, data_cfg, recorders, plain)
     log(f"[f32] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 11: the f32 attention forward at full width ------------------
+    t0 = time.perf_counter()
+    f32_block_phase(full_calls)
+    del full_calls
+    log(f"[f32 full width] phase {time.perf_counter() - t0:.1f} s")
 
     log("[device time] profiler sessions " + json.dumps(DEVICE_MS_TALLY))
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

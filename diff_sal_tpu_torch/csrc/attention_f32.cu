@@ -1,31 +1,30 @@
-// K1, K12 forward, K5 and K12's backward in f32: the instances an f32 model
-// (both packages' default compute dtype) runs on the card.
+// K5 and K12's backward in f32: the instances an f32 model (both packages'
+// default compute dtype) runs on the card when it takes a gradient. The f32
+// forward (K1 and K12 in f32) is csrc/attention_f32_fwd.cu; these kernels
+// read the logsumexp it saves.
 //
-// The same functions as csrc/attention.cu and csrc/attention_bwd.cu (the TPU
-// kernels diff_sal_tpu/ops/attention.py:601 fused_bias_attention_v2, :119
-// fused_bias_attention and their backwards _fba2_bwd :761, _fba_bwd :280,
-// which take f32 as they take bf16), with every product in f32 by FFMA on
-// the CUDA cores: the bf16 instances' wgmma takes no f32 operands, and TF32
-// keeps 10 mantissa bits, too few for the f32 tolerance. In f32 nothing is
-// rounded between the steps (p_lo = p, ds_lo = ds), as the plain versions
-// compute at f32. These instances are written to be right and simple, not
-// fast: f32 on the CUDA cores is bound by operations at ~67 TFLOP/s, a
-// fifteenth of the bf16 tensor cores.
+// The same functions as csrc/attention_bwd.cu (the TPU kernels
+// diff_sal_tpu/ops/attention.py:761 _fba2_bwd and :280 _fba_bwd, which take
+// f32 as they take bf16), with every product in f32 by FFMA on the CUDA
+// cores. In f32 nothing is rounded between the steps (p_lo = p, ds_lo = ds),
+// as the plain versions compute at f32. They are bound by operations (five
+// (Lq, Lk, D) products per head); FFMA peaks at ~67 TFLOP/s, and split TF32
+// on the tensor cores (as the forward runs) would reach 165: a redesign
+// that has not been made, so these kernels lose to the library call
+// (PERF.md).
 //
 // Layouts: q, k, v, g (B, L, H*D) with the (t, h, w) bias terms read
-// through RelIn (K1: one (B, Lq, H, kt + kh + kw) tensor; K12: B*heads
+// through RelIn (K5: one (B, Lq, H, kt + kh + kw) tensor; K12: B*heads
 // batches of one head, three (B*heads, Lq, kt | kh | kw) tensors). A warp
 // owns 8 rows (query rows, or keys in the k-major backward) and its lanes
 // take one column each of a 32-wide tile of the other axis, so every dot
 // product is a lane's own loop over D, reductions over a tile are warp
 // shuffles, and products with the tile run over the lanes' D columns.
-//  - forward, one CTA of 4 warps per 32 query rows: online softmax over
-//    32-key tiles, the row logsumexp saved for the backward;
-//  - backward, q-major (dq, drel, delta): two passes over the key tiles
-//    (delta = rowsum(dp * p), then ds); drel sums ds over the keys of each
-//    t, h and w bin in key order, lane c owning bins c, c + 32, ...;
-//  - backward, k-major (dk, dv), one CTA per 32 keys and query split, the
-//    splits' f32 partial sums reduced in a fixed order.
+//  - q-major (dq, drel, delta): two passes over the key tiles (delta =
+//    rowsum(dp * p), then ds); drel sums ds over the keys of each t, h and
+//    w bin in key order, lane c owning bins c, c + 32, ...;
+//  - k-major (dk, dv), one CTA per 32 keys and query split, the splits'
+//    f32 partial sums reduced in a fixed order.
 // No atomics: two runs give the same bits.
 
 #include <cuda_runtime.h>
@@ -45,18 +44,12 @@ constexpr int MAX_K = 128;    // kt + kh + kw
 
 struct Params {
   const float *q, *k, *v, *g, *lse;
-  float *out, *lse_out, *dq, *delta, *work;
+  float *dq, *delta, *work;
   RelIn<float> rel;
   RelOut<float> drel;
   int B, Lq, Lk, H, kt, kh, kw, res_from, splits;
   float scale;
 };
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -88,72 +81,6 @@ __device__ __forceinline__ void load_rel(const RelIn<float>& rel, float* dst, in
   for (int r = threadIdx.x; r < n; r += NT) {
     dst[r * ld + K] = 0.f;
     dst[r * ld + K + 1] = -INFINITY;
-  }
-}
-
-// ------------------------------------------------------------- forward ---
-
-template <int D>
-__global__ void __launch_bounds__(NT) f32_fwd_kernel(const Params p) {
-  extern __shared__ float sm[];
-  const int K = p.kt + p.kh + p.kw, LR = K + 2;
-  float* Qs = sm;                    // ROWS x D, scaled
-  float* Ks = Qs + ROWS * D;         // T x (D + 1)
-  float* Vs = Ks + T * (D + 1);      // T x D
-  float* Rs = Vs + T * D;            // ROWS x LR
-  const int qtiles = (p.Lq + ROWS - 1) / ROWS;
-  const int bh = blockIdx.x / qtiles, q0 = (blockIdx.x - bh * qtiles) * ROWS;
-  const int b = bh / p.H, h = bh - b * p.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int C = D / 32;  // output columns per lane: lane + 32 c
-
-  load_rows<D>(p.q, Qs, D, ROWS, b, p.Lq, q0, p.H, h, p.scale);
-  load_rel(p.rel, Rs, LR, ROWS, b, p.Lq, q0, h, p.kt, p.kh, K);
-  float m[WR], l[WR], o[WR][C];
-#pragma unroll
-  for (int i = 0; i < WR; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) o[i][c] = 0.f;
-  }
-  for (int j0 = 0; j0 < p.Lk; j0 += T) {
-    __syncthreads();  // everyone is done with the previous tile
-    load_rows<D>(p.k, Ks, D + 1, T, b, p.Lk, j0, p.H, h, 1.f);
-    load_rows<D>(p.v, Vs, D, T, b, p.Lk, j0, p.H, h, 1.f);
-    __syncthreads();
-    const int e = key_index(j0 + lane, p.Lk, p.kt, p.kh, p.kw);
-#pragma unroll
-    for (int i = 0; i < WR; ++i) {
-      const int r = warp * WR + i;
-      float s = 0.f;
-      for (int d = 0; d < D; ++d) s = fmaf(Qs[r * D + d], Ks[lane * (D + 1) + d], s);
-      s += bias_at(Rs + r * LR, e);
-      const float mn = fmaxf(m[i], warp_max(s));  // every tile holds a valid key
-      const float pr = expf(s - mn), alpha = expf(m[i] - mn);
-      m[i] = mn;
-      l[i] = l[i] * alpha + warp_sum(pr);
-#pragma unroll
-      for (int c = 0; c < C; ++c) o[i][c] *= alpha;
-      for (int jj = 0; jj < T; ++jj) {
-        const float pj = __shfl_sync(0xffffffffu, pr, jj);
-#pragma unroll
-        for (int c = 0; c < C; ++c) o[i][c] = fmaf(pj, Vs[jj * D + lane + 32 * c], o[i][c]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < WR; ++i) {
-    const int row = q0 + warp * WR + i;
-    if (row >= p.Lq) continue;
-    const size_t base = ((size_t)b * p.Lq + row) * p.H * D + h * D;
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float x = o[i][c] / l[i];
-      if (row >= p.res_from) x += p.q[base + lane + 32 * c];
-      p.out[base + lane + 32 * c] = x;
-    }
-    if (p.lse_out != nullptr && lane == 0) p.lse_out[(size_t)bh * p.Lq + row] = m[i] + logf(l[i]);
   }
 }
 
@@ -364,13 +291,6 @@ int launch(KernelT kernel, int grid, size_t smem, cudaStream_t s, const Params& 
 }
 
 template <int D>
-int fwd(const Params& p, cudaStream_t s) {
-  const int LR = p.kt + p.kh + p.kw + 2;
-  const size_t smem = (size_t)(ROWS * D + T * (D + 1) + T * D + ROWS * LR) * 4;
-  return launch(f32_fwd_kernel<D>, p.B * p.H * ((p.Lq + ROWS - 1) / ROWS), smem, s, p);
-}
-
-template <int D>
 int bwd(const Params& p, float* dk, float* dv, cudaStream_t s) {
   const int LR = p.kt + p.kh + p.kw + 2;
   const size_t sq = (size_t)(2 * ROWS * D + 2 * T * (D + 1) + ROWS * LR + T) * 4;
@@ -391,12 +311,6 @@ bool valid(const Params& p, int D) {
   return (D == 64 || D == 96 || D == 128) && p.Lq >= 1 && p.Lk >= 1 && K >= 1 && K <= MAX_K;
 }
 
-int run_fwd(const Params& p, int D, void* stream) {
-  if (!valid(p, D)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? fwd<64>(p, s) : (D == 96 ? fwd<96>(p, s) : fwd<128>(p, s));
-}
-
 int run_bwd(const Params& p, int D, void* dk, void* dv, void* stream) {
   if (!valid(p, D) || p.splits < 1 || p.lse == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -412,45 +326,6 @@ RelIn<float> packed_rel(const void* rel, int H, int kt, int kh, int kw) {
 }
 
 }  // namespace
-
-// K1 in f32: q (B, Lq, H*D), k, v (B, Lk, H*D), rel (B, Lq, H, kt+kh+kw),
-// out, all f32; lse (B, H, Lq) f32 or null; the residual covers every row
-extern "C" int dsal_bias_attention_f32(const void* q, const void* k, const void* v,
-                                       const void* rel, void* out, void* lse, int B, int Lq,
-                                       int Lk, int H, int D, int kt, int kh, int kw, float scale,
-                                       int residual, void* stream) {
-  Params p = {};
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.out = static_cast<float*>(out);
-  p.lse_out = static_cast<float*>(lse);
-  p.rel = packed_rel(rel, H, kt, kh, kw);
-  p.B = B; p.Lq = Lq; p.Lk = Lk; p.H = H; p.kt = kt; p.kh = kh; p.kw = kw;
-  p.res_from = residual ? 0 : Lq;
-  p.scale = scale;
-  return run_fwd(p, D, stream);
-}
-
-// K12 in f32: q, k, v, out (BH, L, D) with cls at row 0; rel_t/h/w (BH, Lq,
-// kt/kh/kw); lse (BH, Lq) or null; the residual skips row 0
-extern "C" int dsal_cls_attention_f32(const void* q, const void* k, const void* v,
-                                      const void* rel_t, const void* rel_h, const void* rel_w,
-                                      void* out, void* lse, int BH, int Lq, int Lk, int D, int kt,
-                                      int kh, int kw, float scale, int residual, void* stream) {
-  Params p = {};
-  p.q = static_cast<const float*>(q);
-  p.k = static_cast<const float*>(k);
-  p.v = static_cast<const float*>(v);
-  p.out = static_cast<float*>(out);
-  p.lse_out = static_cast<float*>(lse);
-  p.rel = {{static_cast<const float*>(rel_t), static_cast<const float*>(rel_h),
-            static_cast<const float*>(rel_w)}, {kt, kh, kw}, 0};
-  p.B = BH; p.Lq = Lq; p.Lk = Lk; p.H = 1; p.kt = kt; p.kh = kh; p.kw = kw;
-  p.res_from = residual ? 1 : Lq;
-  p.scale = scale;
-  return run_fwd(p, D, stream);
-}
 
 // K5 in f32: as dsal_bias_attention_f32 plus g, lse (B, H, Lq) from the
 // forward, outputs dq, dk, dv, drel, workspaces delta (B, H, Lq) and work

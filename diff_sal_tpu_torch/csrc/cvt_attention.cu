@@ -4,160 +4,372 @@
 // Replaces the TPU kernel diff_sal_tpu/ops/attention.py:893
 // cvt_cross_attention (body _cvt_attn_kernel :841), which keeps k/v (S <= 128
 // keys, padded to 128 lanes and masked) resident in VMEM and streams q in
-// row tiles so that the (L, S) scores never reach HBM. The decoder pools k/v
-// to S = 18 tokens while q keeps the full grid (L up to 5376): on the H100
-// the function is bound by the bytes of q and out (4 S flops per q element).
-// So a CTA of four warps owns 64 query rows of one head of one batch item
-// and keeps everything else on chip:
-//   * it stages the q tile and the head's k and v (S padded to a multiple of
-//     16 with zero rows) in shared memory with 16-byte loads;
-//   * each warp computes its 16 rows' scores q k^T on the tensor cores (bf16
-//     WMMA, f32 accumulation) into shared memory;
-//   * one lane per row takes the softmax in f32 with a row max, masks the
-//     padded keys and rounds p to bf16, as the TPU kernel feeds p to its
-//     p v product;
-//   * p v runs on the tensor cores, 16 output columns at a time, and each
-//     16 x 16 f32 tile is rounded once and written out.
-// Layouts: q (Bt, L, C), k and v (Bt, S, C), out (Bt, L, C), all bf16 and
-// contiguous, C = heads * hd with hd % 16 == 0, S <= 128, the whole tile
-// set within the 227 KB of shared memory a CTA may use.
+// tiles of whole rows (all heads, BlockSpec((1, tl, C))), so that the (L, S)
+// scores never reach HBM. The decoder pools k/v to S = 18 tokens while q
+// keeps the full grid (L up to 5376): the function does 4 S flops per q
+// element and is bound by the bytes of q and out on the H100. What holds
+// such a pass back is bytes in flight and a fixed cost per CTA, so the bf16
+// kernel streams:
+// - Persistent CTAs (two per SM where two fit, else one) walk a contiguous
+//   range of 64-row tiles of whole rows, in (batch item, row tile) order:
+//   four or eight consumer warps and one producer warp each. Where the whole
+//   rows' k and v do not fit in shared memory beside a tile, or the tiles
+//   are fewer than the SMs, the heads are split into groups (each a multiple
+//   of 32 columns) and a tile is (batch item, head group, 64 rows).
+// - q tiles come by TMA (32-column boxes, 64-byte swizzle, rows past L
+//   zero-filled) into a ring of 1-4 buffers behind full/empty mbarriers,
+//   issued by the producer up to `stages` tiles ahead. k and v of the
+//   current batch item (padded to SP = 16, 32, 64 or 128 keys by TMA's zero
+//   fill) stay resident and are reloaded only when the batch item (or head
+//   group) changes.
+// - Each consumer warp owns 16 rows of a tile and its share of the group's
+//   heads (eight warps, two per 16 rows, where a group holds two heads or
+//   more). Per head: the scores q k^T on the tensor cores (mma.sync
+//   m16n8k16 bf16, f32 accumulation, fragments by ldmatrix from the
+//   swizzled tiles), times the scale, padded keys masked; the softmax in
+//   f32 in the accumulator registers (row max and sum over the 4 lanes of
+//   a quad), p normalised and rounded to bf16 as the A operand of p v (V by
+//   ldmatrix.trans), f32 accumulation, one rounding of each output, written
+//   over the head's q columns of the same tile.
+// - The producer stores each finished tile by TMA (columns and rows past
+//   the tensor clipped) while the consumers compute the next, and refills
+//   its buffer once the store has read it.
+// Layouts: q, out (Bt, L, C), k and v (Bt, S, C), all bf16, contiguous and
+// 16-byte aligned; C = heads * hd with hd % 16 == 0, 1 <= S <= 128. The
+// plan (keys padded, head groups, stages, CTAs per SM) is chosen here and
+// mirrored by `cvt_plan` in ops/attention.py.
 //
 // The f32 instance (`dsal_cvt_attention_f32`, for an f32 model) keeps the
-// products in f32 by FFMA on the CUDA cores (TF32 keeps too few mantissa
-// bits for the f32 tolerance): a CTA of four warps owns 32 query rows of one
-// head, stages them and the head's k and v in shared memory (f32, key rows
-// padded by one float against bank conflicts), lane u of a warp takes keys
-// u, u + 32, .. for the scores of the warp's 8 rows, the softmax reduces by
-// warp shuffles, and p v runs over the lanes' head-dim columns.
+// products in f32 by FFMA on the CUDA cores: a CTA of four warps owns 32
+// query rows of one head, stages them and the head's k and v in shared
+// memory (f32, key rows padded by one float against bank conflicts), lane u
+// of a warp takes keys u, u + 32, .. for the scores of the warp's 8 rows,
+// the softmax reduces by warp shuffles, and p v runs over the lanes'
+// head-dim columns. It is bound by bytes as the bf16 kernel is, and has not
+// been redesigned (PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <mma.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int WARPS = 4;
-constexpr int ROWS = 16 * WARPS;  // query rows per CTA
 constexpr int THREADS = 32 * WARPS;
+constexpr int TR = 16 * WARPS;  // rows per tile of the bf16 kernel
 constexpr int MAX_S = 128;
-constexpr size_t MAX_SMEM = 232448;  // bytes of shared memory a CTA may use
+constexpr int MAX_STAGES = 4;
+constexpr int NUM_SMS = 132;
+constexpr int SMEM_MAX = 232448;  // bytes of shared memory a CTA may use
+constexpr int SMEM_TWO = 115712;  // per CTA when two share an SM (228 KB less 1 KB each)
 
-struct Layout {
-  int sp, lds, ldp;  // padded keys, score and probability row strides
-  size_t q, k, v, s, p, scratch, total;  // byte offsets
+struct CvtPlan {
+  int sp, groups, head_ways, chunks, stages, per_sm, smem;
 };
 
-__host__ __device__ inline Layout layout(int S, int hd) {
-  Layout l;
-  l.sp = (S + 15) / 16 * 16;
-  l.lds = l.sp + 4;  // f32 row stride: a multiple of 4, off the 32-bank period
-  l.ldp = l.sp + 8;  // bf16 row stride: a multiple of 8
-  l.q = 0;
-  l.k = l.q + (size_t)ROWS * hd * 2;
-  l.v = l.k + (size_t)l.sp * hd * 2;
-  l.s = l.v + (size_t)l.sp * hd * 2;
-  l.p = l.s + (size_t)ROWS * l.lds * 4;
-  l.scratch = l.p + (size_t)ROWS * l.ldp * 2;
-  l.total = l.scratch + (size_t)WARPS * 256 * 4;
-  return l;
+// a tile buffer: chunks x TR rows x 64 bytes; k and v: chunks x sp x 64
+// bytes each; the mbarriers (full and empty per buffer, k/v); 1024 bytes to
+// align the base
+__host__ __device__ inline int cvt_smem(int chunks, int sp, int stages) {
+  return stages * chunks * TR * 64 + 2 * chunks * sp * 64 + (2 * stages + 1) * 8 + 1024;
 }
 
-__global__ void __launch_bounds__(THREADS)
-cvt_attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                int L, int S, int C, int hd, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout lay = layout(S, hd);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + lay.q);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + lay.k);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + lay.v);
-  float* sc = reinterpret_cast<float*>(smem + lay.s);
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem + lay.p);
-  float* scratch = reinterpret_cast<float*>(smem + lay.scratch);
-  const int sp = lay.sp, lds = lay.lds, ldp = lay.ldp;
-
-  const int bt = blockIdx.z, h = blockIdx.y;
-  const int row0 = blockIdx.x * ROWS;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int vecs = hd / 8;  // 16-byte vectors per row of one head
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-
-  for (int i = threadIdx.x; i < sp * vecs; i += THREADS) {
-    const int j = i / vecs, c = (i - j * vecs) * 8;
-    const long long src = ((long long)bt * S + j) * C + h * hd + c;
-    *reinterpret_cast<uint4*>(ks + j * hd + c) =
-        j < S ? *reinterpret_cast<const uint4*>(k + src) : zero;
-    *reinterpret_cast<uint4*>(vs + j * hd + c) =
-        j < S ? *reinterpret_cast<const uint4*>(v + src) : zero;
+// Keys padded to a power of two >= 16. Heads split into groups (a group
+// short of all heads spans a multiple of 32 columns) where whole rows' k
+// and v do not fit beside a tile, and further while the tiles do not give
+// every SM one; two warps per 16 rows (each a share of the group's heads)
+// where a group holds two heads or more. Two CTAs per SM with at least two
+// buffers each where they fit, else one with as many buffers (up to four)
+// as fit. Mirrored by `cvt_plan` in ops/attention.py. Returns false where
+// nothing fits.
+bool cvt_plan(int Bt, int L, int S, int C, int heads, CvtPlan* out) {
+  const int hd = heads > 0 ? C / heads : 0;
+  if (Bt < 1 || L < 1 || S < 1 || S > MAX_S || hd < 16 || hd % 16 != 0 || hd * heads != C)
+    return false;
+  int sp = 16;
+  while (sp < S) sp *= 2;
+  const int rtiles = (L + TR - 1) / TR;
+  int groups = 0;
+  for (int g = 1; g <= heads; ++g) {
+    if (heads % g != 0 || (g > 1 && heads / g * hd % 32 != 0)) continue;
+    if (cvt_smem((heads / g * hd + 31) / 32, sp, 1) > SMEM_MAX) continue;
+    groups = g;
+    if (Bt * g * rtiles >= NUM_SMS) break;
   }
-  for (int i = threadIdx.x; i < ROWS * vecs; i += THREADS) {
-    const int r = i / vecs, c = (i - r * vecs) * 8;
-    const int row = row0 + r;
-    *reinterpret_cast<uint4*>(qs + r * hd + c) =
-        row < L ? *reinterpret_cast<const uint4*>(q + ((long long)bt * L + row) * C + h * hd + c)
-                : zero;
+  if (groups == 0) return false;
+  const int hg = heads / groups, chunks = (hg * hd + 31) / 32;
+  const int ways = hg >= 2 ? 2 : 1;
+  for (int stages = MAX_STAGES; stages >= 2; --stages) {
+    if (cvt_smem(chunks, sp, stages) <= SMEM_TWO) {
+      *out = {sp, groups, ways, chunks, stages, 2, cvt_smem(chunks, sp, stages)};
+      return true;
+    }
+  }
+  for (int stages = MAX_STAGES; stages >= 1; --stages) {
+    if (cvt_smem(chunks, sp, stages) <= SMEM_MAX) {
+      *out = {sp, groups, ways, chunks, stages, 1, cvt_smem(chunks, sp, stages)};
+      return true;
+    }
+  }
+  return false;
+}
+
+struct CvtParams {
+  int L, S, hd, hg, groups, chunks, rtiles, ntiles, stages;
+  float scale;
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// register operands only: the compiler may interleave independent products
+__device__ __forceinline__ void mma16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// byte offset of (row, col) in a [chunks][nrows][32] bf16 region that TMA
+// wrote with the 64-byte swizzle (the 16-byte unit of a 64-byte row is
+// XORed with bits 1-2 of the row); col % 8 == 0, the region 512-aligned
+__device__ __forceinline__ uint32_t sw_off(int nrows, int row, int col) {
+  return (col >> 5) * nrows * 64 + row * 64 + ((((col & 31) >> 3) ^ ((row >> 1) & 3)) << 4);
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+// (batch item, head group, row tile) of tile index `tile`, row tiles fastest
+__device__ __forceinline__ void tile_coords(const CvtParams& p, int tile, int& bt, int& grp,
+                                            int& rt) {
+  rt = tile % p.rtiles;
+  const int bg = tile / p.rtiles;
+  grp = bg % p.groups;
+  bt = bg / p.groups;
+}
+
+// the q tile `tile` into buffer `dst`, completing on `bar`
+__device__ __forceinline__ void load_q(const CUtensorMap* tq, const CvtParams& p, uint32_t dst,
+                                       uint32_t bar, int tile) {
+  int bt, grp, rt;
+  tile_coords(p, tile, bt, grp, rt);
+  mbar_expect_tx(bar, p.chunks * TR * 64);
+  for (int c = 0; c < p.chunks; ++c)
+    tma_load(dst + c * TR * 64, tq, bar, grp * p.hg * p.hd + 32 * c, rt * TR, bt);
+}
+
+// kv buffer id of a tile: k and v are reloaded where it changes
+__device__ __forceinline__ int kv_id(const CvtParams& p, int tile) { return tile / p.rtiles; }
+
+// Warps 0 .. 4 HW - 1 consume: warp w takes rows 16 (w % 4) .. + 15 of
+// each tile and heads w / 4, w / 4 + HW, .. of its group. Warp 4 HW's first
+// thread produces: it keeps q tiles `stages` ahead, reloads k and v where
+// the batch item (or head group) changes, and stores each finished tile.
+template <int SP, int HW>
+__global__ void __launch_bounds__(32 * (4 * HW + 1))
+    cvt_attn_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                    const CvtParams p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_u32(smem);
+  const int tile_bytes = p.chunks * TR * 64, kv_bytes = p.chunks * SP * 64;
+  const uint32_t kb = sbase + p.stages * tile_bytes, vb = kb + kv_bytes;
+  // mbarriers: full (tile landed) and empty (tile computed) per buffer, k/v landed
+  const uint32_t full = vb + kv_bytes, empty = full + 8 * p.stages, kvbar = empty + 8 * p.stages;
+  // this CTA's contiguous range of tiles
+  const int t0 = (int)((long long)blockIdx.x * p.ntiles / gridDim.x);
+  const int n = (int)((long long)(blockIdx.x + 1) * p.ntiles / gridDim.x) - t0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 128 * HW);
+    }
+    mbar_init(kvbar, 1);
+    fence_mbar_init();
   }
   __syncthreads();
 
-  // scores of this warp's 16 rows against every key tile
-  const __nv_bfloat16* qw = qs + warp * 16 * hd;
-  for (int kt = 0; kt < sp / 16; ++kt) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int d0 = 0; d0 < hd; d0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-      wmma::load_matrix_sync(a, qw + d0, hd);
-      wmma::load_matrix_sync(b, ks + kt * 16 * hd + d0, hd);  // k^T as a column-major tile
-      wmma::mma_sync(acc, a, b, acc);
+  if (warp == 4 * HW) {  // the producer
+    if (lane != 0) return;
+    auto load_kv = [&](int tile) {
+      int bt, grp, rt;
+      tile_coords(p, tile, bt, grp, rt);
+      mbar_expect_tx(kvbar, 2 * kv_bytes);
+      for (int c = 0; c < p.chunks; ++c) {
+        tma_load(kb + c * SP * 64, &tk, kvbar, grp * p.hg * p.hd + 32 * c, 0, bt);
+        tma_load(vb + c * SP * 64, &tv, kvbar, grp * p.hg * p.hd + 32 * c, 0, bt);
+      }
+    };
+    if (n > 0) load_kv(t0);
+    for (int i = 0; i < n && i < p.stages; ++i)
+      load_q(&tq, p, sbase + i * tile_bytes, full + 8 * i, t0 + i);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % p.stages, tile = t0 + i;
+      mbar_wait(empty + 8 * s, (i / p.stages) & 1);  // the consumers are done with tile i
+      if (i + 1 < n && kv_id(p, tile + 1) != kv_id(p, tile)) load_kv(tile + 1);
+      int bt, grp, rt;
+      tile_coords(p, tile, bt, grp, rt);
+      const uint32_t qb = sbase + s * tile_bytes;
+      for (int c = 0; c < p.chunks; ++c)
+        tma_store(&to, qb + c * TR * 64, grp * p.hg * p.hd + 32 * c, rt * TR, bt);
+      bulk_commit();
+      if (i + p.stages < n) {
+        bulk_wait_read<0>();  // the buffer is free once the store has read it
+        load_q(&tq, p, qb, full + 8 * s, tile + p.stages);
+      }
     }
-    wmma::store_matrix_sync(sc + warp * 16 * lds + kt * 16, acc, lds, wmma::mem_row_major);
+    bulk_wait_all();  // shared memory stays until the stores are done
+    return;
   }
-  __syncwarp();
 
-  // softmax of each row in f32, p rounded to bf16, padded keys masked to 0
-  if (lane < 16) {
-    float* sr = sc + (warp * 16 + lane) * lds;
-    __nv_bfloat16* pr = ps + (warp * 16 + lane) * ldp;
-    float m = -INFINITY;
-    for (int j = 0; j < S; ++j) m = fmaxf(m, sr[j] * scale);
-    float sum = 0.f;
-    for (int j = 0; j < S; ++j) {
-      const float e = expf(sr[j] * scale - m);
-      sr[j] = e;
-      sum += e;
+  const int r16 = (warp & 3) * 16;
+  int cur_kv = -1, kv_parity = 0;
+  for (int i = 0; i < n; ++i) {
+    const int tile = t0 + i, s = i % p.stages;
+    if (kv_id(p, tile) != cur_kv) {
+      mbar_wait(kvbar, kv_parity);
+      kv_parity ^= 1;
+      cur_kv = kv_id(p, tile);
     }
-    for (int j = 0; j < sp; ++j) pr[j] = __float2bfloat16(j < S ? sr[j] / sum : 0.f);
+    mbar_wait(full + 8 * s, (i / p.stages) & 1);
+    const uint32_t qb = sbase + s * tile_bytes;
+    unsigned char* qp = smem + s * tile_bytes;
+
+    for (int hh = warp >> 2; hh < p.hg; hh += HW) {
+      const int c0 = hh * p.hd;
+      // scores of this warp's 16 rows against the SP keys
+      float sc[SP / 8][4];
+#pragma unroll
+      for (int j = 0; j < SP / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+      for (int kk = 0; kk < p.hd; kk += 16) {
+        uint32_t a[4];
+        ldsm_x4(qb + sw_off(TR, r16 + (lane & 15), c0 + kk + (lane >> 4) * 8), a);
+#pragma unroll
+        for (int j = 0; j < SP / 16; ++j) {
+          uint32_t bb[4];  // keys 16 j .. 16 j + 15: (n-tile 2j: b0, b1), (2j + 1: b0, b1)
+          ldsm_x4(kb + sw_off(SP, 16 * j + (lane & 7) + ((lane >> 4) << 3),
+                              c0 + kk + ((lane >> 3) & 1) * 8), bb);
+          mma16(sc[2 * j], a, bb[0], bb[1]);
+          mma16(sc[2 * j + 1], a, bb[2], bb[3]);
+        }
+      }
+      // softmax of rows g and g + 8 in f32; keys past S masked
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < SP / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 8 * j + 2 * t + (e & 1);
+          sc[j][e] = key < p.S ? sc[j][e] * p.scale : -INFINITY;
+        }
+        mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < SP / 8; ++j) {
+        sc[j][0] = __expf(sc[j][0] - mx0);
+        sc[j][1] = __expf(sc[j][1] - mx0);
+        sc[j][2] = __expf(sc[j][2] - mx1);
+        sc[j][3] = __expf(sc[j][3] - mx1);
+        s0 += sc[j][0] + sc[j][1];
+        s1 += sc[j][2] + sc[j][3];
+      }
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+      const float i0 = 1.f / s0, i1 = 1.f / s1;
+      uint32_t pa[SP / 16][4];  // p in bf16, the A fragments of p v
+#pragma unroll
+      for (int j = 0; j < SP / 16; ++j) {
+        pa[j][0] = pack_bf16(sc[2 * j][0] * i0, sc[2 * j][1] * i0);
+        pa[j][1] = pack_bf16(sc[2 * j][2] * i1, sc[2 * j][3] * i1);
+        pa[j][2] = pack_bf16(sc[2 * j + 1][0] * i0, sc[2 * j + 1][1] * i0);
+        pa[j][3] = pack_bf16(sc[2 * j + 1][2] * i1, sc[2 * j + 1][3] * i1);
+      }
+      // p v, 16 output columns at a time, written over the head's q columns
+      // (this warp's rows only: nothing else reads them)
+      for (int n0 = 0; n0 < p.hd; n0 += 16) {
+        float o[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int j = 0; j < SP / 16; ++j) {
+          uint32_t bb[4];  // keys 16 j ..: (columns n0 .. n0 + 7: b0, b1), (n0 + 8 ..: b0, b1)
+          ldsm_x4_t(vb + sw_off(SP, 16 * j + (lane & 7) + ((lane >> 3) & 1) * 8,
+                                c0 + n0 + (lane >> 4) * 8), bb);
+          mma16(o[0], pa[j], bb[0], bb[1]);
+          mma16(o[1], pa[j], bb[2], bb[3]);
+        }
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn) {
+          const int col = c0 + n0 + 8 * nn, ra = r16 + g;
+          *reinterpret_cast<uint32_t*>(qp + sw_off(TR, ra, col) + 4 * t) =
+              pack_bf16(o[nn][0], o[nn][1]);
+          *reinterpret_cast<uint32_t*>(qp + sw_off(TR, ra + 8, col) + 4 * t) =
+              pack_bf16(o[nn][2], o[nn][3]);
+        }
+      }
+    }
+    fence_async_smem();  // the out tile is read by the TMA store (async proxy)
+    mbar_arrive(empty + 8 * s);
   }
-  __syncwarp();
+}
 
-  // p v, 16 output columns at a time, each tile rounded once and written
-  float* sw = scratch + warp * 256;
-  const __nv_bfloat16* pw = ps + warp * 16 * ldp;
-  for (int n0 = 0; n0 < hd; n0 += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kt = 0; kt < sp / 16; ++kt) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-      wmma::load_matrix_sync(a, pw + kt * 16, ldp);
-      wmma::load_matrix_sync(b, vs + kt * 16 * hd + n0, hd);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(sw, acc, 16, wmma::mem_row_major);
-    __syncwarp();
-    for (int e = lane; e < 128; e += 32) {
-      const int r = e / 8, c = (e % 8) * 2;
-      const int row = row0 + warp * 16 + r;
-      if (row < L)
-        *reinterpret_cast<__nv_bfloat162*>(out + ((long long)bt * L + row) * C + h * hd + n0 + c) =
-            __floats2bfloat162_rn(sw[r * 16 + c], sw[r * 16 + c + 1]);
-    }
-    __syncwarp();
+template <int SP, int HW>
+int cvt_launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+               const CUtensorMap& to, const CvtParams& p, int grid, int smem, cudaStream_t s) {
+  static int smem_set = 0;  // the attribute only grows; set it once per size
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(cvt_attn_kernel<SP, HW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  cvt_attn_kernel<SP, HW><<<grid, 32 * (4 * HW + 1), smem, s>>>(tq, tk, tv, to, p);
+  return (int)cudaGetLastError();
+}
+
+template <int HW>
+int cvt_launch_sp(int sp, const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                  const CUtensorMap& to, const CvtParams& p, int grid, int smem, cudaStream_t s) {
+  switch (sp) {
+    case 16: return cvt_launch<16, HW>(tq, tk, tv, to, p, grid, smem, s);
+    case 32: return cvt_launch<32, HW>(tq, tk, tv, to, p, grid, smem, s);
+    case 64: return cvt_launch<64, HW>(tq, tk, tv, to, p, grid, smem, s);
+    default: return cvt_launch<128, HW>(tq, tk, tv, to, p, grid, smem, s);
   }
 }
 
@@ -243,20 +455,27 @@ cvt_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 extern "C" int dsal_cvt_attention(const void* q, const void* k, const void* v, void* out,
                                   int Bt, int L, int S, int C, int heads, float scale,
                                   void* stream) {
-  const int hd = heads > 0 ? C / heads : 0;
-  if (S < 1 || S > MAX_S || hd < 16 || hd % 16 != 0 || hd * heads != C)
+  CvtPlan plan;
+  if (!cvt_plan(Bt, L, S, C, heads, &plan)) return (int)cudaErrorInvalidValue;
+  CvtParams p;
+  p.L = L;
+  p.S = S;
+  p.hd = C / heads;
+  p.groups = plan.groups;
+  p.hg = heads / plan.groups;
+  p.chunks = plan.chunks;
+  p.rtiles = (L + TR - 1) / TR;
+  p.ntiles = Bt * plan.groups * p.rtiles;
+  p.stages = plan.stages;
+  p.scale = scale;
+  CUtensorMap tq, tk, tv, to;
+  if (!make_map(&tq, q, Bt, L, C, TR) || !make_map(&tk, k, Bt, S, C, plan.sp) ||
+      !make_map(&tv, v, Bt, S, C, plan.sp) || !make_map(&to, out, Bt, L, C, TR))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = layout(S, hd).total;
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(cvt_attn_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((L + ROWS - 1) / ROWS, heads, Bt);
-  cvt_attn_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), L, S, C, hd,
-      scale);
-  return (int)cudaGetLastError();
+  const int grid = p.ntiles < plan.per_sm * NUM_SMS ? p.ntiles : plan.per_sm * NUM_SMS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return plan.head_ways == 2 ? cvt_launch_sp<2>(plan.sp, tq, tk, tv, to, p, grid, plan.smem, s)
+                              : cvt_launch_sp<1>(plan.sp, tq, tk, tv, to, p, grid, plan.smem, s);
 }
 
 // the f32 instance: q, k, v, out f32; S <= 128, hd <= 384, the tiles within
@@ -268,7 +487,7 @@ extern "C" int dsal_cvt_attention_f32(const void* q, const void* k, const void* 
   if (S < 1 || S > MAX_S || hd < 1 || hd > 32 * MAX_HD32 || hd * heads != C)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_f32(S, hd);
-  if (smem > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(cvt_attn_f32_kernel,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;

@@ -60,9 +60,14 @@ Function whose forward is K1 (plain on the CPU) and whose backward is K5
 
 Every wrapper takes bf16 or f32 on the card, routed by q's dtype: bf16 to
 the Hopper kernels above, f32 (both packages' default compute dtype) to
-their f32 instances in `csrc/attention_f32.cu` (and K7's in
-`csrc/cvt_attention.cu`), which compute in f32 by FFMA and round nowhere
-in between, as the plain versions do at f32. Other dtypes raise.
+their f32 instances, which round nowhere in between, as the plain versions
+do at f32. The f32 forward (`csrc/attention_f32_fwd.cu`) runs on the tensor
+cores in split TF32: each operand x = hi + lo with hi rounded to TF32 and
+lo = x - hi, and a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b (mma.sync
+m16n8k8, f32 sums), which keeps about f32's accuracy at up to 495 / 3
+TFLOP/s; `f32_fwd_plan` mirrors its geometry. The f32 backward
+(`csrc/attention_f32.cu`) and K7's f32 instance (`csrc/cvt_attention.cu`)
+compute by FFMA on the CUDA cores. Other dtypes raise.
 
 K12 replaces the TPU kernel `diff_sal_tpu/ops/attention.py:119
 fused_bias_attention` (body `_attn_kernel` :62) and its backward `_fba_bwd`
@@ -88,14 +93,19 @@ decoder's CvT cross-attention softmax(q k^T * scale) v per head, q (Bt, L,
 C) with L up to 5376 and k, v (Bt, S, C) pooled to S = 18 keys, scale =
 C^-1/2 (the reference's full-dim quirk). It runs at eval with
 `SalUNetConfig.fused_attn`. With so few keys it is bound by the bytes of q
-and out (4 S flops per q element). The kernel (`csrc/cvt_attention.cu`)
-stages 64 query rows and one head's k and v of one batch item in shared
-memory, computes the scores on the tensor cores (bf16 WMMA, f32
-accumulation), takes the softmax in f32 with a row max, rounds p to bf16
-and runs p v on the tensor cores with f32 accumulation; the (L, S) scores
-never reach device memory. K7 is eval-only, in the JAX package and here:
-`cvt_cross_attention` raises when grad mode is on and an input requires
-grad.
+and out (4 S flops per q element), so the bf16 kernel
+(`csrc/cvt_attention.cu`) streams: persistent CTAs walk 64-row tiles of
+whole rows (all heads, as the TPU kernel's blocks), which a producer warp
+brings by TMA into a ring of buffers and stores back by TMA once computed,
+with k and v of the current batch item resident; four or eight consumer
+warps take the scores on the tensor cores (bf16 mma.sync, f32 accumulation), the
+softmax in f32 in registers, p rounded to bf16 for p v, one rounding of the
+output. `cvt_plan` mirrors its geometry (keys padded to 16-128, head groups
+where whole rows' k and v do not fit or the tiles are fewer than the SMs,
+warps per tile, buffers, CTAs per SM). The (L, S)
+scores never reach device memory. K7 is eval-only, in the JAX package and
+here: `cvt_cross_attention` raises when grad mode is on and an input
+requires grad.
 """
 
 from __future__ import annotations
@@ -144,16 +154,17 @@ CLS_BWD_KERNEL = K.Kernel(
              "(_attn_bwd_kernel :193)",
 )
 
-# the f32 instances (csrc/attention_f32.cu; K7's in csrc/cvt_attention.cu):
-# the same TPU kernels, which take f32 as they take bf16
+# the f32 instances (the forward in csrc/attention_f32_fwd.cu, the backward
+# in csrc/attention_f32.cu, K7's in csrc/cvt_attention.cu): the same TPU
+# kernels, which take f32 as they take bf16
 F32_KERNEL = K.Kernel(
-    "bias_attention_f32", "attention_f32.cu", "dsal_bias_attention_f32",
+    "bias_attention_f32", "attention_f32_fwd.cu", "dsal_bias_attention_f32",
     [K.P] * 6 + [K.I] * 8 + [K.F, K.I, K.P], replaces=KERNEL.replaces)
 F32_BWD_KERNEL = K.Kernel(
     "bias_attention_bwd_f32", "attention_f32.cu", "dsal_bias_attention_bwd_f32",
     [K.P] * 12 + [K.I] * 9 + [K.F, K.I, K.P], replaces=BWD_KERNEL.replaces)
 CLS_F32_KERNEL = K.Kernel(
-    "fused_bias_attention_f32", "attention_f32.cu", "dsal_cls_attention_f32",
+    "fused_bias_attention_f32", "attention_f32_fwd.cu", "dsal_cls_attention_f32",
     [K.P] * 8 + [K.I] * 7 + [K.F, K.I, K.P], replaces=CLS_KERNEL.replaces)
 CLS_F32_BWD_KERNEL = K.Kernel(
     "fused_bias_attention_bwd_f32", "attention_f32.cu", "dsal_cls_attention_bwd_f32",
@@ -167,9 +178,11 @@ BWD_BLOCK = 64        # rows per CTA and keys per tile of K5 and K12's backward
 BWD_TARGET_CTAS = 264  # two CTAs on each of 132 SMs for the k-major part of K5
 BWD_STAGES = 2        # ring buffers of either backward kernel
 BWD_THREADS = 128     # one warpgroup; its thread 0 issues the loads
-F32_BLOCK = 32        # rows per CTA and keys per tile of the f32 instances
+F32_BLOCK = 32        # rows per CTA and keys per tile of the f32 backward
+F32_MAX_SPLITS = 8    # CTAs of a cluster that share one row tile's keys (f32 forward)
 
 SMEM_MAX = 232_448    # dynamic shared memory one CTA may use on the H100
+SM_SMEM = 233_472     # shared memory of an SM; each CTA also holds 1 KB
 NUM_SMS = 132
 
 
@@ -236,6 +249,79 @@ def fwd_plan(B: int, H: int, Lq: int, Lk: int, D: int,
                 q_tiles = -(-Lq // rows)
                 return FwdPlan(rows, bn, stages, smem, q_tiles, B * H * q_tiles, tma)
     raise ValueError(f"bias attention forward: key grid {k_shape} at head_dim {D} needs more "
+                     f"than {SMEM_MAX} bytes of shared memory")
+
+
+@dataclasses.dataclass(frozen=True)
+class F32FwdPlan:
+    """Geometry of one f32 forward launch (K1 / K12 in f32,
+    `csrc/attention_f32_fwd.cu`, which chooses it itself): `rows` query
+    rows per CTA (16 per warp: 8 warps or 4), `block_n` keys per tile of
+    the double buffer, `ntiles` key tiles, `q_tiles` row tiles per (batch,
+    head), `splits` CTAs of a cluster that share a row tile's key tiles
+    (1: no split), `ctas` the grid, `smem` dynamic shared-memory bytes."""
+
+    rows: int
+    block_n: int
+    threads: int
+    ntiles: int
+    q_tiles: int
+    splits: int
+    ctas: int
+    smem: int
+
+
+def f32_fwd_smem(D: int, rows: int, block_n: int, Lk: int, K: int) -> int:
+    """Dynamic shared memory of one f32 forward CTA, as `smem_layout` in
+    csrc/attention_f32_fwd.cu lays it out: Q (rows x D + 8 floats), the K
+    and V double buffers (block_n x D + 8, block_n x D + 4), the key table
+    (one int per key of every tile) and the bias rows (rows x K + 2)."""
+    ntiles = -(-Lk // block_n)
+    return 4 * (rows * (D + 8) + 2 * block_n * (D + 8) + 2 * block_n * (D + 4)
+                + ntiles * block_n + rows * (K + 2))
+
+
+@functools.lru_cache(maxsize=None)  # the wrappers ask once per call, with few distinct shapes
+def f32_fwd_plan(B: int, H: int, Lq: int, Lk: int, D: int,
+                 k_shape: Tuple[int, int, int]) -> F32FwdPlan:
+    """The f32 forward's geometry for B batches of H heads (K12: B*heads
+    batches of one head), as `run` in csrc/attention_f32_fwd.cu chooses it:
+    128 rows per CTA where that still gives every SM a CTA, else 64;
+    64-key tiles, unless 32-key tiles let two CTAs share an SM where 64 do
+    not and the grid holds more CTAs than SMs, or 64 do not fit in shared
+    memory; where the row tiles are fewer than the SMs, the keys split over
+    a cluster of up to `F32_MAX_SPLITS` CTAs (32-key tiles where two CTAs
+    then share an SM), at most two CTAs per SM in all. Raises ValueError on a
+    head_dim, key grid or size the kernel does not take."""
+    K = sum(k_shape)
+    if D not in HEAD_DIMS:
+        raise ValueError(f"f32 attention forward: head_dim {D} not in {HEAD_DIMS}")
+    if not 1 <= K <= MAX_REL_BWD:
+        raise ValueError(f"f32 attention forward: kt+kh+kw = {K} not in 1..{MAX_REL_BWD}")
+    if Lq < 1 or Lk < 1:
+        raise ValueError(f"f32 attention forward: Lq {Lq}, Lk {Lk}")
+    first = 128 if B * H * -(-Lq // 128) >= NUM_SMS else 64
+    for rows in ((128, 64) if first == 128 else (64,)):
+        ctas = B * H * -(-Lq // rows)
+        s64, s32 = (f32_fwd_smem(D, rows, bn, Lk, K) for bn in (64, 32))
+        bn = 64 if s64 <= SMEM_MAX else 0
+        if s32 <= SMEM_MAX and (not bn or (ctas > NUM_SMS and 2 * (s32 + 1024) <= SM_SMEM
+                                           and 2 * (s64 + 1024) > SM_SMEM)):
+            bn = 32
+        if not bn:
+            continue
+        splits = 1
+        if ctas < NUM_SMS and Lk > 32 and s32 <= SMEM_MAX:
+            if 2 * (s32 + 1024) <= SM_SMEM:
+                bn = 32
+            nt = -(-Lk // bn)
+            split = min(2 * NUM_SMS // ctas, F32_MAX_SPLITS, nt)
+            per = -(-nt // split)
+            splits = -(-nt // per)
+        q_tiles = -(-Lq // rows)
+        return F32FwdPlan(rows, bn, 2 * rows, -(-Lk // bn), q_tiles, splits,
+                          B * H * q_tiles * splits, s64 if bn == 64 else s32)
+    raise ValueError(f"f32 attention forward: Lk {Lk}, kt+kh+kw = {K} at head_dim {D} need more "
                      f"than {SMEM_MAX} bytes of shared memory")
 
 
@@ -468,8 +554,7 @@ def bias_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse_ptr = lse.data_ptr() if return_lse else None
     scale_q = _rounded_scale(float(scale), q.dtype)
     if q.dtype == torch.float32:
-        if sum(k_shape) > MAX_REL_BWD:
-            raise ValueError(f"bias_attention: kt+kh+kw > {MAX_REL_BWD} in f32")
+        f32_fwd_plan(B, H, Lq, Lk, D, tuple(k_shape))  # raises on what the kernel refuses
         F32_KERNEL.launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), rel.data_ptr(), out.data_ptr(), lse_ptr,
             B, Lq, Lk, H, D, kt, kh, kw, scale_q, int(residual), K.stream(),
@@ -687,8 +772,7 @@ def fused_bias_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             rel_w.data_ptr(), out.data_ptr(), lse.data_ptr() if return_lse else None)
     scale_q = _rounded_scale(float(scale), q.dtype)
     if q.dtype == torch.float32:
-        if sum(k_shape) > MAX_REL_BWD:
-            raise ValueError(f"fused_bias_attention: kt+kh+kw > {MAX_REL_BWD} in f32")
+        f32_fwd_plan(BH, 1, Lq, Lk, D, tuple(k_shape))  # raises on what the kernel refuses
         CLS_F32_KERNEL.launch(*ptrs, BH, Lq, Lk, D, kt, kh, kw, scale_q, int(residual),
                               K.stream())
     else:
@@ -761,6 +845,90 @@ def fused_bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                      residual)
 
 
+CVT_ROWS = 64        # query rows per tile of the bf16 K7 kernel (16 per consumer warp)
+CVT_MAX_S = 128      # keys the kernels take (the TPU kernel's 128 lanes)
+CVT_MAX_STAGES = 4   # q tile buffers of a CTA
+CVT_SMEM_TWO = 115_712  # shared memory per CTA when two share an SM (228 KB less 1 KB each)
+
+
+@dataclasses.dataclass(frozen=True)
+class CvtPlan:
+    """Geometry of one bf16 K7 launch (`cvt_plan` in csrc/cvt_attention.cu,
+    which the entry computes itself): keys padded to `sp`, heads split into
+    `groups` (a tile is 64 rows of one batch item and one head group, whose
+    columns span `chunks` 32-column TMA boxes), `head_ways` consumer warps
+    per 16 rows (each a share of the group's heads), `threads` per CTA (the
+    consumers and a producer warp), `stages` q tile buffers, `per_sm` CTAs
+    per SM, `smem` bytes per CTA; `tiles` tiles in all (`row_tiles` per
+    batch item and group), walked by `ctas` persistent CTAs in contiguous
+    ranges."""
+
+    sp: int
+    groups: int
+    head_ways: int
+    threads: int
+    chunks: int
+    stages: int
+    per_sm: int
+    smem: int
+    row_tiles: int
+    tiles: int
+    ctas: int
+
+
+def cvt_smem(chunks: int, sp: int, stages: int) -> int:
+    """Shared memory of one bf16 K7 CTA, as `cvt_smem` in
+    csrc/cvt_attention.cu: the q tile buffers, k and v, the mbarriers (full
+    and empty per buffer, one for k/v) and 1024 bytes to align the base."""
+    return stages * chunks * CVT_ROWS * 64 + 2 * chunks * sp * 64 + (2 * stages + 1) * 8 + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def cvt_plan(Bt: int, L: int, S: int, C: int, heads: int) -> CvtPlan:
+    """The bf16 K7 kernel's geometry: keys padded to a power of two >= 16;
+    heads split into groups (a group short of all heads spans a multiple of
+    32 columns) where whole rows' k and v do not fit beside a tile, and
+    further while the tiles do not give every SM one; two consumer warps per
+    16 rows where a group holds two heads or more; two CTAs per SM with at
+    least two buffers each where they fit, else one with as many buffers
+    (up to four) as fit. Raises ValueError on what the kernel does not
+    take."""
+    hd = C // heads if heads > 0 else 0
+    if not 1 <= S <= CVT_MAX_S:
+        raise ValueError(f"cvt_cross_attention: S = {S} keys not in 1..{CVT_MAX_S}")
+    if hd < 16 or hd % 16 or hd * heads != C:
+        raise ValueError(f"cvt_cross_attention: C = {C} over {heads} heads is not a head_dim "
+                         "that is a multiple of 16")
+    if Bt < 1 or L < 1:
+        raise ValueError(f"cvt_cross_attention: Bt {Bt}, L {L}")
+    sp = 16
+    while sp < S:
+        sp *= 2
+    row_tiles = -(-L // CVT_ROWS)
+    groups = 0
+    for g in range(1, heads + 1):
+        if heads % g or (g > 1 and heads // g * hd % 32):
+            continue
+        if cvt_smem(-(-(heads // g * hd) // 32), sp, 1) > SMEM_MAX:
+            continue
+        groups = g
+        if Bt * g * row_tiles >= NUM_SMS:
+            break
+    if not groups:
+        raise ValueError(f"cvt_cross_attention: S = {S} keys at head_dim {hd} need more than "
+                         f"{SMEM_MAX} bytes of shared memory for one head's k and v")
+    hg = heads // groups
+    chunks, ways = -(-(hg * hd) // 32), 2 if hg >= 2 else 1
+    fits = [(st, 2) for st in range(CVT_MAX_STAGES, 1, -1)
+            if cvt_smem(chunks, sp, st) <= CVT_SMEM_TWO]
+    fits += [(st, 1) for st in range(CVT_MAX_STAGES, 0, -1)
+             if cvt_smem(chunks, sp, st) <= SMEM_MAX]
+    stages, per_sm = fits[0]
+    tiles = Bt * groups * row_tiles
+    return CvtPlan(sp, groups, ways, 32 * (4 * ways + 1), chunks, stages, per_sm,
+                   cvt_smem(chunks, sp, stages), row_tiles, tiles, min(tiles, per_sm * NUM_SMS))
+
+
 def reference_cvt_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             num_heads: int, scale: float) -> torch.Tensor:
     """K7's plain version (the einsum path of JAX `reference_cvt_attention`,
@@ -782,9 +950,10 @@ def cvt_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T * scale) v per head for q (Bt, L, C) and k, v (Bt, S,
     C): kernel K7 on CUDA (bf16, or its f32 instance for f32), the plain
     version on the CPU. Eval only. The C entry refuses, and `launch` raises
-    on, what its tiles do not hold: S outside 1..128, head_dim not a
-    multiple of 16 (bf16) or above 384 (f32), or k and v beyond one CTA's
-    shared memory."""
+    on, what the kernels do not take: S outside 1..128, head_dim not a
+    multiple of 16 (bf16; `cvt_plan` mirrors the rest of its checks) or
+    above 384 (f32), or one head's k and v beyond one CTA's shared
+    memory."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("cvt_cross_attention (kernel K7) is eval-only and has no "
                            "backward; call it under torch.no_grad() or take the einsum path")

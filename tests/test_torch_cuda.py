@@ -970,3 +970,125 @@ def test_small_av_model_f32_on_card_matches_cpu(card, cls_stream):
     for n, ref_g in g_cpu.items():
         if float(ref_g.abs().max()) > 1e-6 * top:
             assert float((g_card[n] - ref_g).norm() / ref_g.norm()) <= 1e-2, n
+
+
+# -------------------------- the f32 forward on the tensor cores (split TF32) ---
+
+
+def _f32_fwd_case(layout, H, Lq, k_shape, D, seed):
+    """f32 inputs of K1 (B=2 batches of H heads) or K12 (2H batches of one
+    head, the cls row at row 0 of q and a zero cls bias row), the forward
+    wrapper, its plain version, the kernel record and the trailing args."""
+    g = torch.Generator().manual_seed(seed)
+    f = torch.float32
+    Lk = 1 + k_shape[0] * k_shape[1] * k_shape[2]
+    scale = D ** -0.5
+    if layout == "k1":
+        q, k, v = (_randn(g, 2, n, H * D, dtype=f) for n in (Lq, Lk, Lk))
+        ins = (q, k, v, _randn(g, 2, Lq, H, sum(k_shape), dtype=f, scale=0.5))
+        return (ins, (k_shape, H, scale), t_attn.bias_attention_fwd,
+                t_attn.bias_attention_plain, t_attn.F32_KERNEL)
+    q, k, v, rels = _k12_args(g, 2 * H, Lq + 1, k_shape, D)
+    ins = tuple(t.float() for t in (q, k, v)) + tuple(rels)
+    return (ins, (k_shape, scale), t_attn.fused_bias_attention_fwd,
+            t_attn.fused_bias_attention_plain, t_attn.CLS_F32_KERNEL)
+
+
+# (H, Lq, key grid, head_dim): Lq and Lk ragged against the 64-row and
+# 64-key tiles (Lk = 673, 211, 2843), the most bias bins (kt+kh+kw = 128),
+# every head_dim, grids small enough for 64-row CTAs (their keys split over
+# a cluster) and large enough for 128, and 128 rows with 128 bins, which
+# take 32-key tiles
+F32_FWD_SHAPES = [(2, 1000, (8, 7, 12), 96), (1, 333, (5, 6, 7), 64), (4, 130, (98, 1, 29), 96),
+                  (2, 777, (5, 6, 7), 128), (8, 2000, (8, 7, 12), 96),
+                  (8, 1500, (98, 1, 29), 96)]
+
+
+def test_f32_forward_shapes_take_every_plan():
+    """The shapes above reach 64 and 128 rows per CTA, 64- and 32-key tiles,
+    and keys split over a cluster with either tile (the plan, on the CPU)."""
+    plans = {(p.rows, p.block_n, p.splits > 1) for p in (
+        t_attn.f32_fwd_plan(2, H, Lq, 1 + ks[0] * ks[1] * ks[2], D, ks)
+        for H, Lq, ks, D in F32_FWD_SHAPES)}
+    assert {(64, 64, True), (64, 32, True), (128, 64, False), (128, 32, False)} <= plans
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("layout", ["k1", "k12"])
+@pytest.mark.parametrize("H,Lq,k_shape,D", F32_FWD_SHAPES)
+def test_f32_attention_forward_kernel(card, H, Lq, k_shape, D, layout, residual):
+    """K1 and K12 forward in f32 (split TF32 on the tensor cores) against
+    their plain versions at f32: the output within 1e-5 and each row's
+    logsumexp within 1e-5 (+1e-6 relative), one launch."""
+    ins, extra, fwd, plain, kern = _f32_fwd_case(layout, H, Lq, k_shape, D, Lq + D)
+    before = kern.launches
+    out, lse = fwd(*ins, *extra, residual, return_lse=True)
+    assert kern.launches == before + 1
+    ref, ref_lse = plain(*ins, *extra, residual, return_lse=True)
+    _check(out, ref, torch.float32)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["k1", "k12"])
+@pytest.mark.parametrize("H,Lq,k_shape", MVIT_BLOCKS)
+def test_f32_attention_forward_block_shapes(card, H, Lq, k_shape, layout):
+    """The f32 forward at MViTv2-small's seven block shapes (B=2, full Lq,
+    head_dim 96) against the plain version at f32, with the residual."""
+    ins, extra, fwd, plain, _ = _f32_fwd_case(layout, H, Lq, k_shape, 96, H)
+    out, lse = fwd(*ins, *extra, True, return_lse=True)
+    ref, ref_lse = plain(*ins, *extra, True, return_lse=True)
+    _check(out, ref, torch.float32)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-5, rtol=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["k1", "k12"])
+def test_f32_attention_forward_is_deterministic(card, layout):
+    """Fixed order of every sum: two runs give the same bits."""
+    ins, extra, fwd, _, _ = _f32_fwd_case(layout, 2, 10752, (8, 14, 24), 96, 3)
+    a = fwd(*ins, *extra, True, return_lse=True)
+    b = fwd(*ins, *extra, True, return_lse=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ------------------------------------------------- K7, the streaming kernel ---
+
+
+@pytest.mark.parametrize("S", [1, 18, 128])
+@pytest.mark.parametrize("hd", [48, 96, 192, 384])
+def test_cvt_attention_kernel_head_dims_and_keys(card, hd, S):
+    """K7 at the decoder's head_dims (two heads) with one key, the shipped
+    18 and the most the TPU kernel takes, L ragged against the 64-row
+    tiles; head_dim 384 at 128 keys does not fit one CTA and is refused
+    (test_new_kernels_refuse_what_they_do_not_take)."""
+    if hd == 384 and S == 128:
+        with pytest.raises(ValueError, match="shared memory"):
+            t_attn.cvt_plan(3, 201, S, 2 * hd, 2)
+        return
+    g = torch.Generator().manual_seed(hd + S)
+    C = 2 * hd
+    q, k, v = _randn(g, 3, 201, C), _randn(g, 3, S, C), _randn(g, 3, S, C)
+    before = t_attn.CVT_KERNEL.launches
+    out = t_attn.cvt_cross_attention(q, k, v, 2, C ** -0.5)
+    assert t_attn.CVT_KERNEL.launches == before + 1
+    _check(out, t_attn.reference_cvt_attention(q, k, v, 2, C ** -0.5), torch.bfloat16)
+
+
+@pytest.mark.parametrize("Bt,L,S,C", [(64, 330, 18, 96), (8, 700, 64, 768), (10, 5376, 18, 96)])
+def test_cvt_attention_kernel_walks_across_batch_items(card, Bt, L, S, C):
+    """More tiles than CTAs, so a CTA's walk crosses from one batch item
+    (and head group) to the next and reloads k and v: each batch item gets
+    its own keys (a stale k or v would show), and two runs give the same
+    bits."""
+    plan = t_attn.cvt_plan(Bt, L, S, C, 2)
+    crossing = [c for c in range(plan.ctas)
+                if (c * plan.tiles // plan.ctas) // plan.row_tiles
+                != ((c + 1) * plan.tiles // plan.ctas - 1) // plan.row_tiles]
+    assert plan.tiles > plan.ctas and crossing
+    g = torch.Generator().manual_seed(Bt + L)
+    q, k, v = _randn(g, Bt, L, C), _randn(g, Bt, S, C), _randn(g, Bt, S, C)
+    out = t_attn.cvt_cross_attention(q, k, v, 2, C ** -0.5)
+    _check(out, t_attn.reference_cvt_attention(q, k, v, 2, C ** -0.5), torch.bfloat16)
+    again = t_attn.cvt_cross_attention(q, k, v, 2, C ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)

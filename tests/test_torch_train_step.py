@@ -21,25 +21,32 @@ order). The gradients cannot agree to 1e-4 here: at random weights the
 step is ill-conditioned, and f32 rounding alone moves each leaf's
 gradient by ~1e-3. The fixture shows it: it runs the port's step once
 more in f64 (every op in f64, the schedule's f32 coefficients shared),
-and the leaf test prints, per leaf, port f32 vs JAX f32, port f32 vs port
-f64 and JAX f32 vs port f64 (relative L2 and max|d| / max|g|). With the
-train-time dead-frame cut the three read relative L2 medians 1.3e-3,
-1.9e-3, 1.5e-3 (worst 3.0e-3, 3.5e-3, 2.4e-3); with all nine frames
-3.6e-3, 1.3e-3, 3.6e-3 (worst 5.3e-3, 2.5e-3, 5.6e-3). So the limits
-rest on the port's own f32-vs-f64 gap, its worst leaf taken as the floor
-(which must stay under 5e-3 relative L2 and 3e-2 max|d| / max|g|): the
-JAX gradient, against the port's f32 one and against its f64 one, within
-four times the floor on every leaf (two f32 errors, each up to twice the
-port's own). A wrong term shows as an error of order 1 in some leaf. A
-leaf whose gradient is zero up to rounding (the key-side biases, which a
-softmax ignores, and the bias before a batch-statistics BatchNorm) is
-held to 1e-6 of the largest gradient. The global gradient norm: rtol
-1e-4. The BatchNorm running statistics: 1e-5 * max|stat| + 1e-6. The
-parameters after Adam's first step: each element moves by lr * g / (|g|
-+ eps) of its clipped gradient g, so where both sides' clipped gradients
-have the same sign and exceed 100 * eps the moves agree to 1% of lr, and
-the parameters to 2e-6; elsewhere the direction is noise and they may
-differ by up to 2 * lr.
+and the leaf test (`assert_gradient_leaves_match`) holds each
+implementation to its own f32 rounding, measured against that f64 step:
+the port's f32 gradients and JAX's, each within 5e-3 relative L2 and
+3e-2 max|d| / max|g| on every leaf, and the two within four times the
+larger of those two gaps (two f32 errors, each up to twice the larger
+side's own). It prints, per leaf, relative L2 median (worst) and
+max|d| / max|g| worst: port f32 vs port f64 1.8e-4 (5.6e-4), 1.0e-3; JAX
+f32 vs port f64 9.2e-4 (2.2e-3), 1.3e-2; port f32 vs JAX f32 8.8e-4
+(2.1e-3), 1.3e-2. JAX's f32 gradients sit ~5x further from the f64 step
+than the port's: its gap opens in the backward of the decoder's
+batch-statistics BatchNorms (their sums over the batch's positions, in
+XLA:CPU's f32 reduction order, which depends on the host), and the bound
+on port vs JAX used to rest on the port's gap alone (four times 5.6e-4
+and 1.0e-3), so it failed on some hosts. That the port's f64 step is
+JAX's function is checked in f64 by tests/test_torch_visual_only.py on
+its smaller model; this model's f64 JAX step takes far longer and more
+memory than the suite can give it. A wrong term shows as an error of
+order 1 in some leaf. A leaf whose gradient is zero up to rounding (the
+key-side biases, which a softmax ignores, and the bias before a
+batch-statistics BatchNorm) is held to 1e-6 of the largest gradient.
+The global gradient norm: rtol 1e-4. The BatchNorm running statistics:
+1e-5 * max|stat| + 1e-6. The parameters after Adam's first step: each
+element moves by lr * g / (|g| + eps) of its clipped gradient g, so where
+both sides' clipped gradients have the same sign and exceed 100 * eps the
+moves agree to 1% of lr, and the parameters to 2e-6; elsewhere the
+direction is noise and they may differ by up to 2 * lr.
 
 The step in bf16 (the `bf16_steps` fixture, `compute_dtype="bfloat16"`
 on both sides; parameters, losses and optimizer state stay f32): at
@@ -192,13 +199,68 @@ def test_every_gradient_leaf_matches_jax(steps):
     assert_gradient_leaves_match(jax_out["grads"], model, ref64["grads"], min_leaves=400)
 
 
-def assert_gradient_leaves_match(jax_grads, model, grads64, min_leaves: int):
-    """Every gradient leaf of the port's f32 step against JAX's, within
-    four times the port's own f32-vs-f64 gap (the module docstring)."""
+def jax_step_grads_f64(cfg, variables, batch, key, t):
+    """JAX's gradient of its train-step loss in f64, as port state-dict
+    entries: `jax.enable_x64`, the model at compute_dtype "float64", the
+    variables and the batch in f64, and the loss function of
+    diff_sal_tpu/train/train_step.py:84-118 written out with JAX's own
+    data_transform, q_sample, model and training_loss. Its draws come from
+    the step's key, split as the step splits it; the timestep `t` is handed
+    in (under x64 `randint` draws other bits). As in the port's f64 step the
+    schedule's f32 coefficients are shared. The JAX model's explicit float32
+    islands (the dequantised target, the timestep embedding, the logits
+    head, MViT's pooling) stay f32."""
+    from diff_sal_tpu.data.transforms import data_transform
+    from diff_sal_tpu.diffusion.schedule import q_sample
+    from diff_sal_tpu.models.diff_model import VideoSaliencyModel
+    from diff_sal_tpu.train.losses import training_loss
+    from diff_sal_tpu.train.train_step import audio_hw_for, resolve_audio
+
+    def f64(x):
+        x = np.asarray(x)
+        return x.astype(np.float64) if x.dtype == np.float32 else x
+
+    sched = j_make_schedule()
+    with jax.enable_x64(True):
+        model = VideoSaliencyModel(dataclasses.replace(cfg.model, compute_dtype="float64"))
+        v64 = jax.tree.map(f64, variables)
+        k_deq, _, k_noise, k_drop = jax.random.split(key, 4)
+
+        def loss(params, batch):
+            x0 = data_transform(cfg.data_transform, batch["salmap"].astype(jnp.float32), k_deq)
+            noise = jax.random.normal(k_noise, x0.shape, x0.dtype)
+            tv = jnp.full((x0.shape[0],), t)
+            x_noisy = q_sample(sched, x0.astype(jnp.float64), tv, noise.astype(jnp.float64))
+            data = {"rgb": batch["rgb"], "input": x_noisy}
+            audio = resolve_audio(batch, audio_hw_for(cfg))
+            if audio is not None:
+                data["audio"] = audio
+            pred, _ = model.apply({"params": params, "batch_stats": v64["batch_stats"]}, data,
+                                  tv.astype(jnp.float32), True, mutable=["batch_stats"],
+                                  rngs={"dropout": k_drop})
+            return training_loss(cfg.loss, pred, x0.astype(jnp.float64))["total"]
+
+        assert cfg.training.training_target == "x0"
+        grads = jax.jit(jax.grad(loss))(v64["params"], jax.tree.map(f64, batch))
+        return bridge.state_dict_from_flax({"params": jax.device_get(grads)},
+                                           cfg.model.visual.num_layers)
+
+
+PORT_F32_L2, PORT_F32_PEAK = 5e-3, 3e-2  # an implementation's own f32 rounding, at most
+
+
+def assert_gradient_leaves_match(jax_grads, model, grads64, min_leaves: int, jax64=None,
+                                 f64_bound=None):
+    """Every gradient leaf of the port's f32 step against JAX's, each side
+    first held to its own f32 rounding (the module docstring). `grads64`,
+    the port's f64 step, is the reference; with `jax64`, JAX's f64
+    gradients, the two f64 computations are held to `f64_bound` (relative
+    L2, max|d| over max|g|) on every leaf. Returns the per-leaf worst
+    values that the docstrings quote."""
     top = max(float(v.abs().max()) for v in jax_grads.values())
     # per leaf: relative L2 and max|d| / max|g| of (port f32, JAX f32),
-    # (port f32, port f64) and (JAX f32, port f64)
-    gap = {"port-jax": [], "port-f64": [], "jax-f64": []}
+    # (port f32, f64) and (JAX f32, f64), and (port f64, JAX f64)
+    gap = {"port-jax": [], "port-f64": [], "jax-f64": [], "f64-f64": []}
     peak = {k: [] for k in gap}
     for name, p in model.named_parameters():
         ref = jax_grads[name].numpy()
@@ -214,20 +276,30 @@ def assert_gradient_leaves_match(jax_grads, model, grads64, min_leaves: int):
             assert float(np.abs(got).max()) <= 1e-6 * top, name
             continue
         g64 = grads64[name].numpy()
-        for k, (a, b) in {"port-jax": (got, ref), "port-f64": (got, g64),
-                          "jax-f64": (ref, g64)}.items():
+        pairs = {"port-jax": (got, ref), "port-f64": (got, g64), "jax-f64": (ref, g64)}
+        if jax64 is not None:
+            pairs["f64-f64"] = (g64, jax64[name].numpy())
+        for k, (a, b) in pairs.items():
             gap[k].append((float(np.linalg.norm(a - b) / np.linalg.norm(b)), name))
             peak[k].append((float(np.abs(a - b).max() / np.abs(b).max()), name))
     assert len(gap["port-jax"]) > min_leaves
-    q = lambda v: f"median {np.median([x for x, _ in v]):.2e} max {max(v)[0]:.2e}"  # noqa: E731
+    q = lambda v: f"median {np.median([x for x, _ in v]):.2e} max {max(v)[0]:.2e} ({max(v)[1]})"  # noqa: E731,E501
     print(f"gradient leaves ({len(gap['port-jax'])}): relative L2 / max|d| over max|g|: "
-          + "; ".join(f"{k} {q(gap[k])} / {q(peak[k])}" for k in gap))
-    # the port's own f32 rounding, shown by its f64 step, is the floor
-    floor, floor_peak = max(gap["port-f64"])[0], max(peak["port-f64"])[0]
-    assert floor <= 5e-3 and floor_peak <= 3e-2, (max(gap["port-f64"]), max(peak["port-f64"]))
-    for k in ("port-jax", "jax-f64"):
-        assert max(gap[k])[0] <= 4 * floor, (k, max(gap[k]), floor)
-        assert max(peak[k])[0] <= 4 * floor_peak, (k, max(peak[k]), floor_peak)
+          + "; ".join(f"{k} {q(gap[k])} / {q(peak[k])}" for k in gap if gap[k]))
+    worst = {k: (max(gap[k]), max(peak[k])) for k in gap if gap[k]}
+    # each implementation's own f32 rounding, shown against the f64 step
+    for k in ("port-f64", "jax-f64"):
+        (l2, n1), (pk, n2) = worst[k]
+        assert l2 <= PORT_F32_L2 and pk <= PORT_F32_PEAK, (k, worst[k])
+    # two f32 errors, each up to twice the larger side's own
+    floor = max(worst["port-f64"][0][0], worst["jax-f64"][0][0])
+    floor_peak = max(worst["port-f64"][1][0], worst["jax-f64"][1][0])
+    assert worst["port-jax"][0][0] <= 4 * floor, (worst["port-jax"], floor)
+    assert worst["port-jax"][1][0] <= 4 * floor_peak, (worst["port-jax"], floor_peak)
+    if jax64 is not None:
+        assert worst["f64-f64"][0][0] <= f64_bound[0], (worst["f64-f64"], f64_bound)
+        assert worst["f64-f64"][1][0] <= f64_bound[1], (worst["f64-f64"], f64_bound)
+    return worst
 
 
 def test_every_sub_network_gets_a_gradient(steps):
