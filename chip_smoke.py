@@ -1,6 +1,7 @@
 """Drive the PyTorch port's paths (AV inference with DDIM, the AV training
 step, AV inference with DPM-Solver++ and the eval lowerings, the
-visual-only model in both MViT layouts, both models in f32) on one NVIDIA
+visual-only model in both MViT layouts, both models in f32, the f32
+attention and training step at full width) on one NVIDIA
 GPU and hold each of its hand-written kernels (thirteen in bf16 and the
 six f32 instances an f32 model runs) against its plain PyTorch version.
 
@@ -94,12 +95,32 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      against `path_launches` with the f32 instances in place of the bf16
      kernels, then each f32 instance held against its plain version on
      the recorded inputs at the f32 tolerance;
- 11. the f32 attention forward at full width: phase 3's recorded K1 calls
+ 11. the f32 attention and K7 at full width: phase 3's recorded K1 calls
      and phase 9's recorded K12 forward calls cast to f32, each through the
      f32 instance, its plain version (computed in f64; the f32 tolerance on
      the output and the logsumexp) and SDPA in f32, one `[block ...]` line per MViT block
      shape (device time per call of the kernel and of SDPA, share of the
-     bound at split TF32's rate), and the CUDA kernels SDPA f32 runs;
+     bound at split TF32's rate), and the CUDA kernels SDPA f32 runs; then
+     phase 6's 16 recorded K5 calls and phase 9's 16 recorded K12 backward
+     calls cast to f32, each through the f32 backward fed with the f32
+     forward's logsumexp on the same inputs, every output held against the
+     plain version computed in f64 within the larger of 1e-5 and twice the
+     f32 plain version's own distance from it (both logged), one `[block
+     ..._bwd_f32]` line per block shape beside SDPA f32's backward, the
+     device time by CUDA kernel and the CUDA kernels SDPA f32's backward
+     runs; then phase 8's recorded K7 calls (DPM++ NFE 2) cast to f32
+     against their plain version at 1e-5, one `[shape cvt_attention_f32]`
+     line per (Bt, L, C) beside SDPA per head in f32 with the share of the
+     bytes bound;
+ 12. the AV training step at full width in f32 (both packages' default),
+     B=4, phase 6's recipe: one warm-up step with phase 6's checks, one
+     step counted against `f32_launches(cfg, train=True)` (K1 f32 and K5
+     f32 16 times each), then ten timed steps (ms per step by CUDA events,
+     each step's and the window's), one step's device events summed and as
+     the device's busy time (the union of their intervals: overlapping
+     kernels count once), the f32 backward's and the convolutions' busy
+     time as shares of it and of the step, the step's top CUDA kernels and
+     peak memory;
 then prints the `kernels` JSON line, the nvidia-smi line and, last, the
 result line {"ok": true, "device": {...}}. The f32 instances' bound takes
 their matrix products at split TF32's rate (495 / 3 TFLOP/s: f32's accuracy
@@ -324,7 +345,9 @@ def attention_plan(name, args):
     """The launch plan of K1 or K12 forward (rows per CTA, keys per tile,
     stages, shared-memory bytes; f32: rows, keys per tile, key splits,
     shared-memory bytes) or of their backward (query splits, q-major and k-major CTAs,
-    their shared-memory bytes; f32: query splits) for these arguments."""
+    their shared-memory bytes; f32: rows per q-major CTA, query splits,
+    q-major and k-major CTAs, their shared-memory bytes) for these
+    arguments."""
     from diff_sal_tpu_torch.ops import attention
 
     q, k = args[:2]
@@ -334,7 +357,8 @@ def attention_plan(name, args):
                   "bias_attention_bwd": (args[5], args[6]),
                   "fused_bias_attention_bwd": (args[7], 1)}[base]
     if name.endswith("_bwd_f32"):
-        return (attention.bwd_splits(B, H, Lq, k.shape[1], attention.F32_BLOCK),)
+        p = attention.f32_bwd_plan(B, H, Lq, k.shape[1], HD // H, tuple(k_shape))
+        return p.q_rows, p.splits, p.q_ctas, p.k_ctas, p.smem_q, p.smem_k
     if name.endswith("_f32"):
         p = attention.f32_fwd_plan(B, H, Lq, k.shape[1], HD // H, tuple(k_shape))
         return p.rows, p.block_n, p.splits, p.smem
@@ -458,17 +482,35 @@ PROLOGUE_SPINS = 8
 
 
 def device_ms(thunks, attempts: int = 24):
-    """The profiler's device time (ms) of the thunks, each run once: the sum
-    over every CUDA kernel, memcpy and memset they issue, so a cast or a
+    """The profiler's device time (ms) of the thunks and the number of their
+    device events: `device_events` summed."""
+    events = device_events(thunks, attempts)
+    return sum(e.time_range.elapsed_us() for e in events) / 1e3, len(events)
+
+
+def busy_ms(events):
+    """The time (ms) in which at least one of the device events ran: the
+    union of their intervals, so that overlapping kernels count once."""
+    busy, stop = 0.0, -float("inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if b > stop:
+            busy += b - max(a, stop)
+            stop = b
+    return busy / 1e3
+
+
+def device_events(thunks, attempts: int = 24):
+    """The profiler's device events of the thunks, each run once: every
+    CUDA kernel, memcpy and memset they issue, so that summed, a cast or a
     workspace fill inside a wrapper counts against its kernel. On the card
     the tracer loses the first device events of a session now and then: the
     first three, or all of them. So a session first gives it a prologue to
     lose, ~1 ms of spinning (`torch.cuda._sleep`) and PROLOGUE_SPINS short
     spins, waited for; then it runs the thunks three times, each pass
     followed by a short spin on the same stream, and one more spin after.
-    Counted back from that last pair, the second pass is summed when its
+    Counted back from that last pair, the second pass is taken when its
     window and the third's hold the same number of events; else the session
-    is run again. Returns (ms, number of device events)."""
+    is run again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -495,7 +537,7 @@ def device_ms(thunks, attempts: int = 24):
         if len(marks) >= 4 and marks[-1] == marks[-2] + 1:
             second = events[marks[-4] + 1:marks[-3]]
             if second and len(second) == marks[-2] - marks[-3] - 1:
-                return sum(e.time_range.elapsed_us() for e in second) / 1e3, len(second)
+                return second
         DEVICE_MS_TALLY["retried"] += 1
         log(f"[device time] the profiler dropped events ({len(marks)} of "
             f"{PROLOGUE_SPINS + 5} spins traced); measuring again")
@@ -663,6 +705,36 @@ def grad_agreement(got, ref):
     return stats, worst
 
 
+def first_train_step(tstep, opt, batch, gen, params, what, t0):
+    """The AV model's first training step from fresh weights, and phase 6's
+    checks: finite loss and gradient norm, a finite gradient on every
+    trainable parameter on the graph, non-zero gradients in MViT,
+    AudioAttnNet and the decoder, none on the frozen VGGish, parameters
+    moved."""
+    before = {n: p.detach().clone() for n, p in params.items()}
+    m0 = tstep(opt, batch, gen)
+    torch.cuda.synchronize()
+    log(f"[{what}] model built, first step in {time.perf_counter() - t0:.1f} s: "
+        + json.dumps({k: float(v) for k, v in m0.items()}))
+    loss0, gn0 = float(m0["total"]), float(m0["grad_norm"])
+    assert np.isfinite(loss0) and loss0 > 0 and np.isfinite(gn0) and gn0 > 0, (loss0, gn0)
+    # the finest pyramid scale is never read by the decoder (reference
+    # quirk), so its norm is the one trainable module off the graph
+    off_graph = {n for n, p in params.items() if p.requires_grad and p.grad is None}
+    assert off_graph == {"visual_net.norm0.weight", "visual_net.norm0.bias"}, off_graph
+    for n, p in params.items():
+        if n.startswith("audio_net."):
+            assert p.grad is None and not p.requires_grad and torch.equal(p, before[n]), n
+        elif p.grad is not None:
+            assert bool(torch.isfinite(p.grad).all()), n
+    for sub in ("visual_net", "spatiotemp_net", "decoder_net"):
+        assert any(p.grad is not None and float(p.grad.abs().max()) > 0
+                   for n, p in params.items() if n.startswith(sub + ".")), sub
+    moved = sum(not torch.equal(p, before[n]) for n, p in params.items() if p.requires_grad)
+    assert moved > 0.9 * len(opt.params), (moved, len(opt.params))
+    log(f"[{what}] {moved} of {len(opt.params)} trainable tensors moved in the first step")
+
+
 def lowered_config(cfg):
     """`cfg` with the three eval lowerings: the MViT pools through K11, the
     CvT attention through K7 and the head as conv-at-low-res through K9."""
@@ -726,7 +798,7 @@ def dpm_sampling(nfe: int):
                           dpm_solver_order=2, skip_type="logSNR")
 
 
-def dpm_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi):
+def dpm_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi, full_calls):
     """Phase 8: `sample_saliency` with DPM-Solver++ 2M at NFE 2 and 5 on
     the full-width AV model with the three eval lowerings; launch counts
     per run, the K8 head variant, the maps against the default lowerings,
@@ -844,6 +916,7 @@ def dpm_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi):
 
     counts = dict(counts8[2])
     counts["resize_conv_relu"] = counts_k8[2]["resize_conv_relu"]
+    full_calls["cvt_attention"] = list(recorders["cvt_attention"].calls)
     rows = hold_kernels(("cvt_attention", "resize_conv_relu", "resize_phase_head",
                          "depthwise_pool3d"), recorders, plain, counts)
 
@@ -1045,6 +1118,7 @@ def visual_only_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi,
     counts = dict(counts["token_concat"])
     counts["fused_bias_attention_bwd"] = tcounts["token_concat"]["fused_bias_attention_bwd"]
     full_calls["fused_bias_attention"] = list(recorders["fused_bias_attention"].calls)
+    full_calls["fused_bias_attention_bwd"] = list(recorders["fused_bias_attention_bwd"].calls)
     return hold_kernels(("fused_bias_attention", "fused_bias_attention_bwd"), recorders,
                         plain, counts, cli.profile)
 
@@ -1192,8 +1266,8 @@ def f32_block_phase(full_calls):
                                     attention.fused_bias_attention_plain)}
     atol, rtol = TOL[torch.float32]
     summary = {}
-    for name, calls in full_calls.items():
-        fn, plain_fn = fns[name]
+    for name, (fn, plain_fn) in fns.items():
+        calls = full_calls[name]
         groups = {}  # shape key -> kernel thunks, SDPA thunks, bound ms
         err = plain_err = 0.0
         for args, kw in calls:
@@ -1248,6 +1322,229 @@ def f32_block_phase(full_calls):
         log(f"[f32 full width] SDPA f32 ({name}, first block shape) runs: {names}")
         del groups
     return summary
+
+
+def f32_backward_phase(full_calls):
+    """Phase 11, the backward: phase 6's recorded K5 calls and phase 9's
+    recorded K12 backward calls, cast to f32, each fed with the f32
+    forward's logsumexp on the same inputs and run through the f32
+    backward. Each output is held against the plain version computed in
+    f64 within the larger of the f32 tolerance and twice the f32 plain
+    version's own distance from it (dk and dv sum over up to 43008 query
+    rows, where an absolute 1e-5 may be beyond f32 itself); both distances
+    are logged. One `[block ...]` line per MViT block shape with the device
+    time per call of the kernel and of SDPA f32's backward and the share of
+    the split-TF32 bound, and the CUDA kernels SDPA f32's backward runs.
+    These launches compare a kernel with its plain version: no path's count
+    reads them. Returns {name: (kernel device ms, SDPA device ms, bound ms)}
+    over the calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diff_sal_tpu_torch.ops import attention
+
+    # name: forward, backward, plain backward, number of input tensors
+    fns = {"bias_attention_bwd": (attention.bias_attention_fwd, attention.bias_attention_bwd,
+                                  attention.bias_attention_bwd_plain, 4),
+           "fused_bias_attention_bwd": (attention.fused_bias_attention_fwd,
+                                        attention.fused_bias_attention_bwd,
+                                        attention.fused_bias_attention_bwd_plain, 6)}
+    atol = TOL[torch.float32][0]
+    summary = {}
+    for name, (fwd, bwd, plain_fn, n_in) in fns.items():
+        calls = full_calls[name]
+        groups = {}  # shape key -> kernel thunks, SDPA thunks, bound ms
+        errs = {}  # output -> (kernel's distance, the f32 plain version's) from f64, worst
+        for args, kw in calls:
+            a32 = tuple(x.float() if isinstance(x, torch.Tensor) else x for x in args)
+            ins, go, rest = a32[:n_in], a32[n_in], a32[n_in + 1:]
+            lse = fwd(*ins, *rest, return_lse=True)[1]
+            got = bwd(*ins, go, *rest, lse=lse)
+            ref = plain_fn(*(x.double() for x in ins), go.double(), *rest)
+            own = plain_fn(*ins, go, *rest)
+            torch.cuda.synchronize()
+            for i, (a, r, o) in enumerate(zip(got, ref, own)):
+                d = float((a.double() - r).abs().max())
+                po = float((o.double() - r).abs().max())
+                limit = max(atol, 2 * po)
+                assert d <= limit, (f"{name}_f32 at {tuple(ins[0].shape)}: output {i} max|d| "
+                                    f"{d:.3e} from the f64 plain version, limit {limit:.3e} "
+                                    f"(the f32 plain version's {po:.3e})")
+                errs[i] = max(errs.get(i, (0.0, 0.0)), (d, po))
+            del got, ref, own
+            q, k = ins[:2]
+            key = (tuple(q.shape), tuple(k.shape), attention_plan(name + "_f32", a32))
+            nbytes, ops = bound_terms(name + "_f32", a32, kw)
+            g = groups.setdefault(key, [[], [], 0.0])
+            g[0].append(lambda i=ins, go=go, r=rest, l=lse: bwd(*i, go, *r, lse=l))
+            g[1].append(library_call(name + "_f32", a32, kw))
+            g[2] += max(nbytes / HBM_BYTES_PER_S, sum(n / p for n, p in ops)) * 1e3
+        tot = [0.0, 0.0, 0.0]
+        for (qs, ks, plan), (kern, lib, bound) in groups.items():
+            n = len(kern)
+            dms, lms = device_ms(kern)[0], device_ms(lib)[0]
+            tot = [tot[0] + dms, tot[1] + lms, tot[2] + bound]
+            log(f"[block {name}_f32] q {qs} k {ks} plan (q_rows, splits, q_ctas, k_ctas, "
+                f"smem_q, smem_k) {plan}: {n} calls, device {1e3 * dms / n:.2f} us per call "
+                f"({100.0 * bound / dms:.1f}% of bound), SDPA f32 backward device "
+                f"{1e3 * lms / n:.2f} us ({100.0 * bound / lms:.1f}% of bound), bound "
+                f"{1e3 * bound / n:.2f} us (split TF32), SDPA / kernel {lms / dms:.2f}")
+        summary[name] = tuple(tot)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for kern, _, _ in groups.values():
+                for f in kern:
+                    f()
+            torch.cuda.synchronize()
+        log(f"[profile {name}_f32] the {len(calls)} calls once, device time by CUDA kernel")
+        log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=6))
+        log(f"[f32 full width] {name}_f32: {len(calls)} calls, device {tot[0]:.4f} ms, SDPA f32 "
+            f"backward {tot[1]:.4f} ms, bound {tot[2]:.4f} ms; max|d| from the plain version in "
+            "f64 per output (kernel, the plain version in f32): "
+            + json.dumps({i: [float(f"{d:.3e}"), float(f"{po:.3e}")]
+                          for i, (d, po) in errs.items()}))
+        lib = next(iter(groups.values()))[1][0]
+        names = set()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                lib()
+                torch.cuda.synchronize()
+            names = sorted({e.name for e in prof.events() if e.device_type == DeviceType.CUDA})
+            if names:
+                break
+        log(f"[f32 full width] SDPA f32 backward ({name}, first block shape) runs: {names}")
+        del groups
+    return summary
+
+
+def f32_cvt_phase(calls):
+    """Phase 11, K7: phase 8's recorded K7 calls (DPM++ NFE 2), cast to f32,
+    each through the f32 instance against its plain version on the same
+    inputs at the f32 tolerance; one `[shape cvt_attention_f32]` line per
+    (Bt, L, C) with the device time per call, SDPA per head in f32 and the
+    share of the bytes bound. Returns (kernel device ms, SDPA device ms,
+    bound ms, max|d|) over the calls."""
+    from diff_sal_tpu_torch.ops import attention
+
+    atol = TOL[torch.float32][0]
+    groups = {}  # (Bt, L, C) -> kernel thunks, SDPA thunks, bound ms
+    err = 0.0
+    with torch.no_grad():
+        for args, kw in calls:
+            a32 = tuple(x.float() if isinstance(x, torch.Tensor) else x for x in args)
+            out = attention.cvt_cross_attention(*a32, **kw)
+            ref = attention.reference_cvt_attention(*a32, **kw)
+            torch.cuda.synchronize()
+            d = float((out - ref).abs().max())
+            assert d <= atol, f"cvt_attention_f32 at {tuple(a32[0].shape)}: max|d| {d:.3e}"
+            err = max(err, d)
+            nbytes, ops = bound_terms("cvt_attention_f32", a32, kw)
+            g = groups.setdefault(tuple(a32[0].shape), [[], [], 0.0])
+            g[0].append(lambda a=a32, kw=kw: attention.cvt_cross_attention(*a, **kw))
+            g[1].append(library_call("cvt_attention_f32", a32, kw))
+            g[2] += max(nbytes / HBM_BYTES_PER_S, sum(n / p for n, p in ops)) * 1e3
+        tot = [0.0, 0.0, 0.0]
+        for key, (kern, lib, bound) in groups.items():
+            n = len(kern)
+            dms, lms = device_ms(kern)[0], device_ms(lib)[0]
+            tot = [tot[0] + dms, tot[1] + lms, tot[2] + bound]
+            plan = attention.cvt_f32_plan(key[0], key[1], calls[0][0][1].shape[1], key[2],
+                                          calls[0][0][3])
+            log(f"[shape cvt_attention_f32] (Bt, L, C) {key}: {n} calls, device "
+                f"{1e3 * dms / n:.2f} us per call ({100.0 * bound / dms:.1f}% of bound), SDPA "
+                f"per head f32 device {1e3 * lms / n:.2f} us, bound {1e3 * bound / n:.2f} us "
+                f"(bytes); plan {plan}")
+    log(f"[f32 full width] cvt_attention_f32: {len(calls)} calls, device {tot[0]:.4f} ms, SDPA "
+        f"per head f32 {tot[1]:.4f} ms, bound {tot[2]:.4f} ms, max|d| {err:.3e}")
+    return (*tot, err)
+
+
+F32_TRAIN_ITERS = 10  # timed f32 training steps at full width
+# the f32 backward's CUDA kernels (csrc/attention_f32.cu)
+F32_BWD_CUDA = ("f32_bwd_q_kernel", "f32_bwd_kv_kernel", "f32_reduce_kernel")
+# words in the names of cuDNN's convolution kernels, its FFT path's complex
+# GEMMs (`sm80_xmma_gemm_cf32cf32...`) among them
+CONV_WORDS = ("conv", "fft", "fprop", "dgrad", "wgrad", "cudnn", "cf32")
+
+
+def f32_train_phase(dev, schedule, kind, smi):
+    """Phase 12: the AV training step at full width in f32 (both packages'
+    default), B=4, phase 6's recipe: one warm-up step with phase 6's checks,
+    one step with the launch counts set to 0 just before it and read just
+    after, held against `f32_launches`, then F32_TRAIN_ITERS timed steps on
+    rotating batches (ms per step by CUDA events: each step's and the whole
+    window's), the device events of one more step (`device_events`): their
+    sum, the device's busy time (the union of their intervals, so that
+    overlapping kernels count once), the f32 backward's (K5 f32, its three
+    CUDA kernels) and the convolutions' busy time as shares of it and of the
+    step, the other events' busy time, the streams they ran on, and peak
+    memory."""
+    from diff_sal_tpu_torch.config import ExperimentConfig, ModelConfig
+    from diff_sal_tpu_torch.models.diff_model import build_model
+    from diff_sal_tpu_torch.ops import kernels
+    from diff_sal_tpu_torch.train.optim import make_optimizer
+    from diff_sal_tpu_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    tcfg = ExperimentConfig(model=ModelConfig.audio_visual())
+    assert tcfg.model.compute_dtype == "float32", tcfg.model.compute_dtype
+    tmodel = build_model(tcfg.model, seed=0, device=dev, train=True)
+    opt = make_optimizer(tmodel, tcfg.optim, steps_per_epoch=1000, n_epochs=4)
+    tstep = make_train_step(tmodel, schedule, tcfg)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    (H, W), T = tcfg.model.decoder.img_size, tcfg.model.visual.temporal_size
+    batches = [{"rgb": torch.randn(B_TRAIN, T, H, W, 3, generator=gen, device=dev) * 0.5,
+                "salmap": torch.rand(B_TRAIN, H, W, 1, generator=gen, device=dev),
+                "audio": torch.randn(B_TRAIN, 9, H // 2, W // 2, 1, generator=gen, device=dev)}
+               for _ in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+    first_train_step(tstep, opt, batches[0], gen, dict(tmodel.named_parameters()), "f32 train",
+                     t0)
+    kernels.reset_launch_counts()
+    m1 = tstep(opt, batches[1], gen)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert np.isfinite(float(m1["total"])), m1
+    check_launches(counts, f32_launches(tcfg.model, train=True), "f32 train step")
+    assert counts["bias_attention_f32"] == counts["bias_attention_bwd_f32"] == 16, counts
+    log("[f32 train] launches per step " + json.dumps({n: c for n, c in counts.items() if c}))
+
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(F32_TRAIN_ITERS + 1)]
+    marks[0].record()
+    for i in range(F32_TRAIN_ITERS):
+        m = tstep(opt, batches[i % len(batches)], gen)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    steps = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    step_ms = marks[0].elapsed_time(marks[-1]) / F32_TRAIN_ITERS
+    assert np.isfinite(float(m["total"])) and float(m["grad_norm"]) > 0, m
+    events = device_events([lambda: tstep(opt, batches[2], gen)])
+    total = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    span = (max(e.time_range.end for e in events)
+            - min(e.time_range.start for e in events)) / 1e3
+    busy = busy_ms(events)
+    k5 = busy_ms([e for e in events if any(k in e.name for k in F32_BWD_CUDA)])
+    is_conv = [any(w in e.name.lower() for w in CONV_WORDS) for e in events]
+    conv = busy_ms([e for e, c in zip(events, is_conv) if c])
+    others = busy_ms([e for e, c in zip(events, is_conv) if not c])
+    streams = len({getattr(e, "device_resource_id", 0) for e in events})
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    log("[f32 train] device time by kernel, one step (ms, summed): "
+        + "; ".join(f"{n[:90]} {t:.3f}" for n, t in top))
+    log(f"[f32 train] {step_ms:.2f} ms per B={B_TRAIN} f32 step by events over "
+        f"{F32_TRAIN_ITERS} steps on rotating batches (each step: "
+        f"{', '.join(f'{t:.1f}' for t in steps)} ms), {1000.0 * B_TRAIN / step_ms:.2f} clips/s; "
+        f"one profiled step: {len(events)} device events, {total:.3f} ms summed, device busy "
+        f"{busy:.3f} ms (union of intervals) in a {span:.3f} ms span "
+        f"({100.0 * busy / span:.1f}% busy); the f32 backward (K5 f32) busy {k5:.3f} ms "
+        f"({100.0 * k5 / busy:.1f}% of busy, {100.0 * k5 / step_ms:.1f}% of the step); "
+        f"convolutions (kernel names with {'/'.join(CONV_WORDS)}) busy {conv:.3f} ms "
+        f"({100.0 * conv / busy:.1f}% of busy), every other event busy {others:.3f} ms; "
+        f"{streams} streams; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {kind} [{smi}]; loss "
+        f"{float(m['total']):.3f}; phase {time.perf_counter() - t0:.1f} s")
 
 
 def resize_add_phase(k4_call, recorders, plain):
@@ -1463,30 +1760,7 @@ def main() -> int:
                 "audio": torch.randn(B_TRAIN, 9, H // 2, W // 2, 1, generator=gen, device=dev)}
                for _ in range(3)]
     torch.cuda.reset_peak_memory_stats()
-    params = dict(tmodel.named_parameters())
-    before = {n: p.detach().clone() for n, p in params.items()}
-    m0 = tstep(opt, batches[0], gen)
-    torch.cuda.synchronize()
-    log(f"[train] model built, first step in {time.perf_counter() - t0:.1f} s: "
-        + json.dumps({k: float(v) for k, v in m0.items()}))
-    loss0, gn0 = float(m0["total"]), float(m0["grad_norm"])
-    assert np.isfinite(loss0) and loss0 > 0 and np.isfinite(gn0) and gn0 > 0, (loss0, gn0)
-    # the finest pyramid scale is never read by the decoder (reference
-    # quirk), so its norm is the one trainable module off the graph
-    off_graph = {n for n, p in params.items() if p.requires_grad and p.grad is None}
-    assert off_graph == {"visual_net.norm0.weight", "visual_net.norm0.bias"}, off_graph
-    for n, p in params.items():
-        if n.startswith("audio_net."):
-            assert p.grad is None and not p.requires_grad and torch.equal(p, before[n]), n
-        elif p.grad is not None:
-            assert bool(torch.isfinite(p.grad).all()), n
-    for sub in ("visual_net", "spatiotemp_net", "decoder_net"):
-        assert any(p.grad is not None and float(p.grad.abs().max()) > 0
-                   for n, p in params.items() if n.startswith(sub + ".")), sub
-    moved = sum(not torch.equal(p, before[n]) for n, p in params.items() if p.requires_grad)
-    assert moved > 0.9 * len(opt.params), (moved, len(opt.params))
-    log(f"[train] {moved} of {len(opt.params)} trainable tensors moved in the first step")
-    del before
+    first_train_step(tstep, opt, batches[0], gen, dict(tmodel.named_parameters()), "train", t0)
 
     for n in TRAIN_KERNELS:
         recorders[n].on = True
@@ -1526,9 +1800,10 @@ def main() -> int:
         log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=30))
 
     t0 = time.perf_counter()
+    full_calls["bias_attention_bwd"] = list(recorders["bias_attention_bwd"].calls)
     rows += hold_kernels(TRAIN_KERNELS, recorders, plain, tcounts, cli.profile)
     log(f"[train kernels] phase {time.perf_counter() - t0:.1f} s")
-    del tmodel, opt, batches, params
+    del tmodel, opt, batches
 
     # -- phase 7: one small training step against the CPU -------------------
     t0 = time.perf_counter()
@@ -1581,7 +1856,7 @@ def main() -> int:
 
     # -- phase 8: DPM-Solver++ with the eval lowerings at full width ---------
     t0 = time.perf_counter()
-    rows += dpm_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi)
+    rows += dpm_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi, full_calls)
     log(f"[dpm] phase {time.perf_counter() - t0:.1f} s")
 
     # -- phase 9: the visual-only model in both MViT layouts ----------------
@@ -1595,11 +1870,16 @@ def main() -> int:
     rows += f32_phase(dev, schedule, data_cfg, recorders, plain)
     log(f"[f32] phase {time.perf_counter() - t0:.1f} s")
 
-    # -- phase 11: the f32 attention forward at full width ------------------
+    # -- phase 11: the f32 attention and K7 at full width -------------------
     t0 = time.perf_counter()
     f32_block_phase(full_calls)
+    f32_backward_phase(full_calls)
+    f32_cvt_phase(full_calls["cvt_attention"])
     del full_calls
     log(f"[f32 full width] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 12: the f32 training step at full width -----------------------
+    f32_train_phase(dev, schedule, kind, smi)
 
     log("[device time] profiler sessions " + json.dumps(DEVICE_MS_TALLY))
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

@@ -1,266 +1,513 @@
-// K5 and K12's backward in f32: the instances an f32 model (both packages'
-// default compute dtype) runs on the card when it takes a gradient. The f32
-// forward (K1 and K12 in f32) is csrc/attention_f32_fwd.cu; these kernels
-// read the logsumexp it saves.
+// K5 and K12's backward in f32, on the tensor cores: the instances an f32
+// model (both packages' default compute dtype) runs on the card when it
+// takes a gradient. The f32 forward (K1 and K12 in f32) is
+// csrc/attention_f32_fwd.cu; these kernels read the logsumexp it saves.
 //
 // The same functions as csrc/attention_bwd.cu (the TPU kernels
-// diff_sal_tpu/ops/attention.py:761 _fba2_bwd and :280 _fba_bwd, which take
-// f32 as they take bf16), with every product in f32 by FFMA on the CUDA
-// cores. In f32 nothing is rounded between the steps (p_lo = p, ds_lo = ds),
-// as the plain versions compute at f32. They are bound by operations (five
-// (Lq, Lk, D) products per head); FFMA peaks at ~67 TFLOP/s, and split TF32
-// on the tensor cores (as the forward runs) would reach 165: a redesign
-// that has not been made, so these kernels lose to the library call
-// (PERF.md).
+// diff_sal_tpu/ops/attention.py:761 _fba2_bwd, body _attn_v2_bwd_kernel
+// :697, and :280 _fba_bwd, body _attn_bwd_kernel :193, which take f32 as
+// they take bf16). Per (batch, head), with p = exp(s - lse) recomputed from
+// the biased scores s:
+//   dp = g v^T, delta = rowsum(dp * p), ds = p * (dp - delta),
+//   dv = p^T g, dq = ds k * scale (+ g on rows >= res_from),
+//   dk = ds^T q * scale, drel = ds summed over the keys of each t, h, w bin.
+// In f32 nothing is rounded between the steps (p_lo = p, ds_lo = ds), as
+// the plain versions compute at f32.
 //
-// Layouts: q, k, v, g (B, L, H*D) with the (t, h, w) bias terms read
-// through RelIn (K5: one (B, Lq, H, kt + kh + kw) tensor; K12: B*heads
-// batches of one head, three (B*heads, Lq, kt | kh | kw) tensors). A warp
-// owns 8 rows (query rows, or keys in the k-major backward) and its lanes
-// take one column each of a 32-wide tile of the other axis, so every dot
-// product is a lane's own loop over D, reductions over a tile are warp
-// shuffles, and products with the tile run over the lanes' D columns.
-//  - q-major (dq, drel, delta): two passes over the key tiles (delta =
-//    rowsum(dp * p), then ds); drel sums ds over the keys of each t, h and
-//    w bin in key order, lane c owning bins c, c + 32, ...;
-//  - k-major (dk, dv), one CTA per 32 keys and query split, the splits'
-//    f32 partial sums reduced in a fixed order.
+// What bounds it: operations. Five (Lq, Lk, D) products per head make the
+// function; these kernels run nine (below) plus drel. Every product runs on
+// the tensor cores in split TF32 (csrc/tf32.cuh: mma.sync m16n8k8, three
+// TF32 products per product, f32's accuracy at up to 165 TFLOP/s, against
+// 67 for FFMA), each operand split into hi and lo in registers as its
+// fragment loads. drel = ds E^T with E the one-hot (key -> bin) matrix,
+// built in registers from each key's three bin indices: E is exact in TF32,
+// so it takes two products (ds hi and lo), not three. The tensor cores'
+// accumulation does not round to nearest, so every product starts from
+// zero every FLUSH k-steps and is added into f32 registers.
+//
+// Two kernels and, where the queries are split, a reduction:
+//  - q-major (dq, drel, delta): a CTA of 1, 2 or 4 warps owns 16 query rows
+//    per warp of one (batch, head) and walks the key tiles (32 keys, a
+//    cp.async double buffer) twice: S = (q * scale) K^T and dP = G V^T give
+//    delta, then S and dP again give ds, and dq += ds K, drel += ds E^T
+//    (five products and drel). Rows per CTA shrink from 64 to 32 or 16
+//    where the row tiles would leave SMs idle (the small models).
+//  - k-major (dk, dv): a CTA of four warps owns 16 keys per warp and walks
+//    its split of the query tiles (32 rows, Q, G, the bias rows, lse and
+//    delta through a cp.async double buffer): S^T = K (q * scale)^T, p,
+//    dv += p^T G, dP^T = V G^T, ds, dk += ds^T Q (four products; Q is
+//    loaded once, its fragment scaled for S^T and dk scaled at the end).
+//    Query splits fill the card in whole waves; their partial sums go to
+//    an f32 workspace that a third kernel reduces in a fixed order.
 // No atomics: two runs give the same bits.
+//
+// Fragments: in a product whose A and B both come from shared memory
+// (S, dP and their transposes) k-step kk takes head-dim columns 8 kk + t
+// and 8 kk + t + 4 (the natural order). In a product whose A is an
+// accumulator (p or ds), k-step j takes keys (or query rows) 8 j + 2t and
+// 8 j + 2t + 1, exactly the accumulator's columns a thread holds, so p and
+// ds go from the accumulator to the A operand without a shuffle. Every
+// tile's row stride is D + 4 floats (4 mod 32 banks), which makes both
+// access patterns free of bank conflicts. The geometry (rows per CTA, bins
+// padded to the drel product's N, splits, shared memory) is chosen here
+// and mirrored by `f32_bwd_plan` in ops/attention.py, which the CPU tests
+// check.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "attention_bias.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-constexpr int T = 32;         // rows per warp-tile column set: keys or query rows per tile
-constexpr int WR = 8;         // rows per warp
-constexpr int NW = 4;         // warps per CTA
-constexpr int NT = NW * 32;
-constexpr int ROWS = NW * WR;  // rows per CTA
-constexpr int MAX_K = 128;    // kt + kh + kw
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory one CTA may use
+constexpr int SM_SMEM = 233472;   // shared memory of an SM (each CTA also holds 1 KB)
+constexpr int NUM_SMS = 132;
+constexpr int MAX_WAVES = 8;  // of k-major CTAs, at most, that query splits make
+constexpr int MAX_K = 128;  // kt + kh + kw
+constexpr int BN = 32;      // keys per tile of the q-major kernel
+constexpr int BM = 32;      // query rows per tile of the k-major kernel
+constexpr int KW = 4;       // warps of the k-major kernel
+constexpr int KROWS = 16 * KW;  // keys per k-major CTA
 
 struct Params {
   const float *q, *k, *v, *g, *lse;
-  float *dq, *delta, *work;
+  float *dq, *delta, *work, *dk, *dv;
   RelIn<float> rel;
   RelOut<float> drel;
   int B, Lq, Lk, H, kt, kh, kw, res_from, splits;
   float scale;
 };
 
-__device__ __forceinline__ float warp_sum(float x) {
+// Shared memory, in floats. q-major: Q and G (rows x D + 4), the K and V
+// double buffers (BN x D + 4 each), the key table of both buffers (BN ints
+// each) and the bias rows (rows x K + 2). k-major: K and V (KROWS x D + 4),
+// the Q and G double buffers (BM x D + 4 each), the bias rows, lse and
+// delta of both buffers. Mirrored by `f32_bwd_smem` in ops/attention.py.
+__host__ __device__ inline int q_smem(int D, int rows, int K) {
+  return 4 * (2 * rows * (D + 4) + 4 * BN * (D + 4) + 2 * BN + rows * (K + 2));
+}
+__host__ __device__ inline int k_smem(int D, int K) {
+  return 4 * (2 * KROWS * (D + 4) + 4 * BM * (D + 4) + 2 * BM * (K + 2) + 4 * BM);
+}
+
+// `n` rows [row0, row0 + n) of one head (columns col0 .. col0 + D) of a
+// (B, L, HD) tensor into shared memory at row stride ld floats by cp.async;
+// rows past L are zeros
+template <int D, int NT>
+__device__ __forceinline__ void load_rows(uint32_t dst, int ld, const float* __restrict__ src,
+                                          int n, int b, int L, int row0, int HD, int col0) {
+  constexpr int V4 = D / 4;
+  for (int i = threadIdx.x; i < n * V4; i += NT) {
+    const int r = i / V4, c = (i - r * V4) * 4, row = row0 + r;
+    const bool ok = row < L;
+    cp16(dst + (r * ld + c) * 4, src + ((size_t)b * L + (ok ? row : 0)) * HD + col0 + c, ok);
+  }
+}
+
+// acc[n] = A B_n^T for the 16 rows of A at `a` (row stride D + 4) and the
+// four 8-row n-tiles of B at `b`, over the D columns, in split TF32 (k-step
+// kk: columns 8 kk + t, 8 kk + t + 4). With SCALE, B's elements are
+// multiplied by `mul` (rounded in f32, as the plain versions round
+// q * scale) before they are split.
+template <int D, bool SCALE>
+__device__ __forceinline__ void tile_nt(float (&acc)[4][4], const float* a, const float* b,
+                                        float mul) {
+  constexpr int SD = D + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* a0 = a + g * SD + t;
+  const float* b0 = b + g * SD + t;
+  float part[4][4];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  for (int n = 0; n < 4; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    split(a0[8 * kk], ah[0], al[0]);
+    split(a0[8 * SD + 8 * kk], ah[1], al[1]);
+    split(a0[8 * kk + 4], ah[2], al[2]);
+    split(a0[8 * SD + 8 * kk + 4], ah[3], al[3]);
+    float bb[4][2];
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      bb[n][0] = b0[8 * n * SD + 8 * kk];
+      bb[n][1] = b0[8 * n * SD + 8 * kk + 4];
+      if (SCALE) {
+        bb[n][0] *= mul;
+        bb[n][1] *= mul;
+      }
+    }
+    if (kk % FLUSH == 0)
+      mma3<4, true>(part, ah, al, bb);
+    else
+      mma3<4, false>(part, ah, al, bb);
+    if (kk % FLUSH == FLUSH - 1 || kk == D / 8 - 1) flush<4>(acc, part);
+  }
 }
 
-// `n` rows [row0, row0 + n) of head h of a (B, L, H*D) tensor into shared
-// memory with row stride ld, times `mul`; rows past L are zero
+// the A fragments (hi, lo) of k-step j from accumulator n-tile j: columns
+// 2t and 2t + 1 of rows g and g + 8
+__device__ __forceinline__ void split_acc(const float (&x)[4][4], uint32_t (&hi)[4][4],
+                                          uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    split(x[j][0], hi[j][0], lo[j][0]);
+    split(x[j][2], hi[j][1], lo[j][1]);
+    split(x[j][1], hi[j][2], lo[j][2]);
+    split(x[j][3], hi[j][3], lo[j][3]);
+  }
+}
+
+// acc[n] += A B for the D / 8 n-tiles of acc: A the split accumulator
+// fragments of four k-steps (32 keys or query rows), B the 32 rows at `b`
+// (row stride D + 4; k-step j reads rows 8 j + 2t and 8 j + 2t + 1, column
+// 8 n + g), four n-tiles at a time, flushed every FLUSH k-steps
 template <int D>
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, float* dst, int ld, int n,
-                                          int b, int L, int row0, int H, int h, float mul) {
-  for (int i = threadIdx.x; i < n * D; i += NT) {
-    const int r = i / D, c = i - r * D, row = row0 + r;
-    dst[r * ld + c] = row < L ? src[((size_t)b * L + row) * H * D + h * D + c] * mul : 0.f;
-  }
-}
-
-// raw rel rows [row0, row0 + n) of head h: [K terms | 0 | -inf], zero past Lq
-__device__ __forceinline__ void load_rel(const RelIn<float>& rel, float* dst, int ld, int n,
-                                         int b, int Lq, int row0, int h, int kt, int kh, int K) {
-  for (int i = threadIdx.x; i < n * K; i += NT) {
-    const int r = i / K, c = i - r * K, row = row0 + r;
-    int cc;
-    const int part = rel_part(c, kt, kh, cc);
-    dst[r * ld + c] =
-        row < Lq ? rel.p[part][((size_t)b * Lq + row) * rel.ld[part] + h * rel.hs + cc] : 0.f;
-  }
-  for (int r = threadIdx.x; r < n; r += NT) {
-    dst[r * ld + K] = 0.f;
-    dst[r * ld + K + 1] = -INFINITY;
+__device__ __forceinline__ void acc_tn(float (*acc)[4], const uint32_t (&hi)[4][4],
+                                       const uint32_t (&lo)[4][4], const float* b) {
+  constexpr int SD = D + 4;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* b0 = b + 2 * t * SD + g;
+#pragma unroll
+  for (int n0 = 0; n0 < D / 8; n0 += 4) {
+    float part[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float bb[4][2];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        bb[n][0] = b0[8 * j * SD + 8 * (n0 + n)];
+        bb[n][1] = b0[(8 * j + 1) * SD + 8 * (n0 + n)];
+      }
+      if (j % FLUSH == 0)
+        mma3<4, true>(part, hi[j], lo[j], bb);
+      else
+        mma3<4, false>(part, hi[j], lo[j], bb);
+      if (j % FLUSH == FLUSH - 1) flush<4>(acc + n0, part);
+    }
   }
 }
 
 // ------------------------------------------- backward: dq, drel, delta ---
 
-template <int D>
-__global__ void __launch_bounds__(NT) f32_bwd_q_kernel(const Params p) {
-  extern __shared__ float sm[];
+// NB: n-tiles of the drel product (bins padded to 32, 48 or 128)
+template <int D, int NW, int NB>
+__global__ void __launch_bounds__(NW * 32) f32_bwd_q_kernel(const Params p) {
+  constexpr int NT = NW * 32, ROWS = NW * 16, SD = D + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int K = p.kt + p.kh + p.kw, LR = K + 2;
-  float* Qs = sm;                    // ROWS x D, scaled
-  float* Gs = Qs + ROWS * D;         // ROWS x D
-  float* Ks = Gs + ROWS * D;         // T x (D + 1)
-  float* Vs = Ks + T * (D + 1);      // T x (D + 1)
-  float* Rs = Vs + T * (D + 1);      // ROWS x LR
-  int* Et = reinterpret_cast<int*>(Rs + ROWS * LR);  // T key indices
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Gs = Qs + ROWS * SD;
+  float* Ks = Gs + ROWS * SD;      // 2 x BN x SD
+  float* Vs = Ks + 2 * BN * SD;    // 2 x BN x SD
+  int* ktab = reinterpret_cast<int*>(Vs + 2 * BN * SD);  // 2 x BN
+  float* Rs = reinterpret_cast<float*>(ktab + 2 * BN);   // ROWS x LR
+  const uint32_t sb = smem_u32(smem);
   const int qtiles = (p.Lq + ROWS - 1) / ROWS;
   const int bh = blockIdx.x / qtiles, q0 = (blockIdx.x - bh * qtiles) * ROWS;
-  const int b = bh / p.H, h = bh - b * p.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int C = D / 32;
-  constexpr int NB = MAX_K / 32;  // bins per lane: lane + 32 c
+  const int b = bh / p.H, h = bh - b * p.H, HD = p.H * D, col0 = h * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ntiles = (p.Lk + BN - 1) / BN, steps = 2 * ntiles;
+  const uint32_t kbuf = sb + (uint32_t)(2 * ROWS * SD) * 4, vbuf = kbuf + BN * SD * 8;
 
-  load_rows<D>(p.q, Qs, D, ROWS, b, p.Lq, q0, p.H, h, p.scale);
-  load_rows<D>(p.g, Gs, D, ROWS, b, p.Lq, q0, p.H, h, 1.f);
-  load_rel(p.rel, Rs, LR, ROWS, b, p.Lq, q0, h, p.kt, p.kh, K);
-  float lse[WR], dsum[WR], dq[WR][C], dr[WR][NB];
-#pragma unroll
-  for (int i = 0; i < WR; ++i) {
-    const int row = q0 + warp * WR + i;
-    lse[i] = row < p.Lq ? p.lse[(size_t)bh * p.Lq + row] : 0.f;
-    dsum[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) dq[i][c] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NB; ++c) dr[i][c] = 0.f;
+  load_rows<D, NT>(sb, SD, p.q, ROWS, b, p.Lq, q0, HD, col0);
+  load_rows<D, NT>(sb + ROWS * SD * 4, SD, p.g, ROWS, b, p.Lq, q0, HD, col0);
+  load_rows<D, NT>(kbuf, SD, p.k, BN, b, p.Lk, 0, HD, col0);
+  load_rows<D, NT>(vbuf, SD, p.v, BN, b, p.Lk, 0, HD, col0);
+  cp_commit();
+  // the key table of tile 0 and the raw bias rows while the copies are in
+  // flight
+  for (int j = threadIdx.x; j < BN; j += NT) ktab[j] = key_index(j, p.Lk, p.kt, p.kh, p.kw);
+  for (int i = threadIdx.x; i < ROWS * K; i += NT) {
+    const int r = i / K, c = i - r * K, row = q0 + r;
+    int cc;
+    const int part = rel_part(c, p.kt, p.kh, cc);
+    Rs[r * LR + c] = row < p.Lq ? p.rel.p[part][((size_t)b * p.Lq + row) * p.rel.ld[part] +
+                                                h * p.rel.hs + cc]
+                                : 0.f;
   }
-  for (int pass = 0; pass < 2; ++pass) {
-    for (int j0 = 0; j0 < p.Lk; j0 += T) {
-      __syncthreads();
-      load_rows<D>(p.k, Ks, D + 1, T, b, p.Lk, j0, p.H, h, 1.f);
-      load_rows<D>(p.v, Vs, D + 1, T, b, p.Lk, j0, p.H, h, 1.f);
-      if (threadIdx.x < T) Et[threadIdx.x] = key_index(j0 + threadIdx.x, p.Lk, p.kt, p.kh, p.kw);
-      __syncthreads();
-      const int e = Et[lane];
+  for (int r = threadIdx.x; r < ROWS; r += NT) {
+    Rs[r * LR + K] = 0.f;
+    Rs[r * LR + K + 1] = -INFINITY;
+  }
+
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  const int row0 = q0 + r0, row1 = row0 + 8;
+  const float lse0 = row0 < p.Lq ? p.lse[(size_t)bh * p.Lq + row0] : 0.f;
+  const float lse1 = row1 < p.Lq ? p.lse[(size_t)bh * p.Lq + row1] : 0.f;
+  const float* rel0 = Rs + r0 * LR;
+  const float* rel1 = rel0 + 8 * LR;
+  float dsum0 = 0.f, dsum1 = 0.f;  // rowsum(dp * p): this thread's keys, then the row's
+  float dq[D / 8][4], dr[NB][4];
 #pragma unroll
-      for (int i = 0; i < WR; ++i) {
-        const int r = warp * WR + i;
-        float s = 0.f, dp = 0.f;
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(Qs[r * D + d], Ks[lane * (D + 1) + d], s);
-          dp = fmaf(Gs[r * D + d], Vs[lane * (D + 1) + d], dp);
-        }
-        const float pr = expf(s + bias_at(Rs + r * LR, e) - lse[i]);
-        if (pass == 0) {
-          dsum[i] = fmaf(pr, dp, dsum[i]);
-          continue;
-        }
-        const float ds = pr * (dp - dsum[i]);
-        for (int jj = 0; jj < T; ++jj) {
-          const float dj = __shfl_sync(0xffffffffu, ds, jj);
+  for (int n = 0; n < D / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 #pragma unroll
-          for (int c = 0; c < C; ++c)
-            dq[i][c] = fmaf(dj, Ks[jj * (D + 1) + lane + 32 * c], dq[i][c]);
-          const int ej = Et[jj], et = ej & 1023, eh = (ej >> 10) & 1023, ew = ej >> 20;
+  for (int n = 0; n < NB; ++n) dr[n][0] = dr[n][1] = dr[n][2] = dr[n][3] = 0.f;
+
+  for (int it = 0; it < steps; ++it) {  // pass 0 (delta), then pass 1
+    const int st = it & 1;
+    if (it + 1 < steps) {  // the next tile into the other buffer
+      const int nx = it + 1 < ntiles ? it + 1 : it + 1 - ntiles;
+      load_rows<D, NT>(kbuf + (st ^ 1) * BN * SD * 4, SD, p.k, BN, b, p.Lk, nx * BN, HD, col0);
+      load_rows<D, NT>(vbuf + (st ^ 1) * BN * SD * 4, SD, p.v, BN, b, p.Lk, nx * BN, HD, col0);
+      for (int j = threadIdx.x; j < BN; j += NT)
+        ktab[(st ^ 1) * BN + j] = key_index(nx * BN + j, p.Lk, p.kt, p.kh, p.kw);
+    }
+    cp_commit();
+    cp_wait<1>();  // every group but the newest: tile `it` (and Q, G) has landed
+    if (it == 0) {  // each thread scales the Q elements it copied
+      for (int e = threadIdx.x; e < ROWS * (D / 4); e += NT) {
+        const int r = e / (D / 4), c = (e - r * (D / 4)) * 4;
+        float4* ptr = reinterpret_cast<float4*>(Qs + r * SD + c);
+        float4 x = *ptr;
+        x.x *= p.scale;
+        x.y *= p.scale;
+        x.z *= p.scale;
+        x.w *= p.scale;
+        *ptr = x;
+      }
+    }
+    __syncthreads();
+
+    const float* kt_s = Ks + st * BN * SD;
+    const int* kt_tab = ktab + st * BN;
+    float sc[4][4], dp[4][4];
+    tile_nt<D, false>(sc, Qs + warp * 16 * SD, kt_s, 1.f);
+    tile_nt<D, false>(dp, Gs + warp * 16 * SD, Vs + st * BN * SD, 1.f);
+    // p = exp(s + bias - lse); keys past Lk have a -inf bias
 #pragma unroll
-          for (int c = 0; c < NB; ++c) {
-            const int bin = lane + 32 * c;
-            if (bin < K && (bin == et || bin == eh || bin == ew)) dr[i][c] += dj;
+    for (int n = 0; n < 4; ++n) {
+      const int2 e = *reinterpret_cast<const int2*>(kt_tab + 8 * n + 2 * t);
+      sc[n][0] = expf(sc[n][0] + bias_at(rel0, e.x) - lse0);
+      sc[n][1] = expf(sc[n][1] + bias_at(rel0, e.y) - lse0);
+      sc[n][2] = expf(sc[n][2] + bias_at(rel1, e.x) - lse1);
+      sc[n][3] = expf(sc[n][3] + bias_at(rel1, e.y) - lse1);
+    }
+    if (it < ntiles) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        dsum0 = fmaf(sc[n][0], dp[n][0], dsum0);
+        dsum0 = fmaf(sc[n][1], dp[n][1], dsum0);
+        dsum1 = fmaf(sc[n][2], dp[n][2], dsum1);
+        dsum1 = fmaf(sc[n][3], dp[n][3], dsum1);
+      }
+      if (it == ntiles - 1) {  // delta: the quad's sums, in a fixed order
+        dsum0 += __shfl_xor_sync(0xffffffffu, dsum0, 1);
+        dsum0 += __shfl_xor_sync(0xffffffffu, dsum0, 2);
+        dsum1 += __shfl_xor_sync(0xffffffffu, dsum1, 1);
+        dsum1 += __shfl_xor_sync(0xffffffffu, dsum1, 2);
+      }
+    } else {
+      // ds = p * (dp - delta), as the A fragments of dq and drel
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        sc[n][0] *= dp[n][0] - dsum0;
+        sc[n][1] *= dp[n][1] - dsum0;
+        sc[n][2] *= dp[n][2] - dsum1;
+        sc[n][3] *= dp[n][3] - dsum1;
+      }
+      uint32_t dh[4][4], dl[4][4];
+      split_acc(sc, dh, dl);
+      acc_tn<D>(dq, dh, dl, kt_s);
+      // drel += ds E^T: E's column for key 8 j + 2t (+ 1) holds a one in
+      // the rows of its three bins
+      int et[4][2], eh[4][2], ew[4][2];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int2 e = *reinterpret_cast<const int2*>(kt_tab + 8 * j + 2 * t);
+        et[j][0] = e.x & 1023;
+        eh[j][0] = (e.x >> 10) & 1023;
+        ew[j][0] = e.x >> 20;
+        et[j][1] = e.y & 1023;
+        eh[j][1] = (e.y >> 10) & 1023;
+        ew[j][1] = e.y >> 20;
+      }
+      constexpr uint32_t ONE = 0x3f800000u;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const int bin = 8 * nb + g;
+        float part[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t b0 =
+              (bin == et[j][0] || bin == eh[j][0] || bin == ew[j][0]) ? ONE : 0u;
+          const uint32_t b1 =
+              (bin == et[j][1] || bin == eh[j][1] || bin == ew[j][1]) ? ONE : 0u;
+          if (j % FLUSH == 0)
+            mma_z(part, dl[j], b0, b1);
+          else
+            mma(part, dl[j], b0, b1);
+          mma(part, dh[j], b0, b1);
+          if (j % FLUSH == FLUSH - 1) {
+            dr[nb][0] += part[0];
+            dr[nb][1] += part[1];
+            dr[nb][2] += part[2];
+            dr[nb][3] += part[3];
           }
         }
       }
     }
-    if (pass == 0) {
-#pragma unroll
-      for (int i = 0; i < WR; ++i) dsum[i] = warp_sum(dsum[i]);  // delta
-    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
   }
+
 #pragma unroll
-  for (int i = 0; i < WR; ++i) {
-    const int row = q0 + warp * WR + i;
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? row1 : row0;
     if (row >= p.Lq) continue;
-    const size_t base = ((size_t)b * p.Lq + row) * p.H * D + h * D;
+    const size_t base = ((size_t)b * p.Lq + row) * HD + col0 + 2 * t;
+    const bool res = row >= p.res_from;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      float x = dq[i][c] * p.scale;
-      if (row >= p.res_from) x += p.g[base + lane + 32 * c];
-      p.dq[base + lane + 32 * c] = x;
+    for (int n = 0; n < D / 8; ++n) {
+      float2 x = make_float2(dq[n][2 * half] * p.scale, dq[n][2 * half + 1] * p.scale);
+      if (res) {
+        const float2 gg = *reinterpret_cast<const float2*>(p.g + base + 8 * n);
+        x.x += gg.x;
+        x.y += gg.y;
+      }
+      *reinterpret_cast<float2*>(p.dq + base + 8 * n) = x;
     }
 #pragma unroll
-    for (int c = 0; c < NB; ++c) {
-      const int bin = lane + 32 * c;
-      if (bin >= K) continue;
-      int cc;
-      const int part = rel_part(bin, p.kt, p.kh, cc);
-      p.drel.p[part][((size_t)b * p.Lq + row) * p.drel.ld[part] + h * p.drel.hs + cc] = dr[i][c];
+    for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int bin = 8 * nb + 2 * t + c;
+        if (bin >= K) continue;
+        int cc;
+        const int part = rel_part(bin, p.kt, p.kh, cc);
+        p.drel.p[part][((size_t)b * p.Lq + row) * p.drel.ld[part] + h * p.drel.hs + cc] =
+            dr[nb][2 * half + c];
+      }
     }
-    if (lane == 0) p.delta[(size_t)bh * p.Lq + row] = dsum[i];
+    if (t == 0) p.delta[(size_t)bh * p.Lq + row] = half ? dsum1 : dsum0;
   }
 }
 
 // ------------------------------------------ backward: dk, dv partials ---
 
 template <int D>
-__global__ void __launch_bounds__(NT) f32_bwd_kv_kernel(const Params p) {
-  extern __shared__ float sm[];
+__global__ void __launch_bounds__(KW * 32) f32_bwd_kv_kernel(const Params p) {
+  constexpr int NT = KW * 32, SD = D + 4;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int K = p.kt + p.kh + p.kw, LR = K + 2;
-  float* Ks = sm;                     // ROWS x D (this CTA's keys)
-  float* Vs = Ks + ROWS * D;          // ROWS x D
-  float* Qs = Vs + ROWS * D;          // T x (D + 1), scaled
-  float* Qr = Qs + T * (D + 1);       // T x (D + 1), unscaled
-  float* Gs = Qr + T * (D + 1);       // T x (D + 1)
-  float* Rs = Gs + T * (D + 1);       // T x LR
-  float* Ls = Rs + T * LR;            // T lse
-  float* Ds = Ls + T;                 // T delta
-  const int ktiles = (p.Lk + ROWS - 1) / ROWS, per_bh = p.splits * ktiles;
+  float* Ks = reinterpret_cast<float*>(smem);  // KROWS x SD (this CTA's keys)
+  float* Vs = Ks + KROWS * SD;
+  float* Qs = Vs + KROWS * SD;     // 2 x BM x SD
+  float* Gs = Qs + 2 * BM * SD;    // 2 x BM x SD
+  float* Rs = Gs + 2 * BM * SD;    // 2 x BM x LR
+  float* Ls = Rs + 2 * BM * LR;    // 2 x BM lse
+  float* Ds = Ls + 2 * BM;         // 2 x BM delta
+  const uint32_t sb = smem_u32(smem);
+  const uint32_t qbuf = sb + (uint32_t)(2 * KROWS * SD) * 4, gbuf = qbuf + BM * SD * 8;
+  const int ktiles = (p.Lk + KROWS - 1) / KROWS, per_bh = p.splits * ktiles;
   const int bh = blockIdx.x / per_bh, rem = blockIdx.x - bh * per_bh;
-  const int split = rem / ktiles, k0 = (rem - split * ktiles) * ROWS;
-  const int b = bh / p.H, h = bh - b * p.H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int C = D / 32;
-  const int n_qt = (p.Lq + T - 1) / T, per = (n_qt + p.splits - 1) / p.splits;
-  const int qt1 = min(n_qt, (split + 1) * per);
+  const int si = rem / ktiles, k0 = (rem - si * ktiles) * KROWS;  // query split si
+  const int b = bh / p.H, h = bh - b * p.H, HD = p.H * D, col0 = h * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int n_qt = (p.Lq + BM - 1) / BM, per = (n_qt + p.splits - 1) / p.splits;
+  const int qt0 = si * per, qt1 = min(n_qt, qt0 + per);
 
-  load_rows<D>(p.k, Ks, D, ROWS, b, p.Lk, k0, p.H, h, 1.f);
-  load_rows<D>(p.v, Vs, D, ROWS, b, p.Lk, k0, p.H, h, 1.f);
-  int e[WR];
-  float dk[WR][C], dv[WR][C];
-#pragma unroll
-  for (int i = 0; i < WR; ++i) {
-    e[i] = key_index(k0 + warp * WR + i, p.Lk, p.kt, p.kh, p.kw);
-#pragma unroll
-    for (int c = 0; c < C; ++c) dk[i][c] = dv[i][c] = 0.f;
-  }
-  for (int qt = split * per; qt < qt1; ++qt) {
-    const int q0 = qt * T;
-    __syncthreads();
-    load_rows<D>(p.q, Qs, D + 1, T, b, p.Lq, q0, p.H, h, p.scale);
-    load_rows<D>(p.q, Qr, D + 1, T, b, p.Lq, q0, p.H, h, 1.f);
-    load_rows<D>(p.g, Gs, D + 1, T, b, p.Lq, q0, p.H, h, 1.f);
-    load_rel(p.rel, Rs, LR, T, b, p.Lq, q0, h, p.kt, p.kh, K);
-    if (threadIdx.x < T) {
-      const int row = q0 + threadIdx.x;
-      // padded rows: p = 0
-      Ls[threadIdx.x] = row < p.Lq ? p.lse[(size_t)bh * p.Lq + row] : INFINITY;
-      Ds[threadIdx.x] = row < p.Lq ? p.delta[(size_t)bh * p.Lq + row] : 0.f;
+  // the query tile qt's rows, bias terms, lse and delta into buffer st
+  auto load_q = [&](int qt, int st) {
+    const int r0 = qt * BM;
+    load_rows<D, NT>(qbuf + st * BM * SD * 4, SD, p.q, BM, b, p.Lq, r0, HD, col0);
+    load_rows<D, NT>(gbuf + st * BM * SD * 4, SD, p.g, BM, b, p.Lq, r0, HD, col0);
+    const uint32_t rb = smem_u32(Rs + st * BM * LR);
+    for (int i = threadIdx.x; i < BM * K; i += NT) {
+      const int r = i / K, c = i - r * K, row = r0 + r;
+      const bool ok = row < p.Lq;
+      int cc;
+      const int part = rel_part(c, p.kt, p.kh, cc);
+      cp4(rb + (r * LR + c) * 4,
+          p.rel.p[part] + ((size_t)b * p.Lq + (ok ? row : 0)) * p.rel.ld[part] + h * p.rel.hs +
+              cc,
+          ok);
     }
+    for (int r = threadIdx.x; r < BM; r += NT) {
+      const int row = r0 + r;
+      const bool ok = row < p.Lq;
+      const size_t at = (size_t)bh * p.Lq + (ok ? row : 0);
+      cp4(smem_u32(Ls + st * BM + r), p.lse + at, ok);
+      cp4(smem_u32(Ds + st * BM + r), p.delta + at, ok);
+    }
+  };
+
+  load_rows<D, NT>(sb, SD, p.k, KROWS, b, p.Lk, k0, HD, col0);
+  load_rows<D, NT>(sb + KROWS * SD * 4, SD, p.v, KROWS, b, p.Lk, k0, HD, col0);
+  if (qt0 < qt1) load_q(qt0, 0);
+  cp_commit();
+  // the bias rows' constant columns: 0 (the cls key) and -inf (keys past Lk)
+  for (int r = threadIdx.x; r < 2 * BM; r += NT) {
+    Rs[r * LR + K] = 0.f;
+    Rs[r * LR + K + 1] = -INFINITY;
+  }
+  const int kr = warp * 16 + g;  // this thread's keys: kr and kr + 8 of the CTA
+  const int e0 = key_index(k0 + kr, p.Lk, p.kt, p.kh, p.kw);
+  const int e1 = key_index(k0 + kr + 8, p.Lk, p.kt, p.kh, p.kw);
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
+    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+  }
+
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int st = (qt - qt0) & 1;
+    if (qt + 1 < qt1) load_q(qt + 1, st ^ 1);
+    cp_commit();
+    cp_wait<1>();  // every group but the newest: tile qt (and K, V) has landed
     __syncthreads();
-    const float lse = Ls[lane], dlt = Ds[lane];
+
+    const float* q_s = Qs + st * BM * SD;
+    const float* g_s = Gs + st * BM * SD;
+    const float* r_s = Rs + st * BM * LR;
+    const float* l_s = Ls + st * BM;
+    const float* d_s = Ds + st * BM;
+    const int nvalid = p.Lq - qt * BM;  // query rows of the tile inside Lq
+    // p^T = exp(s^T + bias - lse): rows are this warp's keys, columns the
+    // tile's query rows (8 n + 2t, + 1); padded rows give p = 0
+    float sc[4][4];
+    tile_nt<D, true>(sc, Ks + warp * 16 * SD, q_s, p.scale);
 #pragma unroll
-    for (int i = 0; i < WR; ++i) {
-      const int r = warp * WR + i;  // key row of the CTA
-      float s = 0.f, dp = 0.f;
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(Ks[r * D + d], Qs[lane * (D + 1) + d], s);
-        dp = fmaf(Vs[r * D + d], Gs[lane * (D + 1) + d], dp);
-      }
-      const float pr = expf(s + bias_at(Rs + lane * LR, e[i]) - lse);
-      const float ds = pr * (dp - dlt);
-      for (int ll = 0; ll < T; ++ll) {
-        const float pl = __shfl_sync(0xffffffffu, pr, ll);
-        const float dl = __shfl_sync(0xffffffffu, ds, ll);
+    for (int n = 0; n < 4; ++n) {
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          dv[i][c] = fmaf(pl, Gs[ll * (D + 1) + lane + 32 * c], dv[i][c]);
-          dk[i][c] = fmaf(dl, Qr[ll * (D + 1) + lane + 32 * c], dk[i][c]);
-        }
+      for (int c = 0; c < 4; ++c) {
+        const int col = 8 * n + 2 * t + (c & 1);
+        const float x = expf(sc[n][c] + bias_at(r_s + col * LR, c < 2 ? e0 : e1) - l_s[col]);
+        sc[n][c] = col < nvalid ? x : 0.f;
       }
     }
+    uint32_t xh[4][4], xl[4][4];
+    split_acc(sc, xh, xl);
+    acc_tn<D>(dv, xh, xl, g_s);  // dv += p^T G
+    float dp[4][4];
+    tile_nt<D, false>(dp, Vs + warp * 16 * SD, g_s, 1.f);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[n][c] *= dp[n][c] - d_s[8 * n + 2 * t + (c & 1)];
+    }
+    split_acc(sc, xh, xl);
+    acc_tn<D>(dk, xh, xl, q_s);  // dk += ds^T Q (scaled below)
+    __syncthreads();  // every warp is done with this buffer before it is refilled
   }
-  const int HD = p.H * D;
+
+  // this split's partial sums (or, unsplit, dk and dv themselves)
   const size_t plane = (size_t)p.splits * p.B * p.Lk * HD;
+  float* dk_out = p.splits > 1 ? p.work + (size_t)si * p.B * p.Lk * HD : p.dk;
+  float* dv_out = p.splits > 1 ? p.work + plane + (size_t)si * p.B * p.Lk * HD : p.dv;
 #pragma unroll
-  for (int i = 0; i < WR; ++i) {
-    const int key = k0 + warp * WR + i;
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + kr + 8 * half;
     if (key >= p.Lk) continue;
-    float* dst = p.work + ((size_t)split * p.B + b) * p.Lk * HD + (size_t)key * HD + h * D;
+    const size_t base = ((size_t)b * p.Lk + key) * HD + col0 + 2 * t;
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      dst[lane + 32 * c] = dk[i][c] * p.scale;
-      dst[plane + lane + 32 * c] = dv[i][c];
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dk_out + base + 8 * n) =
+          make_float2(dk[n][2 * half] * p.scale, dk[n][2 * half + 1] * p.scale);
+      *reinterpret_cast<float2*>(dv_out + base + 8 * n) =
+          make_float2(dv[n][2 * half], dv[n][2 * half + 1]);
     }
   }
 }
@@ -281,42 +528,81 @@ __global__ void f32_reduce_kernel(const float* __restrict__ work, float* __restr
 
 // --------------------------------------------------------------- host ---
 
+// The plan: query rows per q-major CTA, 64 (four warps) where that gives
+// every SM a CTA, else 32, else 16; the drel product's N, the bins padded
+// to 32, 48 or 128; query splits of the k-major kernel, the count (none
+// empty, at most MAX_WAVES waves of CTAs) that gives the fewest query tiles
+// per CTA times waves of CTAs over the card (two per SM where two fit), the
+// fewest splits on a tie: a CTA walks its split's tiles serially, and a
+// last wave that fills a third of the card costs a whole wave; the cap
+// keeps the split partials' workspace small. Mirrored by `f32_bwd_plan` in
+// ops/attention.py.
+int q_rows(int BH, int Lq) {
+  if (BH * ((Lq + 63) / 64) >= NUM_SMS) return 64;
+  return BH * ((Lq + 31) / 32) >= NUM_SMS ? 32 : 16;
+}
+
+int pad_bins(int K) { return K <= 32 ? 32 : (K <= 48 ? 48 : 128); }
+
+int plan_splits(int BH, int Lq, int Lk, int D, int K) {
+  const int ctas = BH * ((Lk + KROWS - 1) / KROWS), n_qt = (Lq + BM - 1) / BM;
+  const long long slots = (2 * (k_smem(D, K) + 1024) <= SM_SMEM ? 2 : 1) * NUM_SMS;
+  const long long cap = MAX_WAVES * slots / ctas;
+  long long best = -1;
+  int splits = 1;
+  for (int s = 1; s <= n_qt && (s == 1 || s <= cap); ++s) {
+    const int per = (n_qt + s - 1) / s;
+    if ((n_qt + per - 1) / per != s) continue;  // a split would be empty
+    const long long cost = ((long long)ctas * s + slots - 1) / slots * per;
+    if (best < 0 || cost < best) {
+      best = cost;
+      splits = s;
+    }
+  }
+  return splits;
+}
+
 template <typename KernelT>
-int launch(KernelT kernel, int grid, size_t smem, cudaStream_t s, const Params& p) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+int launch(KernelT kernel, int grid, int threads, int smem, cudaStream_t s, const Params& p) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, NT, smem, s>>>(p);
+  kernel<<<grid, threads, smem, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+template <int D, int NW>
+int launch_q(const Params& p, int nb, int smem, cudaStream_t s) {
+  const int grid = p.B * p.H * ((p.Lq + 16 * NW - 1) / (16 * NW));
+  if (nb == 32) return launch(f32_bwd_q_kernel<D, NW, 4>, grid, NW * 32, smem, s, p);
+  if (nb == 48) return launch(f32_bwd_q_kernel<D, NW, 6>, grid, NW * 32, smem, s, p);
+  return launch(f32_bwd_q_kernel<D, NW, 16>, grid, NW * 32, smem, s, p);
 }
 
 template <int D>
-int bwd(const Params& p, float* dk, float* dv, cudaStream_t s) {
-  const int LR = p.kt + p.kh + p.kw + 2;
-  const size_t sq = (size_t)(2 * ROWS * D + 2 * T * (D + 1) + ROWS * LR + T) * 4;
-  int rc = launch(f32_bwd_q_kernel<D>, p.B * p.H * ((p.Lq + ROWS - 1) / ROWS), sq, s, p);
+int bwd(const Params& p, cudaStream_t s) {
+  const int K = p.kt + p.kh + p.kw, rows = q_rows(p.B * p.H, p.Lq), nb = pad_bins(K);
+  const int sq = q_smem(D, rows, K), sk = k_smem(D, K);
+  if (sq > SMEM_MAX || sk > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  int rc = rows == 64 ? launch_q<D, 4>(p, nb, sq, s)
+                      : (rows == 32 ? launch_q<D, 2>(p, nb, sq, s) : launch_q<D, 1>(p, nb, sq, s));
   if (rc != 0) return rc;
-  const size_t sk = (size_t)(2 * ROWS * D + 3 * T * (D + 1) + T * LR + 2 * T) * 4;
-  rc = launch(f32_bwd_kv_kernel<D>, p.B * p.H * p.splits * ((p.Lk + ROWS - 1) / ROWS), sk, s, p);
-  if (rc != 0) return rc;
+  const int kgrid = p.B * p.H * p.splits * ((p.Lk + KROWS - 1) / KROWS);
+  rc = launch(f32_bwd_kv_kernel<D>, kgrid, KW * 32, sk, s, p);
+  if (rc != 0 || p.splits == 1) return rc;
   const long long n = (long long)p.B * p.Lk * p.H * D;
   const long long blocks = (n + 255) / 256;
-  f32_reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(p.work, dk, dv, n,
-                                                                            p.splits);
+  f32_reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(p.work, p.dk, p.dv,
+                                                                            n, p.splits);
   return (int)cudaGetLastError();
 }
 
-bool valid(const Params& p, int D) {
+int run_bwd(const Params& p, int D, void* stream) {
   const int K = p.kt + p.kh + p.kw;
-  return (D == 64 || D == 96 || D == 128) && p.Lq >= 1 && p.Lk >= 1 && K >= 1 && K <= MAX_K;
-}
-
-int run_bwd(const Params& p, int D, void* dk, void* dv, void* stream) {
-  if (!valid(p, D) || p.splits < 1 || p.lse == nullptr) return (int)cudaErrorInvalidValue;
+  if ((D != 64 && D != 96 && D != 128) || p.Lq < 1 || p.Lk < 1 || K < 1 || K > MAX_K ||
+      p.lse == nullptr || p.splits != plan_splits(p.B * p.H, p.Lq, p.Lk, D, K))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* k = static_cast<float*>(dk);
-  float* v = static_cast<float*>(dv);
-  return D == 64 ? bwd<64>(p, k, v, s) : (D == 96 ? bwd<96>(p, k, v, s) : bwd<128>(p, k, v, s));
+  return D == 64 ? bwd<64>(p, s) : (D == 96 ? bwd<96>(p, s) : bwd<128>(p, s));
 }
 
 RelIn<float> packed_rel(const void* rel, int H, int kt, int kh, int kw) {
@@ -329,7 +615,8 @@ RelIn<float> packed_rel(const void* rel, int H, int kt, int kh, int kw) {
 
 // K5 in f32: as dsal_bias_attention_f32 plus g, lse (B, H, Lq) from the
 // forward, outputs dq, dk, dv, drel, workspaces delta (B, H, Lq) and work
-// (2, splits, B, Lk, H*D)
+// (2, splits, B, Lk, H*D); `splits` as `f32_bwd_plan` gives it (the entry
+// refuses another)
 extern "C" int dsal_bias_attention_bwd_f32(const void* q, const void* k, const void* v,
                                            const void* rel, const void* g, const void* lse,
                                            void* dq, void* dk, void* dv, void* drel, void* delta,
@@ -343,6 +630,8 @@ extern "C" int dsal_bias_attention_bwd_f32(const void* q, const void* k, const v
   p.g = static_cast<const float*>(g);
   p.lse = static_cast<const float*>(lse);
   p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
   p.delta = static_cast<float*>(delta);
   p.work = static_cast<float*>(work);
   p.rel = packed_rel(rel, H, kt, kh, kw);
@@ -353,7 +642,7 @@ extern "C" int dsal_bias_attention_bwd_f32(const void* q, const void* k, const v
   p.res_from = residual ? 0 : Lq;
   p.splits = splits;
   p.scale = scale;
-  return run_bwd(p, D, dk, dv, stream);
+  return run_bwd(p, D, stream);
 }
 
 // K12's backward in f32: (BH, L, D) layouts, three rel and drel tensors
@@ -371,6 +660,8 @@ extern "C" int dsal_cls_attention_bwd_f32(const void* q, const void* k, const vo
   p.g = static_cast<const float*>(g);
   p.lse = static_cast<const float*>(lse);
   p.dq = static_cast<float*>(dq);
+  p.dk = static_cast<float*>(dk);
+  p.dv = static_cast<float*>(dv);
   p.delta = static_cast<float*>(delta);
   p.work = static_cast<float*>(work);
   p.rel = {{static_cast<const float*>(rel_t), static_cast<const float*>(rel_h),
@@ -381,5 +672,5 @@ extern "C" int dsal_cls_attention_bwd_f32(const void* q, const void* k, const vo
   p.res_from = residual ? 1 : Lq;
   p.splits = splits;
   p.scale = scale;
-  return run_bwd(p, D, dk, dv, stream);
+  return run_bwd(p, D, stream);
 }

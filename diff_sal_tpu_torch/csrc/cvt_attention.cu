@@ -39,21 +39,15 @@
 // plan (keys padded, head groups, stages, CTAs per SM) is chosen here and
 // mirrored by `cvt_plan` in ops/attention.py.
 //
-// The f32 instance (`dsal_cvt_attention_f32`, for an f32 model) keeps the
-// products in f32 by FFMA on the CUDA cores: a CTA of four warps owns 32
-// query rows of one head, stages them and the head's k and v in shared
-// memory (f32, key rows padded by one float against bank conflicts), lane u
-// of a warp takes keys u, u + 32, .. for the scores of the warp's 8 rows,
-// the softmax reduces by warp shuffles, and p v runs over the lanes'
-// head-dim columns. It is bound by bytes as the bf16 kernel is, and has not
-// been redesigned (PERF.md).
+// The f32 instance (`dsal_cvt_attention_f32`, for an f32 model) streams the
+// same way, with its products in split TF32 on the tensor cores (below).
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
 constexpr int TR = 16 * WARPS;  // rows per tile of the bf16 kernel
 constexpr int MAX_S = 128;
 constexpr int MAX_STAGES = 4;
@@ -166,8 +160,9 @@ __device__ __forceinline__ void bulk_wait_all() {
 }
 
 // (batch item, head group, row tile) of tile index `tile`, row tiles fastest
-__device__ __forceinline__ void tile_coords(const CvtParams& p, int tile, int& bt, int& grp,
-                                            int& rt) {
+// (the bf16 kernel's CvtParams and the f32 instance's CvtF32Params)
+template <typename P>
+__device__ __forceinline__ void tile_coords(const P& p, int tile, int& bt, int& grp, int& rt) {
   rt = tile % p.rtiles;
   const int bg = tile / p.rtiles;
   grp = bg % p.groups;
@@ -373,81 +368,321 @@ int cvt_launch_sp(int sp, const CUtensorMap& tq, const CUtensorMap& tk, const CU
   }
 }
 
-constexpr int FR = 32;           // query rows per CTA of the f32 instance, 8 per warp
-constexpr int MAX_HD32 = 384 / 32;  // head-dim columns per lane (hd <= 384)
+// ------------------------------------------------------ the f32 instance ---
+//
+// The same streaming design in f32: the tiles are 32-column TMA boxes of
+// f32 (128 bytes, 128-byte swizzle: the 16-byte unit of a row is XORed with
+// bits 0-2 of the row), `tr` rows each (64; 32 or 16 where a 64-row tile
+// does not fit beside one head's k and v), the consumers two per 16 rows
+// where a group holds two heads. k and v stay resident as raw f32 rows
+// (row stride 32 chunks + 4 floats, so that both fragment patterns below are
+// free of bank conflicts), loaded by the consumers themselves where the
+// batch item (or head group) changes, behind a consumer-only barrier.
+//
+// The products: one path for every S, split TF32 on the tensor cores
+// (csrc/tf32.cuh: mma.sync m16n8k8, three TF32 products per product, f32
+// sums every FLUSH k-steps), keys padded to SP = 8, 16, 32, 64 or 128. At
+// the decoder's S = 18 the function does 4 S = 72 flops per 8 bytes of q
+// and out (9 flop/B): FFMA at 67 TFLOP/s over 3.35 TB/s would keep pace up
+// to 20 flop/B if every lane worked, but at S = 128 it is 64 flop/B, which
+// only the tensor cores keep bytes-bound; split TF32 serves both, and
+// padding S = 18 to 32 keys costs tensor-core time this pass has to spare.
+// Per 16 rows and head: s = q k^T (A: q from the swizzled tile, split as it
+// loads; B: k, split as it loads), times the scale, keys past S masked, the
+// softmax in f32 registers over the 4 lanes of a quad (expf, p = e / sum,
+// as the plain version), then p v (A: p from the accumulator, k-step j
+// taking keys 8 j + 2t and 8 j + 2t + 1, the columns a thread holds; B: v),
+// four head-dim n-tiles at a time, written over the head's q columns of the
+// same tile for the TMA store. Mirrored by `cvt_f32_plan` in
+// ops/attention.py.
 
-__host__ __device__ inline size_t smem_f32(int S, int hd) {
-  return ((size_t)FR * hd + 2 * (size_t)S * (hd + 1)) * 4;
+constexpr int F32_MAX_THREADS = 32 * (4 * 2 + 1);  // 64-row tiles, two warps per 16 rows
+
+struct CvtF32Plan {
+  int sp, groups, head_ways, chunks, tr, stages, per_sm, smem;
+};
+
+// a tile buffer: chunks x tr rows x 128 bytes; k and v: sp rows x (32 chunks
+// + 4) floats each; the mbarriers (full and empty per buffer); 1024 bytes
+// to align the base
+__host__ __device__ inline int cvt_f32_smem(int chunks, int sp, int tr, int stages) {
+  return stages * chunks * tr * 128 + 2 * sp * (32 * chunks + 4) * 4 + 2 * stages * 8 + 1024;
 }
 
-__global__ void __launch_bounds__(THREADS)
-cvt_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ out, int L, int S, int C,
-                    int hd, float scale) {
-  extern __shared__ float fs[];
-  float* qs = fs;                   // FR x hd
-  float* ks = qs + FR * hd;         // S x (hd + 1)
-  float* vs = ks + S * (hd + 1);    // S x (hd + 1)
-  const int bt = blockIdx.z, h = blockIdx.y, row0 = blockIdx.x * FR;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = threadIdx.x; i < S * hd; i += THREADS) {
-    const int j = i / hd, c = i - j * hd;
-    const long long src = ((long long)bt * S + j) * C + h * hd + c;
-    ks[j * (hd + 1) + c] = k[src];
-    vs[j * (hd + 1) + c] = v[src];
+// Keys padded to a power of two >= 8. 64-row tiles, else 32, else 16: the
+// first that fits one head's k and v beside one tile. Heads split into
+// groups as the bf16 plan splits them; two consumer warps per 16 rows where
+// a group holds two heads or more; two CTAs per SM with at least two
+// buffers each where they fit, else one with as many buffers (up to four)
+// as fit. Returns false where nothing fits.
+bool cvt_f32_plan(int Bt, int L, int S, int C, int heads, CvtF32Plan* out) {
+  const int hd = heads > 0 ? C / heads : 0;
+  if (Bt < 1 || L < 1 || S < 1 || S > MAX_S || hd < 8 || hd % 8 != 0 || hd * heads != C)
+    return false;
+  int sp = 8;
+  while (sp < S) sp *= 2;
+  for (int tr = 64; tr >= 16; tr /= 2) {
+    const int rtiles = (L + tr - 1) / tr;
+    int groups = 0;
+    for (int g = 1; g <= heads; ++g) {
+      if (heads % g != 0 || (g > 1 && heads / g * hd % 32 != 0)) continue;
+      if (cvt_f32_smem((heads / g * hd + 31) / 32, sp, tr, 1) > SMEM_MAX) continue;
+      groups = g;
+      if (Bt * g * rtiles >= NUM_SMS) break;
+    }
+    if (groups == 0) continue;
+    const int hg = heads / groups, chunks = (hg * hd + 31) / 32;
+    const int ways = hg >= 2 ? 2 : 1;
+    for (int stages = MAX_STAGES; stages >= 2; --stages) {
+      if (cvt_f32_smem(chunks, sp, tr, stages) <= SMEM_TWO) {
+        *out = {sp, groups, ways, chunks, tr, stages, 2, cvt_f32_smem(chunks, sp, tr, stages)};
+        return true;
+      }
+    }
+    for (int stages = MAX_STAGES; stages >= 1; --stages) {
+      if (cvt_f32_smem(chunks, sp, tr, stages) <= SMEM_MAX) {
+        *out = {sp, groups, ways, chunks, tr, stages, 1, cvt_f32_smem(chunks, sp, tr, stages)};
+        return true;
+      }
+    }
   }
-  for (int i = threadIdx.x; i < FR * hd; i += THREADS) {
-    const int r = i / hd, c = i - r * hd, row = row0 + r;
-    qs[i] = row < L ? q[((long long)bt * L + row) * C + h * hd + c] : 0.f;
+  return false;
+}
+
+struct CvtF32Params {
+  const float *k, *v;
+  int L, S, C, hd, hg, groups, chunks, tr, rtiles, ntiles, stages, ways;
+  float scale;
+};
+
+// float offset of (row, col) in a [chunks][nrows][32] f32 region that TMA
+// wrote with the 128-byte swizzle, the region 1024-aligned
+__device__ __forceinline__ int sw_f32(int nrows, int row, int col) {
+  return (col >> 5) * nrows * 32 + row * 32 + ((((col & 31) >> 2) ^ (row & 7)) << 2) + (col & 3);
+}
+
+// o (+)= p v for NC head-dim n-tiles from n-tile n0 of the head at column
+// c0: A the softmax's p of this thread's rows (accumulator layout), B the
+// resident v rows; written over the head's q columns of rows ra, ra + 8
+template <int SP, int NC>
+__device__ __forceinline__ void pv_chunk(const float (&pr)[SP / 8][4], const float* vs, int ks,
+                                         float* qt, int tr, int ra, int c0, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* vb = vs + 2 * t * ks + c0 + 8 * n0 + g;
+  float o[NC][4], part[NC][4];
+#pragma unroll
+  for (int n = 0; n < NC; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < SP / 8; ++j) {
+    uint32_t ah[4], al[4];
+    split(pr[j][0], ah[0], al[0]);
+    split(pr[j][2], ah[1], al[1]);
+    split(pr[j][1], ah[2], al[2]);
+    split(pr[j][3], ah[3], al[3]);
+    float bb[NC][2];
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      bb[n][0] = vb[8 * j * ks + 8 * n];
+      bb[n][1] = vb[(8 * j + 1) * ks + 8 * n];
+    }
+    if (j % FLUSH == 0)
+      mma3<NC, true>(part, ah, al, bb);
+    else
+      mma3<NC, false>(part, ah, al, bb);
+    if (j % FLUSH == FLUSH - 1 || j == SP / 8 - 1) flush<NC>(o, part);
+  }
+#pragma unroll
+  for (int n = 0; n < NC; ++n) {
+    const int col = c0 + 8 * (n0 + n) + 2 * t;
+    *reinterpret_cast<float2*>(qt + sw_f32(tr, ra, col)) = make_float2(o[n][0], o[n][1]);
+    *reinterpret_cast<float2*>(qt + sw_f32(tr, ra + 8, col)) = make_float2(o[n][2], o[n][3]);
+  }
+}
+
+// Warps 0 .. R W - 1 consume (R = tr / 16 warps per row tile, W head ways):
+// warp w takes rows 16 (w % R) .. + 15 of each tile and heads w / R,
+// w / R + W, .. of its group. Warp R W's first thread produces: it keeps q
+// tiles `stages` ahead and stores each finished tile.
+template <int SP>
+__global__ void __launch_bounds__(F32_MAX_THREADS, SP <= 32 ? 2 : 1)
+    cvt_attn_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap to, const CvtF32Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t sbase = smem_u32(smem);
+  const int tile_bytes = p.chunks * p.tr * 128, ks = 32 * p.chunks + 4;
+  float* kf = reinterpret_cast<float*>(smem + p.stages * tile_bytes);
+  float* vf = kf + SP * ks;
+  const uint32_t full = smem_u32(vf + SP * ks), empty = full + 8 * p.stages;
+  const int R = p.tr / 16, consumers = 32 * R * p.ways;
+  // this CTA's contiguous range of tiles
+  const int t0 = (int)((long long)blockIdx.x * p.ntiles / gridDim.x);
+  const int n = (int)((long long)(blockIdx.x + 1) * p.ntiles / gridDim.x) - t0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, consumers);
+    }
+    fence_mbar_init();
   }
   __syncthreads();
-  for (int rr = 0; rr < FR / WARPS; ++rr) {
-    const int r = warp * (FR / WARPS) + rr, row = row0 + r;
-    float sc[MAX_S / 32];
-    float m = -INFINITY;
-#pragma unroll
-    for (int u = 0; u < MAX_S / 32; ++u) {
-      const int j = lane + 32 * u;
-      float s = -INFINITY;
-      if (j < S) {
-        s = 0.f;
-        for (int c = 0; c < hd; ++c) s = fmaf(qs[r * hd + c], ks[j * (hd + 1) + c], s);
-        s *= scale;
-      }
-      sc[u] = s;
-      m = fmaxf(m, s);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float sum = 0.f;
-#pragma unroll
-    for (int u = 0; u < MAX_S / 32; ++u) {
-      sc[u] = lane + 32 * u < S ? expf(sc[u] - m) : 0.f;
-      sum += sc[u];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    float o[MAX_HD32];
-#pragma unroll
-    for (int c = 0; c < MAX_HD32; ++c) o[c] = 0.f;
-#pragma unroll
-    for (int u = 0; u < MAX_S / 32; ++u) {
-      if (32 * u >= S) break;
-      const float pu = sc[u] / sum;
-      for (int jj = 0; jj < 32 && 32 * u + jj < S; ++jj) {
-        const float pj = __shfl_sync(0xffffffffu, pu, jj);
-        const float* vr = vs + (32 * u + jj) * (hd + 1);
-#pragma unroll
-        for (int c = 0; c < MAX_HD32; ++c)
-          if (lane + 32 * c < hd) o[c] = fmaf(pj, vr[lane + 32 * c], o[c]);
+
+  auto load_q = [&](uint32_t dst, uint32_t bar, int tile) {
+    int bt, grp, rt;
+    tile_coords(p, tile, bt, grp, rt);
+    mbar_expect_tx(bar, tile_bytes);
+    for (int c = 0; c < p.chunks; ++c)
+      tma_load(dst + c * p.tr * 128, &tq, bar, grp * p.hg * p.hd + 32 * c, rt * p.tr, bt);
+  };
+
+  if (warp == R * p.ways) {  // the producer
+    if (lane != 0) return;
+    for (int i = 0; i < n && i < p.stages; ++i) load_q(sbase + i * tile_bytes, full + 8 * i, t0 + i);
+    for (int i = 0; i < n; ++i) {
+      const int s = i % p.stages, tile = t0 + i;
+      mbar_wait(empty + 8 * s, (i / p.stages) & 1);  // the consumers are done with tile i
+      int bt, grp, rt;
+      tile_coords(p, tile, bt, grp, rt);
+      const uint32_t qb = sbase + s * tile_bytes;
+      for (int c = 0; c < p.chunks; ++c)
+        tma_store(&to, qb + c * p.tr * 128, grp * p.hg * p.hd + 32 * c, rt * p.tr, bt);
+      bulk_commit();
+      if (i + p.stages < n) {
+        bulk_wait_read<0>();  // the buffer is free once the store has read it
+        load_q(qb, full + 8 * s, tile + p.stages);
       }
     }
-    if (row < L) {
-#pragma unroll
-      for (int c = 0; c < MAX_HD32; ++c)
-        if (lane + 32 * c < hd) out[((long long)bt * L + row) * C + h * hd + lane + 32 * c] = o[c];
-    }
+    bulk_wait_all();  // shared memory stays until the stores are done
+    return;
   }
+
+  const int r16 = (warp % R) * 16, cols = p.hg * p.hd;
+  int cur_kv = -1;
+  for (int i = 0; i < n; ++i) {
+    const int tile = t0 + i, s = i % p.stages;
+    if (tile / p.rtiles != cur_kv) {  // this batch item's (and group's) k and v
+      if (cur_kv >= 0) named_sync(1, consumers);  // every consumer is done with the old ones
+      cur_kv = tile / p.rtiles;
+      const int grp = cur_kv % p.groups, bt = cur_kv / p.groups;
+      const size_t base = (size_t)bt * p.S * p.C + (size_t)grp * cols;
+      for (int e = threadIdx.x; e < SP * (cols / 4); e += consumers) {
+        const int key = e / (cols / 4), c = (e - key * (cols / 4)) * 4;
+        float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
+        if (key < p.S) {
+          kk = *reinterpret_cast<const float4*>(p.k + base + (size_t)key * p.C + c);
+          vv = *reinterpret_cast<const float4*>(p.v + base + (size_t)key * p.C + c);
+        }
+        *reinterpret_cast<float4*>(kf + key * ks + c) = kk;
+        *reinterpret_cast<float4*>(vf + key * ks + c) = vv;
+      }
+      named_sync(1, consumers);
+    }
+    mbar_wait(full + 8 * s, (i / p.stages) & 1);
+    float* qt = reinterpret_cast<float*>(smem + s * tile_bytes);
+
+    for (int hh = warp / R; hh < p.hg; hh += p.ways) {
+      const int c0 = hh * p.hd;
+      // scores of this warp's 16 rows against the SP keys, four key
+      // n-tiles at a time; k-step kk takes head-dim columns 8 kk + t, + 4
+      float sc[SP / 8][4];
+      constexpr int NCH = SP / 8 < 4 ? SP / 8 : 4;
+#pragma unroll
+      for (int n0 = 0; n0 < SP / 8; n0 += NCH) {
+        float acc[NCH][4], part[NCH][4];
+#pragma unroll
+        for (int j = 0; j < NCH; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+        const float* kb = kf + (8 * n0 + g) * ks + c0 + t;
+        for (int kk = 0; kk < p.hd / 8; ++kk) {
+          const int col = c0 + 8 * kk + t;
+          uint32_t ah[4], al[4];
+          split(qt[sw_f32(p.tr, r16 + g, col)], ah[0], al[0]);
+          split(qt[sw_f32(p.tr, r16 + g + 8, col)], ah[1], al[1]);
+          split(qt[sw_f32(p.tr, r16 + g, col + 4)], ah[2], al[2]);
+          split(qt[sw_f32(p.tr, r16 + g + 8, col + 4)], ah[3], al[3]);
+          float bb[NCH][2];
+#pragma unroll
+          for (int j = 0; j < NCH; ++j) {
+            bb[j][0] = kb[8 * j * ks + 8 * kk];
+            bb[j][1] = kb[8 * j * ks + 8 * kk + 4];
+          }
+          if (kk % FLUSH == 0)
+            mma3<NCH, true>(part, ah, al, bb);
+          else
+            mma3<NCH, false>(part, ah, al, bb);
+          if (kk % FLUSH == FLUSH - 1 || kk == p.hd / 8 - 1) flush<NCH>(acc, part);
+        }
+#pragma unroll
+        for (int j = 0; j < NCH; ++j) {
+          sc[n0 + j][0] = acc[j][0];
+          sc[n0 + j][1] = acc[j][1];
+          sc[n0 + j][2] = acc[j][2];
+          sc[n0 + j][3] = acc[j][3];
+        }
+      }
+      // softmax of rows g and g + 8 in f32; keys past S masked
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < SP / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 8 * j + 2 * t + (e & 1);
+          sc[j][e] = key < p.S ? sc[j][e] * p.scale : -INFINITY;
+        }
+        mx0 = fmaxf(mx0, fmaxf(sc[j][0], sc[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[j][2], sc[j][3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < SP / 8; ++j) {
+        sc[j][0] = expf(sc[j][0] - mx0);
+        sc[j][1] = expf(sc[j][1] - mx0);
+        sc[j][2] = expf(sc[j][2] - mx1);
+        sc[j][3] = expf(sc[j][3] - mx1);
+        s0 += sc[j][0] + sc[j][1];
+        s1 += sc[j][2] + sc[j][3];
+      }
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+      s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+#pragma unroll
+      for (int j = 0; j < SP / 8; ++j) {
+        sc[j][0] /= s0;
+        sc[j][1] /= s0;
+        sc[j][2] /= s1;
+        sc[j][3] /= s1;
+      }
+      // p v, four head-dim n-tiles at a time, then two, then one (head_dim
+      // 48 ends on two, 40 on one), over this warp's rows of the head's q
+      // columns and no further (the next head's are another warp's)
+      int n0 = 0;
+      for (; n0 + 4 <= p.hd / 8; n0 += 4) pv_chunk<SP, 4>(sc, vf, ks, qt, p.tr, r16 + g, c0, n0);
+      for (; n0 + 2 <= p.hd / 8; n0 += 2) pv_chunk<SP, 2>(sc, vf, ks, qt, p.tr, r16 + g, c0, n0);
+      if (n0 < p.hd / 8) pv_chunk<SP, 1>(sc, vf, ks, qt, p.tr, r16 + g, c0, n0);
+    }
+    fence_async_smem();  // the out tile is read by the TMA store (async proxy)
+    mbar_arrive(empty + 8 * s);
+  }
+}
+
+template <int SP>
+int cvt_f32_launch(const CUtensorMap& tq, const CUtensorMap& to, const CvtF32Params& p, int grid,
+                   int smem, cudaStream_t s) {
+  static int smem_set = 0;  // the attribute only grows; set it once per size
+  if (smem > smem_set) {
+    cudaError_t e = cudaFuncSetAttribute(cvt_attn_f32_kernel<SP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_set = smem;
+  }
+  cvt_attn_f32_kernel<SP><<<grid, 32 * (p.tr / 16 * p.ways + 1), smem, s>>>(tq, to, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -478,22 +713,41 @@ extern "C" int dsal_cvt_attention(const void* q, const void* k, const void* v, v
                               : cvt_launch_sp<1>(plan.sp, tq, tk, tv, to, p, grid, plan.smem, s);
 }
 
-// the f32 instance: q, k, v, out f32; S <= 128, hd <= 384, the tiles within
-// one CTA's shared memory
+// the f32 instance: q, k, v, out f32, contiguous and 16-byte aligned;
+// head_dim a multiple of 8 (so C * 4 bytes, TMA's row stride, is a multiple
+// of 16), 1 <= S <= 128, one head's k and v within one CTA's shared memory
+// beside a 16-row tile (`cvt_f32_plan`)
 extern "C" int dsal_cvt_attention_f32(const void* q, const void* k, const void* v, void* out,
                                       int Bt, int L, int S, int C, int heads, float scale,
                                       void* stream) {
-  const int hd = heads > 0 ? C / heads : 0;
-  if (S < 1 || S > MAX_S || hd < 1 || hd > 32 * MAX_HD32 || hd * heads != C)
+  CvtF32Plan plan;
+  if (!cvt_f32_plan(Bt, L, S, C, heads, &plan)) return (int)cudaErrorInvalidValue;
+  CvtF32Params p;
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.L = L;
+  p.S = S;
+  p.C = C;
+  p.hd = C / heads;
+  p.groups = plan.groups;
+  p.hg = heads / plan.groups;
+  p.chunks = plan.chunks;
+  p.tr = plan.tr;
+  p.rtiles = (L + plan.tr - 1) / plan.tr;
+  p.ntiles = Bt * plan.groups * p.rtiles;
+  p.stages = plan.stages;
+  p.ways = plan.head_ways;
+  p.scale = scale;
+  CUtensorMap tq, to;
+  if (!make_map(&tq, q, Bt, L, C, plan.tr, true) || !make_map(&to, out, Bt, L, C, plan.tr, true))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_f32(S, hd);
-  if (smem > (size_t)SMEM_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(cvt_attn_f32_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((L + FR - 1) / FR, heads, Bt);
-  cvt_attn_f32_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), L, S, C, hd, scale);
-  return (int)cudaGetLastError();
+  const int grid = p.ntiles < plan.per_sm * NUM_SMS ? p.ntiles : plan.per_sm * NUM_SMS;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (plan.sp) {
+    case 8: return cvt_f32_launch<8>(tq, to, p, grid, plan.smem, s);
+    case 16: return cvt_f32_launch<16>(tq, to, p, grid, plan.smem, s);
+    case 32: return cvt_f32_launch<32>(tq, to, p, grid, plan.smem, s);
+    case 64: return cvt_f32_launch<64>(tq, to, p, grid, plan.smem, s);
+    default: return cvt_f32_launch<128>(tq, to, p, grid, plan.smem, s);
+  }
 }

@@ -364,17 +364,22 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// (B, L, HD) bf16, boxes of 32 columns x `rows` rows x 1 batch, 64-byte
-// swizzle; rows past L read as zeros. Mirrored by `fwd_plan`'s `tma`.
-bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int HD, int rows) {
+// (B, L, HD) bf16 (f32 with F32), boxes of 32 columns x `rows` rows x 1
+// batch, the 64-byte (f32: 128-byte) swizzle of a 64- (128-) byte box row;
+// rows past L read as zeros, and a store clips them. Mirrored by
+// `fwd_plan`'s `tma`.
+bool make_map(CUtensorMap* map, const void* ptr, int B, int L, int HD, int rows,
+              bool F32 = false) {
   EncodeTiled fn = encode_fn();
   if (fn == nullptr) return false;
+  const cuuint64_t e = F32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)HD, (cuuint64_t)L, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)HD * 2, (cuuint64_t)L * HD * 2};
+  const cuuint64_t strides[2] = {(cuuint64_t)HD * e, (cuuint64_t)L * HD * e};
   const cuuint32_t box[3] = {32, (cuuint32_t)rows, 1};
   const cuuint32_t estr[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+  return fn(map, F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+            const_cast<void*>(ptr), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            F32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

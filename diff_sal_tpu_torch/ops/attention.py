@@ -65,9 +65,14 @@ do at f32. The f32 forward (`csrc/attention_f32_fwd.cu`) runs on the tensor
 cores in split TF32: each operand x = hi + lo with hi rounded to TF32 and
 lo = x - hi, and a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b (mma.sync
 m16n8k8, f32 sums), which keeps about f32's accuracy at up to 495 / 3
-TFLOP/s; `f32_fwd_plan` mirrors its geometry. The f32 backward
-(`csrc/attention_f32.cu`) and K7's f32 instance (`csrc/cvt_attention.cu`)
-compute by FFMA on the CUDA cores. Other dtypes raise.
+TFLOP/s (`csrc/tf32.cuh`); `f32_fwd_plan` mirrors its geometry. The f32
+backward (`csrc/attention_f32.cu`) runs its products the same way: a
+q-major kernel (dq, drel, delta; two passes over the key tiles) and a
+k-major one (dk, dv over query splits, reduced in a fixed order), drel as
+ds times the one-hot (key -> bin) matrix on the tensor cores; `f32_bwd_plan`
+mirrors its geometry. K7's f32 instance (`csrc/cvt_attention.cu`) streams
+as the bf16 kernel does, its products in split TF32 (`cvt_f32_plan`).
+Other dtypes raise.
 
 K12 replaces the TPU kernel `diff_sal_tpu/ops/attention.py:119
 fused_bias_attention` (body `_attn_kernel` :62) and its backward `_fba_bwd`
@@ -178,8 +183,11 @@ BWD_BLOCK = 64        # rows per CTA and keys per tile of K5 and K12's backward
 BWD_TARGET_CTAS = 264  # two CTAs on each of 132 SMs for the k-major part of K5
 BWD_STAGES = 2        # ring buffers of either backward kernel
 BWD_THREADS = 128     # one warpgroup; its thread 0 issues the loads
-F32_BLOCK = 32        # rows per CTA and keys per tile of the f32 backward
 F32_MAX_SPLITS = 8    # CTAs of a cluster that share one row tile's keys (f32 forward)
+F32_BWD_BN = 32       # keys per tile of the f32 backward's q-major kernel
+F32_BWD_BM = 32       # query rows per tile of its k-major kernel
+F32_BWD_KROWS = 64    # keys per k-major CTA (four warps of 16)
+F32_BWD_MAX_WAVES = 8  # of k-major CTAs, at most, that query splits make
 
 SMEM_MAX = 232_448    # dynamic shared memory one CTA may use on the H100
 SM_SMEM = 233_472     # shared memory of an SM; each CTA also holds 1 KB
@@ -398,6 +406,91 @@ def bwd_plan(B: int, H: int, Lq: int, Lk: int, D: int,
                    smem_k)
 
 
+@dataclasses.dataclass(frozen=True)
+class F32BwdPlan:
+    """Geometry of one f32 backward (K5 / K12 backward in f32,
+    `csrc/attention_f32.cu`, which chooses it itself): the q-major kernel's
+    `q_rows` query rows per CTA (16 per warp), `q_ctas` CTAs, `key_tiles`
+    tiles of `block_n` keys (walked twice) and `smem_q` bytes; the drel
+    product's N, `bins` (kt + kh + kw padded to 32, 48 or 128); the k-major
+    kernel's `k_ctas` CTAs of `k_rows` keys, each over one of `splits`
+    query splits of `q_tiles` tiles of `block_m` rows (`per_split` tiles
+    each, none empty), `smem_k` bytes."""
+
+    q_rows: int
+    q_ctas: int
+    block_n: int
+    key_tiles: int
+    bins: int
+    smem_q: int
+    k_rows: int
+    block_m: int
+    q_tiles: int
+    splits: int
+    per_split: int
+    k_ctas: int
+    smem_k: int
+
+
+def f32_bwd_smem(D: int, q_rows: int, K: int) -> Tuple[int, int]:
+    """Dynamic shared memory of the f32 backward's q-major and k-major CTA,
+    as `q_smem` and `k_smem` in csrc/attention_f32.cu: q-major, Q and G
+    (q_rows x D + 4 floats), the K and V double buffers (32 x D + 4 each),
+    two 32-key tables and the bias rows (q_rows x K + 2); k-major, K and V
+    (64 x D + 4), the Q and G double buffers (32 x D + 4 each), and per
+    buffer the bias rows (32 x K + 2), lse and delta."""
+    bn, bm, kr, sd = F32_BWD_BN, F32_BWD_BM, F32_BWD_KROWS, D + 4
+    return (4 * (2 * q_rows * sd + 4 * bn * sd + 2 * bn + q_rows * (K + 2)),
+            4 * (2 * kr * sd + 4 * bm * sd + 2 * bm * (K + 2) + 4 * bm))
+
+
+def _f32_bwd_splits(ctas: int, q_tiles: int, per_sm: int) -> int:
+    """The k-major kernel's query splits (`plan_splits` in
+    csrc/attention_f32.cu): of the counts that leave no split empty and
+    make at most `F32_BWD_MAX_WAVES` waves, the one with the fewest query
+    tiles per CTA times waves of `ctas` x splits CTAs over `per_sm` x 132
+    slots, the fewest splits on a tie."""
+    slots = per_sm * NUM_SMS
+    best = None
+    for s in range(1, min(q_tiles, max(1, F32_BWD_MAX_WAVES * slots // ctas)) + 1):
+        per = -(-q_tiles // s)
+        if -(-q_tiles // per) != s:
+            continue
+        cost = -(-ctas * s // slots) * per
+        if best is None or cost < best[0]:
+            best = (cost, s)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)  # the wrappers ask once per call, with few distinct shapes
+def f32_bwd_plan(B: int, H: int, Lq: int, Lk: int, D: int,
+                 k_shape: Tuple[int, int, int]) -> F32BwdPlan:
+    """The f32 backward's geometry for B batches of H heads (K12: B*heads
+    batches of one head), as csrc/attention_f32.cu chooses it: 64 query rows
+    per q-major CTA where that gives every SM a CTA, else 32, else 16; query
+    splits of the k-major kernel by `_f32_bwd_splits`. Raises ValueError on
+    a head_dim or key grid the kernels do not take."""
+    K = sum(k_shape)
+    if D not in HEAD_DIMS:
+        raise ValueError(f"f32 attention backward: head_dim {D} not in {HEAD_DIMS}")
+    if not 1 <= K <= MAX_REL_BWD:
+        raise ValueError(f"f32 attention backward: kt+kh+kw = {K} not in 1..{MAX_REL_BWD}")
+    if Lq < 1 or Lk < 1:
+        raise ValueError(f"f32 attention backward: Lq {Lq}, Lk {Lk}")
+    BH = B * H
+    rows = 64 if BH * -(-Lq // 64) >= NUM_SMS else (32 if BH * -(-Lq // 32) >= NUM_SMS else 16)
+    smem_q, smem_k = f32_bwd_smem(D, rows, K)
+    # at most 168,704 bytes (head_dim 128, 128 bins): every shape fits
+    assert max(smem_q, smem_k) <= SMEM_MAX
+    ktiles = -(-Lk // F32_BWD_KROWS)
+    q_tiles = -(-Lq // F32_BWD_BM)
+    splits = _f32_bwd_splits(BH * ktiles, q_tiles, 2 if 2 * (smem_k + 1024) <= SM_SMEM else 1)
+    per = -(-q_tiles // splits)
+    return F32BwdPlan(rows, BH * -(-Lq // rows), F32_BWD_BN, -(-Lk // F32_BWD_BN), _bwd_bins(K),
+                      smem_q, F32_BWD_KROWS, F32_BWD_BM, q_tiles, splits, per,
+                      BH * ktiles * splits, smem_k)
+
+
 def _shapes(q, k, rel, k_shape, num_heads):
     B, Lq, HD = q.shape
     H = num_heads
@@ -569,12 +662,12 @@ def bias_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out, lse) if return_lse else out
 
 
-def bwd_splits(B: int, H: int, Lq: int, Lk: int, block: int = BWD_BLOCK) -> int:
-    """Number of query splits of the backward's k-major part (`block` keys
-    and query rows per tile: 64, or 32 for the f32 instances): enough CTAs
-    for two on each SM, at most one query tile per split."""
-    ctas = B * H * -(-Lk // block)
-    return max(1, min(-(-BWD_TARGET_CTAS // ctas), -(-Lq // block)))
+def bwd_splits(B: int, H: int, Lq: int, Lk: int) -> int:
+    """Number of query splits of the backward's k-major part (64 keys and
+    query rows per tile): enough CTAs for two on each SM, at most one query
+    tile per split."""
+    ctas = B * H * -(-Lk // BWD_BLOCK)
+    return max(1, min(-(-BWD_TARGET_CTAS // ctas), -(-Lq // BWD_BLOCK)))
 
 
 def _bwd_workspaces(q, k, B, H, Lq, Lk, D, k_shape):
@@ -583,10 +676,10 @@ def _bwd_workspaces(q, k, B, H, Lq, Lk, D, k_shape):
     tiles, key indices) and the split partials; for the f32 instances
     delta and the split partials."""
     f32 = dict(dtype=torch.float32, device=q.device)
-    if q.dtype == torch.float32:
-        splits = bwd_splits(B, H, Lq, Lk, F32_BLOCK)
+    if q.dtype == torch.float32:  # the split partials only where the queries are split
+        splits = f32_bwd_plan(B, H, Lq, Lk, D, tuple(k_shape)).splits
         return splits, (torch.empty((B, H, Lq), **f32),
-                        torch.empty((2, splits) + tuple(k.shape), **f32))
+                        torch.empty((2, splits) + tuple(k.shape) if splits > 1 else (1,), **f32))
     plan = bwd_plan(B, H, Lq, Lk, D, tuple(k_shape))
     return plan.splits, (
         torch.empty((B * H, Lq, plan.relp_cols), **f32),
@@ -929,6 +1022,90 @@ def cvt_plan(Bt: int, L: int, S: int, C: int, heads: int) -> CvtPlan:
                    cvt_smem(chunks, sp, stages), row_tiles, tiles, min(tiles, per_sm * NUM_SMS))
 
 
+@dataclasses.dataclass(frozen=True)
+class CvtF32Plan:
+    """Geometry of one f32 K7 launch (`cvt_f32_plan` in
+    csrc/cvt_attention.cu, which the entry computes itself): keys padded to
+    `sp` (8-128), tiles of `tile_rows` rows (64, else 32 or 16 where a
+    64-row tile does not fit beside one head's k and v) of one batch item
+    and head group (`groups`, `chunks` 32-column TMA boxes), `head_ways`
+    consumer warps per 16 rows, `threads` per CTA (the consumers and a
+    producer warp), `stages` q tile buffers, `per_sm` CTAs per SM, `smem`
+    bytes per CTA; `tiles` tiles in all (`row_tiles` per batch item and
+    group), walked by `ctas` persistent CTAs in contiguous ranges."""
+
+    sp: int
+    groups: int
+    head_ways: int
+    threads: int
+    chunks: int
+    tile_rows: int
+    stages: int
+    per_sm: int
+    smem: int
+    row_tiles: int
+    tiles: int
+    ctas: int
+
+
+def cvt_f32_smem(chunks: int, sp: int, tile_rows: int, stages: int) -> int:
+    """Shared memory of one f32 K7 CTA, as `cvt_f32_smem` in
+    csrc/cvt_attention.cu: the q tile buffers (128 bytes per row and box), k
+    and v (sp rows of 32 chunks + 4 floats each), the mbarriers (full and
+    empty per buffer) and 1024 bytes to align the base."""
+    return stages * chunks * tile_rows * 128 + 2 * sp * (32 * chunks + 4) * 4 + 2 * stages * 8 + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def cvt_f32_plan(Bt: int, L: int, S: int, C: int, heads: int) -> CvtF32Plan:
+    """The f32 K7 kernel's geometry: keys padded to a power of two >= 8;
+    64-row tiles, else 32, else 16, the first that fits one head's k and v
+    beside one tile; heads split into groups as `cvt_plan` splits them; two
+    consumer warps per 16 rows where a group holds two heads or more; two
+    CTAs per SM with at least two buffers each where they fit, else one
+    with as many buffers (up to four) as fit. Raises ValueError on what the
+    kernel does not take: S outside 1..128, a head_dim not a multiple of 8,
+    or one head's k and v beyond one CTA's shared memory beside a 16-row
+    tile."""
+    hd = C // heads if heads > 0 else 0
+    if not 1 <= S <= CVT_MAX_S:
+        raise ValueError(f"cvt_cross_attention: S = {S} keys not in 1..{CVT_MAX_S}")
+    if hd < 8 or hd % 8 or hd * heads != C:
+        raise ValueError(f"cvt_cross_attention: C = {C} over {heads} heads is not a head_dim "
+                         "that is a multiple of 8 (f32)")
+    if Bt < 1 or L < 1:
+        raise ValueError(f"cvt_cross_attention: Bt {Bt}, L {L}")
+    sp = 8
+    while sp < S:
+        sp *= 2
+    for tr in (64, 32, 16):
+        row_tiles = -(-L // tr)
+        groups = 0
+        for g in range(1, heads + 1):
+            if heads % g or (g > 1 and heads // g * hd % 32):
+                continue
+            if cvt_f32_smem(-(-(heads // g * hd) // 32), sp, tr, 1) > SMEM_MAX:
+                continue
+            groups = g
+            if Bt * g * row_tiles >= NUM_SMS:
+                break
+        if not groups:
+            continue
+        hg = heads // groups
+        chunks, ways = -(-(hg * hd) // 32), 2 if hg >= 2 else 1
+        fits = [(st, 2) for st in range(CVT_MAX_STAGES, 1, -1)
+                if cvt_f32_smem(chunks, sp, tr, st) <= CVT_SMEM_TWO]
+        fits += [(st, 1) for st in range(CVT_MAX_STAGES, 0, -1)
+                 if cvt_f32_smem(chunks, sp, tr, st) <= SMEM_MAX]
+        stages, per_sm = fits[0]
+        tiles = Bt * groups * row_tiles
+        return CvtF32Plan(sp, groups, ways, 32 * (tr // 16 * ways + 1), chunks, tr, stages,
+                          per_sm, cvt_f32_smem(chunks, sp, tr, stages), row_tiles, tiles,
+                          min(tiles, per_sm * NUM_SMS))
+    raise ValueError(f"cvt_cross_attention: S = {S} keys at head_dim {hd} need more than "
+                     f"{SMEM_MAX} bytes of shared memory for one head's k and v (f32)")
+
+
 def reference_cvt_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             num_heads: int, scale: float) -> torch.Tensor:
     """K7's plain version (the einsum path of JAX `reference_cvt_attention`,
@@ -950,10 +1127,12 @@ def cvt_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T * scale) v per head for q (Bt, L, C) and k, v (Bt, S,
     C): kernel K7 on CUDA (bf16, or its f32 instance for f32), the plain
     version on the CPU. Eval only. The C entry refuses, and `launch` raises
-    on, what the kernels do not take: S outside 1..128, head_dim not a
-    multiple of 16 (bf16; `cvt_plan` mirrors the rest of its checks) or
-    above 384 (f32), or one head's k and v beyond one CTA's shared
-    memory."""
+    on, what the kernels do not take: S outside 1..128; a head_dim not a
+    multiple of 16 (bf16) or of 8 (f32, whose TMA row stride C * 4 bytes
+    must be a multiple of 16); one head's k and v beyond one CTA's shared
+    memory beside a tile (bf16: 64 rows; f32: 16 rows, which refuses head_dim
+    384 at more than 64 keys and head_dim 192 at none). `cvt_plan` and
+    `cvt_f32_plan` mirror the checks."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("cvt_cross_attention (kernel K7) is eval-only and has no "
                            "backward; call it under torch.no_grad() or take the einsum path")

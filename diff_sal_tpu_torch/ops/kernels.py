@@ -3,11 +3,12 @@
 Each kernel is a plain C entry point in one CUDA C++ source under
 `diff_sal_tpu_torch/csrc/` (a source may hold several: K1 and K12 share
 `attention.cu`, K5 and K12's backward `attention_bwd.cu`, the f32
-instances of all four `attention_f32.cu`, K4 and K10 `resize.cu`). Each
-source is compiled with nvcc for `sm_90a` into one shared library, named
-by the source and the hash of its text and of the local headers it
-includes (`#include "hopper.cuh"`), in `diff_sal_tpu_torch/_build/`
-(git-ignored), and loaded with ctypes.
+instances of the forward `attention_f32_fwd.cu` and of the backward
+`attention_f32.cu`, K4 and K10 `resize.cu`). Each source is compiled with
+nvcc for `sm_90a` into one shared library, named by the source and the
+hash of its text and of the local headers it includes (`#include
+"hopper.cuh"`, and the headers those include), in
+`diff_sal_tpu_torch/_build/` (git-ignored), and loaded with ctypes.
 Nothing is compiled when a module is imported: the first CUDA launch
 builds its library, and `build_all()` builds every library at once with
 one nvcc per source, all started together.
@@ -89,11 +90,11 @@ class Kernel:
         return CSRC_DIR / self.source
 
     def library_path(self) -> Path:
-        text = self.source_path.read_bytes()
-        digest = hashlib.sha256(text)
-        # an edited header rebuilds every source that includes it
-        for header in sorted(set(re.findall(rb'#include "([^"]+)"', text))):
-            digest.update((CSRC_DIR / header.decode()).read_bytes())
+        digest = hashlib.sha256(self.source_path.read_bytes())
+        # an edited header rebuilds every source that includes it, directly
+        # or through another header
+        for header in _local_headers(self.source_path):
+            digest.update((CSRC_DIR / header).read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source_path.stem}-{digest.hexdigest()[:16]}.so"
 
@@ -141,6 +142,19 @@ class Kernel:
                 f"{self.name}: CUDA error {err} ({_cuda_error_name(err)})"
             )
         self.launches += 1
+
+
+def _local_headers(path: Path) -> List[str]:
+    """The local headers (`#include "x.cuh"`) a source includes, and those
+    they include, sorted."""
+    seen, todo = set(), [path]
+    while todo:
+        for name in re.findall(rb'#include "([^"]+)"', todo.pop().read_bytes()):
+            name = name.decode()
+            if name not in seen:
+                seen.add(name)
+                todo.append(CSRC_DIR / name)
+    return sorted(seen)
 
 
 def _cuda_error_name(code: int) -> str:

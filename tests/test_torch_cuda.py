@@ -1092,3 +1092,166 @@ def test_cvt_attention_kernel_walks_across_batch_items(card, Bt, L, S, C):
     again = t_attn.cvt_cross_attention(q, k, v, 2, C ** -0.5)
     torch.cuda.synchronize()
     assert torch.equal(out, again)
+
+
+# ------------------------- the f32 backward on the tensor cores (split TF32) ---
+
+
+def _f32_bwd_case(layout, H, Lq, k_shape, D, seed, B=2):
+    """f32 inputs of K5 (B batches of H heads) or K12's backward (B*H
+    batches of one head, the cls row at row 0), an output gradient, the
+    forward and backward wrappers, the plain backward, the backward
+    kernel's record and the trailing args."""
+    g = torch.Generator().manual_seed(seed)
+    f = torch.float32
+    Lk = 1 + k_shape[0] * k_shape[1] * k_shape[2]
+    scale = D ** -0.5
+    if layout == "k1":
+        q, k, v = (_randn(g, B, n, H * D, dtype=f) for n in (Lq, Lk, Lk))
+        ins = (q, k, v, _randn(g, B, Lq, H, sum(k_shape), dtype=f, scale=0.5))
+        return (ins, _randn(g, *q.shape, dtype=f), (k_shape, H, scale), t_attn.bias_attention_fwd,
+                t_attn.bias_attention_bwd, t_attn.bias_attention_bwd_plain,
+                t_attn.F32_BWD_KERNEL)
+    q, k, v, rels = _k12_args(g, B * H, Lq + 1, k_shape, D)
+    ins = tuple(t.float() for t in (q, k, v)) + tuple(rels)
+    return (ins, _randn(g, *q.shape, dtype=f), (k_shape, scale), t_attn.fused_bias_attention_fwd,
+            t_attn.fused_bias_attention_bwd, t_attn.fused_bias_attention_bwd_plain,
+            t_attn.CLS_F32_BWD_KERNEL)
+
+
+# (H, Lq, key grid, head_dim) at B = 2: Lq and Lk ragged against the 32-key
+# and 16-64-row tiles, every head_dim, the most bias bins (128) and 48,
+# q-major CTAs of 64, 32 and 16 rows, k-major grids with and without query
+# splits
+F32_BWD_SHAPES = [(2, 1000, (8, 7, 12), 96), (1, 333, (5, 6, 7), 64), (4, 130, (98, 1, 29), 96),
+                  (2, 777, (5, 6, 7), 128), (8, 2000, (8, 7, 12), 96), (8, 96, (2, 3, 4), 96),
+                  (8, 2000, (98, 1, 29), 96), (2, 2000, (8, 14, 24), 96),
+                  (2, 4000, (8, 14, 24), 64)]
+
+
+def test_f32_backward_shapes_take_every_plan():
+    """The shapes above reach q-major CTAs of 64, 32 and 16 rows, the three
+    drel widths, and k-major grids with and without query splits (the
+    plan, on the CPU)."""
+    plans = [t_attn.f32_bwd_plan(2, H, Lq, 1 + ks[0] * ks[1] * ks[2], D, ks)
+             for H, Lq, ks, D in F32_BWD_SHAPES]
+    assert {p.q_rows for p in plans} == {16, 32, 64}
+    assert {p.bins for p in plans} == {32, 48, 128}
+    assert {p.splits > 1 for p in plans} == {True, False}
+
+
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("layout", ["k1", "k12"])
+@pytest.mark.parametrize("H,Lq,k_shape,D", F32_BWD_SHAPES)
+def test_f32_attention_backward_kernel(card, H, Lq, k_shape, D, layout, residual):
+    """K5 and K12's backward in f32 (split TF32 on the tensor cores), fed
+    with the f32 forward's logsumexp, against their plain versions at f32:
+    every output within 1e-5, one launch."""
+    ins, go, extra, fwd, bwd, plain, kern = _f32_bwd_case(layout, H, Lq, k_shape, D, Lq + D)
+    lse = fwd(*ins, *extra, residual, return_lse=True)[1]
+    before = kern.launches
+    got = bwd(*ins, go, *extra, residual, lse=lse)
+    assert kern.launches == before + 1
+    for i, (a, b) in enumerate(zip(got, plain(*ins, go, *extra, residual))):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.float32, i
+        _check(a, b, torch.float32)
+
+
+@pytest.mark.parametrize("layout", ["k1", "k12"])
+@pytest.mark.parametrize("H,Lq,k_shape", MVIT_BLOCKS)
+def test_f32_attention_backward_block_shapes(card, H, Lq, k_shape, layout):
+    """The f32 backward at MViTv2-small's seven block shapes (B=1, full Lq,
+    head_dim 96, the residual on) against the plain version computed in
+    f64: each output within 1e-5, or within twice the f32 plain version's
+    own distance from the f64 result where that is larger (dk and dv sum
+    over up to 43008 query rows)."""
+    ins, go, extra, fwd, bwd, plain, _ = _f32_bwd_case(layout, H, Lq, k_shape, 96, H, B=1)
+    lse = fwd(*ins, *extra, True, return_lse=True)[1]
+    got = bwd(*ins, go, *extra, True, lse=lse)
+    ref = plain(*(t.double() for t in ins), go.double(), *extra, True)
+    own = plain(*ins, go, *extra, True)
+    for i, (a, r, o) in enumerate(zip(got, ref, own)):
+        limit = max(1e-5, 2 * float((o.double() - r).abs().max()))
+        assert float((a.double() - r).abs().max()) <= limit, i
+
+
+@pytest.mark.parametrize("layout", ["k1", "k12"])
+def test_f32_attention_backward_is_deterministic(card, layout):
+    """No atomics: two runs on the same inputs give the same bits, with and
+    without query splits."""
+    for H, Lq, ks in ((2, 10752, (8, 14, 24)), (8, 2000, (98, 1, 29))):
+        assert (t_attn.f32_bwd_plan(2, H, Lq, 1 + ks[0] * ks[1] * ks[2], 96, ks).splits > 1) \
+            == (H == 2)
+        ins, go, extra, fwd, bwd, _, _ = _f32_bwd_case(layout, H, Lq, ks, 96, 3)
+        lse = fwd(*ins, *extra, True, return_lse=True)[1]
+        a = bwd(*ins, go, *extra, True, lse=lse)
+        b = bwd(*ins, go, *extra, True, lse=lse)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# --------------------------------------------- K7 f32, the streaming kernel ---
+
+
+@pytest.mark.parametrize("S", [1, 18, 128])
+@pytest.mark.parametrize("hd", [32, 48, 96, 192, 384])
+def test_cvt_attention_f32_kernel_head_dims_and_keys(card, hd, S):
+    """K7's f32 instance at head_dims 32-384 (two heads) with one key, the
+    shipped 18 and the most the TPU kernel takes, L ragged against the
+    tiles, at the f32 tolerance; head_dim 384 at 128 keys does not fit one
+    CTA and is refused."""
+    g = torch.Generator().manual_seed(hd + S)
+    C, f = 2 * hd, torch.float32
+    q, k, v = _randn(g, 3, 201, C, dtype=f), _randn(g, 3, S, C, dtype=f), _randn(g, 3, S, C, dtype=f)
+    if hd == 384 and S == 128:
+        with pytest.raises(ValueError, match="shared memory"):
+            t_attn.cvt_f32_plan(3, 201, S, C, 2)
+        with pytest.raises(K.KernelLaunchError):
+            t_attn.cvt_cross_attention(q, k, v, 2, C ** -0.5)
+        return
+    before = t_attn.CVT_F32_KERNEL.launches
+    out = t_attn.cvt_cross_attention(q, k, v, 2, C ** -0.5)
+    assert t_attn.CVT_F32_KERNEL.launches == before + 1
+    _check(out, t_attn.reference_cvt_attention(q, k, v, 2, C ** -0.5), f)
+
+
+@pytest.mark.parametrize("S", [1, 18, 128])
+@pytest.mark.parametrize("hd,heads", [(8, 4), (24, 2), (24, 4), (24, 8), (40, 2), (40, 3),
+                                      (40, 4), (56, 2)])
+def test_cvt_attention_f32_kernel_odd_column_groups(card, hd, heads, S):
+    """Head_dims with an odd number of 8-column groups: p v ends on a
+    single n-tile, which stays within its head. Among them C a multiple of
+    32 (the last head ends on the tile's last column) and a group of four
+    heads split over two head-ways (24 x 8 heads); every head's output is
+    held against the plain version at the f32 tolerance."""
+    g = torch.Generator().manual_seed(hd * heads + S)
+    C, f = heads * hd, torch.float32
+    plan = t_attn.cvt_f32_plan(3, 201, S, C, heads)
+    assert (hd, heads) != (24, 8) or (plan.groups, plan.head_ways) == (2, 2), plan
+    q, k, v = _randn(g, 3, 201, C, dtype=f), _randn(g, 3, S, C, dtype=f), _randn(g, 3, S, C, dtype=f)
+    before = t_attn.CVT_F32_KERNEL.launches
+    out = t_attn.cvt_cross_attention(q, k, v, heads, hd ** -0.5)
+    assert t_attn.CVT_F32_KERNEL.launches == before + 1
+    _check(out, t_attn.reference_cvt_attention(q, k, v, heads, hd ** -0.5), f)
+
+
+@pytest.mark.parametrize("Bt,L,S,C", [(64, 330, 18, 96), (8, 700, 64, 768), (10, 5376, 18, 96),
+                                      (20, 336, 18, 384), (10, 336, 100, 384)])
+def test_cvt_attention_f32_kernel_walks_across_batch_items(card, Bt, L, S, C):
+    """More tiles than CTAs, so a CTA's walk crosses from one batch item
+    (and head group) to the next and reloads k and v: each batch item gets
+    its own keys (a stale k or v would show), and two runs give the same
+    bits."""
+    plan = t_attn.cvt_f32_plan(Bt, L, S, C, 2)
+    crossing = [c for c in range(plan.ctas)
+                if (c * plan.tiles // plan.ctas) // plan.row_tiles
+                != ((c + 1) * plan.tiles // plan.ctas - 1) // plan.row_tiles]
+    assert plan.tiles > plan.ctas and crossing
+    g = torch.Generator().manual_seed(Bt + L)
+    f = torch.float32
+    q, k, v = _randn(g, Bt, L, C, dtype=f), _randn(g, Bt, S, C, dtype=f), _randn(g, Bt, S, C, dtype=f)
+    out = t_attn.cvt_cross_attention(q, k, v, 2, C ** -0.5)
+    _check(out, t_attn.reference_cvt_attention(q, k, v, 2, C ** -0.5), f)
+    again = t_attn.cvt_cross_attention(q, k, v, 2, C ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
