@@ -33,8 +33,9 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      kernel's and SDPA's ms per call, device time, the share of the bound
      and the launch plan (forward: rows per CTA, keys per tile, stages,
      shared memory; backward: query splits, q-major and k-major CTAs and
-     their shared memory), and for K2 and K3 one line per (rows, C) with
-     the device time per call, the bound per call and the share of it;
+     their shared memory), and for K2, K3 and K6 one line per (rows, C)
+     with the device time per call, the bound per call and the share of it
+     (K2 and K6 also with whether the bulk path took it);
      then K10, which no model path calls: the four recorded task maps added
      one by one into a zero accumulator (launches counted in that run),
      against K4's sum of the same maps and each call against K10's plain
@@ -111,7 +112,13 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      runs; then phase 8's recorded K7 calls (DPM++ NFE 2) cast to f32
      against their plain version at 1e-5, one `[shape cvt_attention_f32]`
      line per (Bt, L, C) beside SDPA per head in f32 with the share of the
-     bytes bound;
+     bytes bound; then phase 3's four recorded K3 calls cast to f32 through
+     K3's f32 instance, each held against the plain version computed in
+     f64 within the larger of 1e-5 and twice the f32 plain version's own
+     distance from it, one `[shape block_tail_f32]` line per (rows, C) with
+     the device time per call and the share of the split-TF32 bound, and
+     beside it, as context, the device time of the tail's two products as
+     f32 `torch.matmul` (TF32 off) on the same shapes;
  12. the AV training step at full width in f32 (both packages' default),
      B=4, phase 6's recipe: one warm-up step with phase 6's checks, one
      step counted against `f32_launches(cfg, train=True)` (K1 f32 and K5
@@ -119,8 +126,8 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      each step's and the window's), one step's device events summed and as
      the device's busy time (the union of their intervals: overlapping
      kernels count once), the f32 backward's and the convolutions' busy
-     time as shares of it and of the step, the step's top CUDA kernels and
-     peak memory;
+     time as shares of it and of the step, K6's device time in the step,
+     the step's top CUDA kernels and peak memory;
 then prints the `kernels` JSON line, the nvidia-smi line and, last, the
 result line {"ok": true, "device": {...}}. The f32 instances' bound takes
 their matrix products at split TF32's rate (495 / 3 TFLOP/s: f32's accuracy
@@ -546,15 +553,17 @@ def device_events(thunks, attempts: int = 24):
 
 def shape_key(name, args):
     """The calls of a kernel grouped for the per-shape lines: attention by
-    (q shape, k shape, launch plan), LayerNorm by (rows, C, bulk path), the
-    block tail by (R, C), K7 by (Bt, L, C); other kernels form one group."""
+    (q shape, k shape, launch plan), LayerNorm and its backward by (rows, C,
+    bulk path), the block tail by (R, C), K7 by (Bt, L, C); other kernels
+    form one group."""
     base = name.removesuffix("_f32")
     if base in ATTENTION:
         return tuple(args[0].shape), tuple(args[1].shape), attention_plan(name, args)
-    if base == "layer_norm":  # and whether the bulk path takes it (else the row kernel)
+    if base in ("layer_norm", "layer_norm_bwd"):  # and whether the bulk path takes it
         x = args[0]
         C = x.shape[-1]
-        return x.numel() // C, C, C * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0
+        aligned = all(t.data_ptr() % 16 == 0 for t in args[:1 + (base == "layer_norm_bwd")])
+        return x.numel() // C, C, C * x.element_size() % 16 == 0 and aligned
     if base == "block_tail":
         return tuple(args[0].shape)
     if base == "cvt_attention":
@@ -563,7 +572,8 @@ def shape_key(name, args):
 
 
 # what the key of a `[shape ...]` line lists
-SHAPE_LABEL = {"layer_norm": "(rows, C, bulk)", "block_tail": "(rows, C)",
+SHAPE_LABEL = {"layer_norm": "(rows, C, bulk)", "layer_norm_bwd": "(rows, C, bulk)",
+               "block_tail": "(rows, C)",
                "cvt_attention": "(Bt, L, C)"}
 
 
@@ -1463,6 +1473,57 @@ F32_TRAIN_ITERS = 10  # timed f32 training steps at full width
 F32_BWD_CUDA = ("f32_bwd_q_kernel", "f32_bwd_kv_kernel", "f32_reduce_kernel")
 # words in the names of cuDNN's convolution kernels, its FFT path's complex
 # GEMMs (`sm80_xmma_gemm_cf32cf32...`) among them
+def f32_tail_phase(calls):
+    """Phase 11, K3 f32: phase 3's recorded K3 calls (the decoder's four
+    block tails of an AV DDIM run at B=2) cast to f32, each through K3's
+    f32 instance, held against the plain version computed in f64 within the
+    larger of the f32 tolerance and twice the f32 plain version's own
+    distance from it; one `[shape block_tail_f32]` line per (rows, C) with
+    the device time per call and the share of the bound at split TF32's
+    rate, and beside it, as context (no single PyTorch call computes the
+    tail), the device time of its two products as f32 `torch.matmul` with
+    TF32 off on the same shapes. These launches compare a kernel with its
+    plain version: no path's count reads them. Returns (kernel device ms,
+    bound ms, max|d|) over the calls."""
+    from diff_sal_tpu_torch.ops import mlp
+
+    atol = TOL[torch.float32][0]
+    tot_ms = tot_mm = tot_bound = err = 0.0
+    for args, kw in calls:
+        a32 = tuple(x.float() if isinstance(x, torch.Tensor) else x for x in args)
+        skip, w1, w2 = a32[0], a32[4], a32[6]
+        R, C = skip.shape
+        Hd = w1.shape[0]
+        out = mlp.block_tail(*a32, **kw)
+        ref = mlp.block_tail_plain(*(x.double() if isinstance(x, torch.Tensor) else x
+                                     for x in a32), **kw)
+        own = float((mlp.block_tail_plain(*a32, **kw).double() - ref).abs().max())
+        d = float((out.double() - ref).abs().max())
+        torch.cuda.synchronize()
+        assert d <= max(atol, 2 * own), (
+            f"block_tail_f32 at ({R}, {C}): max|d| from f64 {d:.3e}, the f32 plain version's "
+            f"{own:.3e}")
+        err = max(err, d)
+        del out, ref
+        nbytes, ops = bound_terms("block_tail_f32", a32, kw)
+        bound = max(nbytes / HBM_BYTES_PER_S, sum(n / p for n, p in ops)) * 1e3
+        ms = device_ms([lambda a=a32, kw=kw: mlp.block_tail(*a, **kw)])[0]
+        xn, h = torch.randn(R, C, device=skip.device), torch.randn(R, Hd, device=skip.device)
+        w1t, w2t = w1.t(), w2.t()
+        mm = device_ms([lambda: torch.matmul(xn, w1t), lambda: torch.matmul(h, w2t)])[0]
+        tot_ms, tot_mm, tot_bound = tot_ms + ms, tot_mm + mm, tot_bound + bound
+        plan = mlp.tail_f32_plan(R, C, Hd)
+        log(f"[shape block_tail_f32] (rows, C) ({R}, {C}) plan (nt, col_splits, hc, k_splits, "
+            f"ctas) ({plan.nt}, {plan.col_splits}, {plan.hc}, {plan.k_splits}, {plan.ctas}): device "
+            f"{1e3 * ms:.2f} us per call, bound {1e3 * bound:.2f} us (split TF32), "
+            f"{100.0 * bound / ms:.1f}% of bound; the two products as f32 torch.matmul "
+            f"{1e3 * mm:.2f} us; max|d| from f64 {d:.3e} (the f32 plain version {own:.3e})")
+    log(f"[f32 full width] block_tail_f32: {len(calls)} calls, device {tot_ms:.4f} ms, bound "
+        f"{tot_bound:.4f} ms ({100.0 * tot_bound / tot_ms:.1f}% of bound), two f32 matmuls "
+        f"per call {tot_mm:.4f} ms; max|d| from f64 {err:.3e}")
+    return tot_ms, tot_bound, err
+
+
 CONV_WORDS = ("conv", "fft", "fprop", "dgrad", "wgrad", "cudnn", "cf32")
 
 
@@ -1523,6 +1584,8 @@ def f32_train_phase(dev, schedule, kind, smi):
             - min(e.time_range.start for e in events)) / 1e3
     busy = busy_ms(events)
     k5 = busy_ms([e for e in events if any(k in e.name for k in F32_BWD_CUDA)])
+    k6 = [e for e in events if "layernorm_bwd" in e.name]
+    k6_ms = sum(e.time_range.elapsed_us() for e in k6) / 1e3
     is_conv = [any(w in e.name.lower() for w in CONV_WORDS) for e in events]
     conv = busy_ms([e for e, c in zip(events, is_conv) if c])
     others = busy_ms([e for e, c in zip(events, is_conv) if not c])
@@ -1540,6 +1603,8 @@ def f32_train_phase(dev, schedule, kind, smi):
         f"{busy:.3f} ms (union of intervals) in a {span:.3f} ms span "
         f"({100.0 * busy / span:.1f}% busy); the f32 backward (K5 f32) busy {k5:.3f} ms "
         f"({100.0 * k5 / busy:.1f}% of busy, {100.0 * k5 / step_ms:.1f}% of the step); "
+        f"K6 (layer_norm_bwd, f32) device {k6_ms:.3f} ms in {len(k6)} kernels "
+        f"({counts['layer_norm_bwd']} launches per step); "
         f"convolutions (kernel names with {'/'.join(CONV_WORDS)}) busy {conv:.3f} ms "
         f"({100.0 * conv / busy:.1f}% of busy), every other event busy {others:.3f} ms; "
         f"{streams} streams; peak memory "
@@ -1722,7 +1787,8 @@ def main() -> int:
     k4_call = recorders["bilinear_resize_sum"].calls[0]
     # phase 11 casts the main path's K1 calls (and phase 9's K12 forward
     # calls) to f32; hold_kernels empties the recorders
-    full_calls = {"bias_attention": list(recorders["bias_attention"].calls)}
+    full_calls = {"bias_attention": list(recorders["bias_attention"].calls),
+                  "block_tail": list(recorders["block_tail"].calls)}
     rows = hold_kernels(INFER_KERNELS, recorders, plain, counts, cli.profile)
     rows += resize_add_phase(k4_call, recorders, plain)
     del k4_call
@@ -1875,6 +1941,7 @@ def main() -> int:
     f32_block_phase(full_calls)
     f32_backward_phase(full_calls)
     f32_cvt_phase(full_calls["cvt_attention"])
+    f32_tail_phase(full_calls["block_tail"])
     del full_calls
     log(f"[f32 full width] phase {time.perf_counter() - t0:.1f} s")
 

@@ -52,17 +52,26 @@
 // two boxes), Hd of 64. Rows past R are zero and are not written.
 //
 // The f32 instance (`dsal_block_tail_f32`, the tail of an f32 model, which
-// the JAX K3 takes as well) computes every product in f32 by FFMA on the
-// CUDA cores: TF32 keeps too few mantissa bits for the f32 tolerance. A CTA
-// of eight warps owns BRF = 16 rows: LN(y) in f32 in shared memory, then
-// per hidden chunk of 64 h = LN(y) w1[chunk]^T + b1 with w1 staged in
-// 32-column slices (thread: one hidden unit, four rows), GELU, and out +=
-// h w2[:, chunk]^T with w2 staged in 16-unit slices (thread: every 256th
-// output column of all 16 rows, in registers). Its shared memory, 16 * C +
-// 16 * 64 + 32 * 64 + 16 * C floats, is 110.6 KB at C = 768 (`f32_smem` in
-// ops/mlp.py checks it for every C up to MAXC).
+// the JAX K3 takes as well) keeps f32's accuracy with every product in split
+// TF32 on the tensor cores (mma.sync m16n8k8, the helpers of csrc/tf32.cuh:
+// each operand as a TF32 hi + lo pair, three TF32 products, f32 sums
+// flushed every FLUSH k-steps), 2.5x FFMA's peak on the H100. The same
+// flash-MLP: a CTA of eight warps owns FR = 32 rows and computes y and
+// LN(y) in f32 into shared memory (row stride C + 8: the float2 fragment
+// reads of a half-warp hit 16 different 8-byte banks); per hidden chunk of
+// hc = 64 or 128 units, h = LN(y) w1[chunk]^T (each warp 16 rows x hc / 4
+// hidden units), h + b1 and GELU in f32 into shared memory, then out +=
+// GELU(h) w2[cols, chunk]^T (each warp 16 rows x 8 NT output columns, its
+// f32 sums in registers across chunks). w1 and w2 arrive as tiles of 32
+// input or 16 hidden columns by cp.async into a double buffer. A CTA owns
+// at most F_MAX_NC = 384 output columns (C = 768: two column splits, each
+// recomputing h); where row tiles and column splits leave more than half
+// of the CTA slots idle, CTAs split the hidden axis into an f32 workspace
+// that `tail_f32_reduce_kernel` adds in split order.
+// `tail_f32_plan` in ops/mlp.py chooses nt, hc, the splits and mirrors the
+// shared memory (`tail_f32_smem`, 190 KB at C = 768).
 
-#include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -398,46 +407,107 @@ int launch_nt(int nt, const CUtensorMap& t1, const CUtensorMap& t2, const TailAr
 
 // ------------------------------------------------------------- f32 (K3) ---
 
-constexpr int NW = 8;      // warps
-constexpr int NT = NW * 32;
-constexpr int MAXV = MAXC / 32;      // LayerNorm values per lane (24)
+constexpr int FR = 32;          // rows per CTA (two 16-row m-tiles)
+constexpr int FW = 8;           // warps per CTA
+constexpr int FTH = FW * 32;
+constexpr int FK1 = 32;         // input columns of one w1 tile
+constexpr int FK2 = 16;         // hidden columns of one w2 tile
+constexpr int FLD1 = FK1 + 8;   // their row strides in floats (float2 fragment
+constexpr int FLD2 = FK2 + 8;   // reads of a half-warp hit 16 different banks)
+constexpr int F_MAX_NC = 384;   // output columns per CTA (4 column groups x 8 NT)
+constexpr int F_MAX_NT = F_MAX_NC / 32;
+constexpr int F_MAX_KSPLIT = 24;
 
-constexpr int BRF = 16;  // rows per CTA of the f32 instance
-constexpr int MAXCOL = MAXC / NT;  // output columns per thread (3)
-
-__host__ __device__ inline size_t smem_f32(int C) {
-  return ((size_t)BRF * C * 2 + BRF * HC + 32 * HC) * 4;
+// LN(y) (FR x (C + 8)), GELU(h) of one chunk (FR x (hc + 8)) and two weight
+// tiles of max(hc x FLD1, nc x FLD2) floats. Mirrored by `tail_f32_smem` in
+// ops/mlp.py.
+__host__ __device__ inline int tail_f32_smem(int C, int nc, int hc) {
+  const int tile = hc * FLD1 > nc * FLD2 ? hc * FLD1 : nc * FLD2;
+  return 4 * (FR * (C + 8) + FR * (hc + 8) + 2 * tile);
 }
 
-__global__ void __launch_bounds__(NT) block_tail_f32_kernel(
-    const float* __restrict__ skip, const float* __restrict__ attn,
-    const float* __restrict__ ln_w, const float* __restrict__ ln_b,
-    const float* __restrict__ w1, const float* __restrict__ b1,
-    const float* __restrict__ w2, const float* __restrict__ b2, float* __restrict__ out,
-    int R, int C, int Hd, float eps, int act) {
-  extern __shared__ float fs[];
-  float* Xn = fs;                 // BRF x C: LN(y)
-  float* Hs = Xn + BRF * C;       // BRF x HC: the hidden chunk after GELU
-  float* W1s = Hs + BRF * HC;     // 32 x HC: a slice of w1[chunk]^T
-  float* W2s = W1s + 32 * HC;     // 16 x C: a slice of w2[:, chunk]^T
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long row0 = (long long)blockIdx.x * BRF;
+struct TailF32Args {
+  const float* skip;
+  const float* attn;
+  const float* ln_w;
+  const float* ln_b;
+  const float* w1;
+  const float* b1;
+  const float* w2;
+  const float* b2;
+  float* out;
+  float* ws;  // (k_splits, R, C) f32 partial sums, or null with one split
+  int R, C, Hd, chunks;  // chunks: hidden chunks of one split
+  float eps;
+  int act;
+};
 
-  // y and LN(y) in f32, two rows per warp
-  for (int rr = 0; rr < BRF / NW; ++rr) {
-    const int r = warp * (BRF / NW) + rr;
-    const long long row = row0 + r;
-    if (row >= R) {
-      for (int c = lane; c < C; c += 32) Xn[r * C + c] = 0.f;
+// n-tiles of the second product issued together: a divisor of NT, at most 4
+__host__ __device__ constexpr int f32_group(int nt) {
+  return nt % 4 == 0 ? 4 : nt % 3 == 0 ? 3 : nt % 2 == 0 ? 2 : 1;
+}
+
+// The CTA (blockIdx.x, y, z) owns rows 32 x, output columns [nc y, +nc)
+// with nc = 32 NT, and hidden chunks of HCF units [chunks z, +chunks).
+// Weight tiles arrive by cp.async into a double buffer, in the order the
+// products consume them: per hidden chunk the C / FK1 tiles of w1[chunk]
+// (FK1 input columns of its HCF rows), then the HCF / FK2 tiles of
+// w2[cols, chunk] (FK2 hidden columns of its nc rows). Every product is
+// split TF32 on mma.sync m16n8k8 (csrc/tf32.cuh), flushed into f32 sums
+// every FLUSH k-steps.
+template <int NT, int HCF>
+__global__ void __launch_bounds__(FTH, 1) block_tail_f32_kernel(const TailF32Args a) {
+  constexpr int NC = 32 * NT, NB = f32_group(NT), NH = HCF / 32;
+  static_assert(FK2 / 8 == FLUSH, "a w2 tile is one flush of k-steps");
+  extern __shared__ __align__(16) float fsm[];
+  const int C = a.C, SX = C + 8, SH = HCF + 8;
+  float* Xn = fsm;
+  float* Hs = Xn + FR * SX;
+  float* Wt = Hs + FR * SH;
+  constexpr int stage = HCF * FLD1 > NC * FLD2 ? HCF * FLD1 : NC * FLD2;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.x * FR, n0 = blockIdx.y * NC, hbase = blockIdx.z * a.chunks * HCF;
+  const int kt1 = C / FK1, per_chunk = kt1 + HCF / FK2, total = a.chunks * per_chunk;
+
+  // tile q into buffer q % 2, as one cp.async group
+  auto issue = [&](int q) {
+    const int c = q / per_chunk, i = q - c * per_chunk, h0 = hbase + c * HCF;
+    const uint32_t dst = smem_u32(Wt + (q & 1) * stage);
+    if (i < kt1) {
+      const float* src = a.w1 + (size_t)h0 * C + i * FK1;
+      for (int e = tid; e < HCF * (FK1 / 4); e += FTH) {
+        const int r = e / (FK1 / 4), v = e - r * (FK1 / 4);
+        cp16(dst + (r * FLD1 + 4 * v) * 4, src + (size_t)r * C + 4 * v, true);
+      }
+    } else {
+      const float* src = a.w2 + (size_t)n0 * a.Hd + h0 + (i - kt1) * FK2;
+      for (int e = tid; e < NC * (FK2 / 4); e += FTH) {
+        const int r = e / (FK2 / 4), v = e - r * (FK2 / 4);
+        cp16(dst + (r * FLD2 + 4 * v) * 4, src + (size_t)r * a.Hd + 4 * v, true);
+      }
+    }
+    cp_commit();
+  };
+  issue(0);
+
+  // y = skip + attn and LN(y) in f32 (zeros past R), four rows per warp:
+  // the sums in one pass, the normalised row in a second (from L1)
+  for (int rr = 0; rr < FR / FW; ++rr) {
+    const int r = warp * (FR / FW) + rr, row = row0 + r;
+    float* xr = Xn + r * SX;
+    if (row >= a.R) {
+      for (int c = 4 * lane; c < C; c += 128)
+        *reinterpret_cast<float4*>(xr + c) = make_float4(0.f, 0.f, 0.f, 0.f);
       continue;
     }
-    float v[MAXV], s = 0.f, ss = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAXV; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < C ? skip[row * C + c] + attn[row * C + c] : 0.f;
-      s += v[i];
-      ss += v[i] * v[i];
+    const float4* sp = reinterpret_cast<const float4*>(a.skip + (size_t)row * C);
+    const float4* ap = reinterpret_cast<const float4*>(a.attn + (size_t)row * C);
+    float s = 0.f, ss = 0.f;
+    for (int j = lane; j < C / 4; j += 32) {
+      const float4 u = sp[j], v = ap[j];
+      const float y0 = u.x + v.x, y1 = u.y + v.y, y2 = u.z + v.z, y3 = u.w + v.w;
+      s += (y0 + y1) + (y2 + y3);
+      ss += (y0 * y0 + y1 * y1) + (y2 * y2 + y3 * y3);
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
@@ -445,72 +515,203 @@ __global__ void __launch_bounds__(NT) block_tail_f32_kernel(
       ss += __shfl_xor_sync(0xffffffffu, ss, off);
     }
     const float mean = s / C;
-    const float rs = 1.f / sqrtf(fmaxf(ss / C - mean * mean, 0.f) + eps);
-#pragma unroll
-    for (int i = 0; i < MAXV; ++i) {
-      const int c = lane + 32 * i;
-      if (c < C) Xn[r * C + c] = (v[i] - mean) * rs * ln_w[c] + ln_b[c];
+    const float rs = rsqrtf(fmaxf(ss / C - mean * mean, 0.f) + a.eps);
+    for (int j = lane; j < C / 4; j += 32) {
+      const float4 u = sp[j], v = ap[j];
+      const float4 w = reinterpret_cast<const float4*>(a.ln_w)[j];
+      const float4 b = reinterpret_cast<const float4*>(a.ln_b)[j];
+      *reinterpret_cast<float4*>(xr + 4 * j) =
+          make_float4(((u.x + v.x) - mean) * rs * w.x + b.x, ((u.y + v.y) - mean) * rs * w.y + b.y,
+                      ((u.z + v.z) - mean) * rs * w.z + b.z, ((u.w + v.w) - mean) * rs * w.w + b.w);
     }
   }
 
-  float acc[BRF][MAXCOL];
+  // warp roles: m-tile wm (rows 16 wm + g, + 8); in the first product the
+  // NH hidden n-tiles [NH wq, + NH) of the chunk, in the second the output
+  // columns [8 NT wq, + 8 NT) of the CTA's
+  const int wm = warp & 1, wq = warp >> 1;
+  const float* xa = Xn + (16 * wm + g) * SX + 2 * t;
+  const float* ha = Hs + (16 * wm + g) * SH + 2 * t;
+  float od[NT][4];
 #pragma unroll
-  for (int r = 0; r < BRF; ++r)
+  for (int n = 0; n < NT; ++n) od[n][0] = od[n][1] = od[n][2] = od[n][3] = 0.f;
+
+  int q = 0;
+  for (int c = 0; c < a.chunks; ++c) {
+    // h = LN(y) w1[chunk]^T: k-step kk of tile i takes input columns
+    // FK1 i + 8 kk + 2t, + 1 (the same order for A and B)
+    float hd[NH][4], ht[NH][4];
 #pragma unroll
-    for (int m = 0; m < MAXCOL; ++m) acc[r][m] = 0.f;
-  const int hn = tid % HC, hr = (tid / HC) * 4;  // this thread's hidden unit and four rows
-  for (int hc0 = 0; hc0 < Hd; hc0 += HC) {
-    float h[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int c0 = 0; c0 < C; c0 += 32) {
-      __syncthreads();  // the previous slice is consumed (and, first, Xn is written)
-      for (int i = tid; i < HC * 32; i += NT) {
-        const int n = i >> 5, c = i & 31;
-        W1s[c * HC + n] = w1[(size_t)(hc0 + n) * C + c0 + c];
-      }
+    for (int n = 0; n < NH; ++n) hd[n][0] = hd[n][1] = hd[n][2] = hd[n][3] = 0.f;
+    for (int i = 0; i < kt1; ++i, ++q) {
+      if (q + 1 < total) issue(q + 1);
+      else cp_commit();
+      cp_wait<1>();  // tile q has landed (and, first, LN(y) is written)
       __syncthreads();
-#pragma unroll 8
-      for (int c = 0; c < 32; ++c) {
-        const float w = W1s[c * HC + hn];
+      const float* wt = Wt + (q & 1) * stage + (8 * NH * wq + g) * FLD1 + 2 * t;
 #pragma unroll
-        for (int u = 0; u < 4; ++u) h[u] = fmaf(Xn[(hr + u) * C + c0 + c], w, h[u]);
-      }
-    }
+      for (int kk = 0; kk < FK1 / 8; ++kk) {
+        const float2 x0 = *reinterpret_cast<const float2*>(xa + FK1 * i + 8 * kk);
+        const float2 x1 = *reinterpret_cast<const float2*>(xa + 8 * SX + FK1 * i + 8 * kk);
+        uint32_t ah[4], al[4];
+        split(x0.x, ah[0], al[0]);
+        split(x1.x, ah[1], al[1]);
+        split(x0.y, ah[2], al[2]);
+        split(x1.y, ah[3], al[3]);
+        float kb[NH][2];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) Hs[(hr + u) * HC + hn] = gelu(h[u] + b1[hc0 + hn], act);
-    for (int k0 = 0; k0 < HC; k0 += 16) {
-      __syncthreads();  // Hs is written, the previous w2 slice consumed
-      for (int i = tid; i < 16 * C; i += NT) {
-        const int col = i >> 4, k = i & 15;
-        W2s[k * C + col] = w2[(size_t)col * Hd + hc0 + k0 + k];
-      }
-      __syncthreads();
-      for (int k = 0; k < 16; ++k) {
-#pragma unroll
-        for (int m = 0; m < MAXCOL; ++m) {
-          const int col = tid + NT * m;
-          if (col < C) {
-            const float w = W2s[k * C + col];
-#pragma unroll
-            for (int r = 0; r < BRF; ++r) acc[r][m] = fmaf(Hs[r * HC + k0 + k], w, acc[r][m]);
-          }
+        for (int n = 0; n < NH; ++n) {
+          const float2 y = *reinterpret_cast<const float2*>(wt + 8 * n * FLD1 + 8 * kk);
+          kb[n][0] = y.x;
+          kb[n][1] = y.y;
         }
+        if (kk % FLUSH == 0)
+          mma3<NH, true>(ht, ah, al, kb);
+        else
+          mma3<NH, false>(ht, ah, al, kb);
+        if (kk % FLUSH == FLUSH - 1) flush<NH>(hd, ht);
+      }
+      __syncthreads();  // every warp is done with buffer q % 2
+    }
+    // h + b1 and GELU in f32, into Hs (the A operand of the second product)
+    const int hc0 = hbase + c * HCF;
+#pragma unroll
+    for (int n = 0; n < NH; ++n) {
+      const int col = 8 * (NH * wq + n) + 2 * t;
+      const float b0 = a.b1[hc0 + col], b1 = a.b1[hc0 + col + 1];
+      float* hr = Hs + (16 * wm + g) * SH + col;
+      *reinterpret_cast<float2*>(hr) = make_float2(gelu(hd[n][0] + b0, a.act),
+                                                   gelu(hd[n][1] + b1, a.act));
+      *reinterpret_cast<float2*>(hr + 8 * SH) = make_float2(gelu(hd[n][2] + b0, a.act),
+                                                            gelu(hd[n][3] + b1, a.act));
+    }
+    // out[:, cols] += GELU(h) w2[cols, chunk]^T: tile i2 holds hidden
+    // columns FK2 i2 + [0, 16), one flush of two k-steps; k-step u takes
+    // FK2 i2 + 8 u + 2t, + 1
+    for (int i2 = 0; i2 < HCF / FK2; ++i2, ++q) {
+      if (q + 1 < total) issue(q + 1);
+      else cp_commit();
+      cp_wait<1>();
+      __syncthreads();  // tile q has landed and Hs is written
+      const float* wt = Wt + (q & 1) * stage + (8 * NT * wq + g) * FLD2 + 2 * t;
+      uint32_t ah[FLUSH][4], al[FLUSH][4];
+#pragma unroll
+      for (int u = 0; u < FLUSH; ++u) {
+        const float2 x0 = *reinterpret_cast<const float2*>(ha + FK2 * i2 + 8 * u);
+        const float2 x1 = *reinterpret_cast<const float2*>(ha + 8 * SH + FK2 * i2 + 8 * u);
+        split(x0.x, ah[u][0], al[u][0]);
+        split(x1.x, ah[u][1], al[u][1]);
+        split(x0.y, ah[u][2], al[u][2]);
+        split(x1.y, ah[u][3], al[u][3]);
+      }
+#pragma unroll
+      for (int n0b = 0; n0b < NT; n0b += NB) {
+        float ot[NB][4];
+#pragma unroll
+        for (int u = 0; u < FLUSH; ++u) {
+          float kb[NB][2];
+#pragma unroll
+          for (int n = 0; n < NB; ++n) {
+            const float2 y = *reinterpret_cast<const float2*>(wt + 8 * (n0b + n) * FLD2 + 8 * u);
+            kb[n][0] = y.x;
+            kb[n][1] = y.y;
+          }
+          if (u == 0)
+            mma3<NB, true>(ot, ah[u], al[u], kb);
+          else
+            mma3<NB, false>(ot, ah[u], al[u], kb);
+        }
+        flush<NB>(od + n0b, ot);
+      }
+      __syncthreads();  // every warp is done with buffer q % 2 (and, last, with Hs)
+    }
+  }
+
+  // out = y + (sum + b2), or this hidden split's f32 partial sum; rows
+  // 16 wm + g and + 8, columns n0 + 8 NT wq + 8 n + 2t, + 1
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int row = row0 + 16 * wm + g + 8 * hf;
+    if (row >= a.R) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = n0 + 8 * NT * wq + 8 * n + 2 * t;
+      const size_t off = (size_t)row * C + col;
+      float2 o = make_float2(od[n][2 * hf], od[n][2 * hf + 1]);
+      if (a.ws != nullptr) {
+        *reinterpret_cast<float2*>(a.ws + (size_t)blockIdx.z * a.R * C + off) = o;
+      } else {
+        const float2 u = *reinterpret_cast<const float2*>(a.skip + off);
+        const float2 v = *reinterpret_cast<const float2*>(a.attn + off);
+        o.x = (u.x + v.x) + (o.x + a.b2[col]);
+        o.y = (u.y + v.y) + (o.y + a.b2[col + 1]);
+        *reinterpret_cast<float2*>(a.out + off) = o;
       }
     }
   }
-  // out = y + (h w2^T + b2), as the plain version adds
-#pragma unroll
-  for (int m = 0; m < MAXCOL; ++m) {
-    const int col = tid + NT * m;
-    if (col >= C) continue;
-#pragma unroll
-    for (int r = 0; r < BRF; ++r) {
-      const long long row = row0 + r;
-      if (row < R) {
-        const long long off = row * C + col;
-        out[off] = (skip[off] + attn[off]) + (acc[r][m] + b2[col]);
-      }
+}
+
+// out = y + (sum of the splits' partial sums, in split order, + b2)
+__global__ void tail_f32_reduce_kernel(const TailF32Args a, int splits) {
+  const size_t n = (size_t)a.R * a.C / 2, plane = (size_t)a.R * a.C;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const size_t off = 2 * i;
+    const int col = (int)(off % a.C);
+    float o0 = 0.f, o1 = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      const float2 p = *reinterpret_cast<const float2*>(a.ws + s * plane + off);
+      o0 += p.x;
+      o1 += p.y;
     }
+    const float2 u = *reinterpret_cast<const float2*>(a.skip + off);
+    const float2 v = *reinterpret_cast<const float2*>(a.attn + off);
+    *reinterpret_cast<float2*>(a.out + off) =
+        make_float2((u.x + v.x) + (o0 + a.b2[col]), (u.y + v.y) + (o1 + a.b2[col + 1]));
   }
+}
+
+template <int NT, int HCF>
+int launch_tail_f32(const TailF32Args& a, dim3 grid, int smem, cudaStream_t s) {
+  static int smem_set = 0;  // the attribute only grows; set it once per size
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(block_tail_f32_kernel<NT, HCF>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = smem;
+  }
+  block_tail_f32_kernel<NT, HCF><<<grid, FTH, smem, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// hidden chunks of 64 for every NT; of 128 for the decoder's wide tails
+// (NT 6 and 12: C = 192, 384, 768). Mirrored by `tail_f32_plan`.
+__host__ __device__ inline bool f32_wide_chunks(int nt) { return nt == 6 || nt == 12; }
+
+int launch_tail_f32_nt(int nt, int hc, const TailF32Args& a, dim3 grid, int smem,
+                       cudaStream_t s) {
+  if (hc == 128) {
+    switch (nt) {
+      case 6: return launch_tail_f32<6, 128>(a, grid, smem, s);
+      case 12: return launch_tail_f32<12, 128>(a, grid, smem, s);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  switch (nt) {
+    case 1: return launch_tail_f32<1, 64>(a, grid, smem, s);
+    case 2: return launch_tail_f32<2, 64>(a, grid, smem, s);
+    case 3: return launch_tail_f32<3, 64>(a, grid, smem, s);
+    case 4: return launch_tail_f32<4, 64>(a, grid, smem, s);
+    case 5: return launch_tail_f32<5, 64>(a, grid, smem, s);
+    case 6: return launch_tail_f32<6, 64>(a, grid, smem, s);
+    case 7: return launch_tail_f32<7, 64>(a, grid, smem, s);
+    case 8: return launch_tail_f32<8, 64>(a, grid, smem, s);
+    case 9: return launch_tail_f32<9, 64>(a, grid, smem, s);
+    case 10: return launch_tail_f32<10, 64>(a, grid, smem, s);
+    case 11: return launch_tail_f32<11, 64>(a, grid, smem, s);
+    case 12: return launch_tail_f32<12, 64>(a, grid, smem, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -568,20 +769,47 @@ extern "C" int dsal_block_tail(const void* skip, const void* attn, const float* 
   return (int)cudaGetLastError();
 }
 
-// the f32 instance: every tensor f32, the same shapes and conditions
+// the f32 instance: skip, attn, out (R, C), w1 (Hd, C), w2 (C, Hd) and the
+// vectors f32; ws (k_splits, R, C) f32 when k_splits > 1, else null. nt,
+// col_splits, hc (hidden units per chunk) and k_splits from
+// `tail_f32_plan`; a plan that does not cover C and Hd exactly or does not
+// fit a CTA is refused.
 extern "C" int dsal_block_tail_f32(const void* skip, const void* attn, const float* ln_w,
                                    const float* ln_b, const void* w1, const float* b1,
-                                   const void* w2, const float* b2, void* out, int R, int C,
-                                   int Hd, float eps, int act, void* stream) {
-  if (C % 32 != 0 || C > MAXC || Hd % HC != 0) return (int)cudaErrorInvalidValue;
-  const size_t bytes = smem_f32(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      block_tail_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((R + BRF - 1) / BRF);
-  block_tail_f32_kernel<<<blocks, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(skip), static_cast<const float*>(attn), ln_w, ln_b,
-      static_cast<const float*>(w1), b1, static_cast<const float*>(w2), b2,
-      static_cast<float*>(out), R, C, Hd, eps, act);
+                                   const void* w2, const float* b2, void* out, void* ws, int R,
+                                   int C, int Hd, float eps, int act, int nt, int col_splits,
+                                   int hc, int k_splits, void* stream) {
+  if (R < 1 || C < 32 || C % 32 != 0 || C > MAXC || (hc != 64 && hc != 128) || Hd < hc ||
+      Hd % hc != 0 || (hc == 128 && !f32_wide_chunks(nt)))
+    return (int)cudaErrorInvalidValue;
+  const int nchunks = Hd / hc;
+  if (nt < 1 || nt > F_MAX_NT || nt * 32 * col_splits != C || k_splits < 1 ||
+      k_splits > F_MAX_KSPLIT || nchunks % k_splits != 0 || (k_splits > 1) != (ws != nullptr) ||
+      tail_f32_smem(C, 32 * nt, hc) > SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
+  TailF32Args a;
+  a.skip = static_cast<const float*>(skip);
+  a.attn = static_cast<const float*>(attn);
+  a.ln_w = ln_w;
+  a.ln_b = ln_b;
+  a.w1 = static_cast<const float*>(w1);
+  a.b1 = b1;
+  a.w2 = static_cast<const float*>(w2);
+  a.b2 = b2;
+  a.out = static_cast<float*>(out);
+  a.ws = static_cast<float*>(ws);
+  a.R = R;
+  a.C = C;
+  a.Hd = Hd;
+  a.chunks = nchunks / k_splits;
+  a.eps = eps;
+  a.act = act;
+  const dim3 grid((R + FR - 1) / FR, col_splits, k_splits);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = launch_tail_f32_nt(nt, hc, a, grid, tail_f32_smem(C, 32 * nt, hc), s);
+  if (err != 0 || k_splits == 1) return err;
+  const size_t pairs = (size_t)R * C / 2;
+  const unsigned blocks = (unsigned)((pairs + 255) / 256 < 132 * 8 ? (pairs + 255) / 256 : 132 * 8);
+  tail_f32_reduce_kernel<<<blocks, 256, 0, s>>>(a, k_splits);
   return (int)cudaGetLastError();
 }

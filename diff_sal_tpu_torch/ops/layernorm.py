@@ -27,14 +27,18 @@ K6 replaces the TPU kernel `diff_sal_tpu/ops/layernorm.py:283 _ln_bwd`
 (body `_ln_bwd_kernel` :233): dx with the row statistics recomputed, and
 the f32 sums d_weight = sum_rows g * y and d_bias = sum_rows g. It is
 bound by bytes too (read x and g, write dx). The kernel
-(`csrc/layernorm_bwd.cu`) keeps K2's warp-per-row shape: the row of x and
-of g stay in registers, dx is written once, and each warp keeps running
-per-channel sums of g * y and g in registers over the rows it visits. A
-CTA adds its warps' sums in shared memory and writes one (C,) partial row;
-a second small kernel adds the partial rows in a fixed order. No atomics,
-so the parameter gradients do not depend on scheduling. CUDA rather than
-Triton, to keep the route of the other kernels (nvcc -> shared library ->
-ctypes, built in seconds).
+(`csrc/layernorm_bwd.cu`) is K2's design with two inputs: persistent CTAs
+bulk-copy tiles of x and g into one ring, lane groups read 16-byte
+vectors, dx leaves as 16-byte stores, and each lane keeps w and its
+running per-channel sums of g * y and g in registers. A CTA adds its
+lanes' sums (shuffles, then shared memory) into one (2C,) partial row,
+and a small second kernel adds the CTAs' rows in a fixed order, the CTA
+axis spread over eight warps per 32 columns. No atomics, so the parameter
+gradients do not depend on scheduling. `ln_bwd_plan` chooses tile rows,
+stages and grid on the host; the C entry refuses a plan that does not
+match its input, and takes a warp-per-row kernel exactly where the bulk
+copy cannot. CUDA rather than Triton, to keep the route of the other
+kernels (nvcc -> shared library -> ctypes, built in seconds).
 
 `layer_norm` is differentiable: on either device it is an autograd
 Function whose forward is K2 (plain on the CPU) and whose backward is K6
@@ -58,13 +62,11 @@ KERNEL = K.Kernel(
 )
 BWD_KERNEL = K.Kernel(
     "layer_norm_bwd", "layernorm_bwd.cu", "dsal_layernorm_bwd",
-    [K.P] * 7 + [K.I] * 4 + [K.F, K.I, K.P],
+    [K.P] * 6 + [K.I] * 3 + [K.F] + [K.I] * 4 + [K.P],
     replaces="diff_sal_tpu/ops/layernorm.py:283 _ln_bwd (_ln_bwd_kernel :233)",
 )
 
 MAX_C = 1024
-BWD_ROWS_PER_CTA = 8    # one warp per row
-BWD_MAX_CTAS = 132 * 4  # grid of K6's row pass (four CTAs per SM)
 
 # K2's geometry, as csrc/layernorm.cu has it
 NUM_SMS = 132
@@ -77,6 +79,11 @@ LN_CTAS_PER_SM = 2      # the kernel's launch bound
 LN_TILE_BYTES = 16_384  # the tile size aimed at
 LN_ROWS_PER_CTA = 8     # the row kernel: one warp per row
 CARD_DTYPES = (torch.bfloat16, torch.float32)
+# K6's geometry, as csrc/layernorm_bwd.cu has it (threads, values per lane,
+# stages, two CTAs per SM and the row kernel's rows as K2's)
+BWD_TILE_BYTES = 8192   # the tile size aimed at, per input (x and g share a stage)
+BWD_WARPS = LN_THREADS // 32
+BWD_MAX_GRID = NUM_SMS * LN_CTAS_PER_SM
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -140,6 +147,66 @@ def ln_plan(R: int, C: int, dtype: torch.dtype, aligned: bool = True) -> LnPlan:
         raise ValueError(f"layer_norm: a tile of {tile_rows} rows of {row_bytes} bytes "
                          f"needs more than {SMEM_MAX} bytes of shared memory")
     return LnPlan(True, group, vpl, tile_rows, stages, smem, tiles, grid)
+
+
+@dataclasses.dataclass(frozen=True)
+class LnBwdPlan:
+    """Geometry of one K6 launch (`csrc/layernorm_bwd.cu`): K2's fields
+    (`LnPlan`; `smem` also holds the warps' sums). The row kernel (not
+    `bulk`) runs `grid` CTAs of LN_ROWS_PER_CTA warps, a warp per row,
+    striding over the rows. With grid > 1 the CTAs' (grid, 2C) partial
+    rows go to the reduction kernel."""
+
+    bulk: bool
+    group: int
+    vpl: int
+    tile_rows: int
+    stages: int
+    smem: int
+    tiles: int
+    grid: int
+
+
+def bwd_red_bytes(C: int) -> int:
+    """The warps' sums, BWD_WARPS x 2C floats (`red_bytes` in the source)."""
+    return 4 * BWD_WARPS * 2 * C
+
+
+@functools.lru_cache(maxsize=None)  # the wrapper asks once per call, with few distinct shapes
+def ln_bwd_plan(R: int, C: int, dtype: torch.dtype, aligned: bool = True) -> LnBwdPlan:
+    """K6's launch for R rows of C channels of `dtype` (`aligned`: x, g and
+    dx all at multiples of 16 bytes). K2's rule (`ln_plan`) with two inputs
+    per stage and BWD_TILE_BYTES per input. Raises ValueError on what no
+    path of the kernel takes."""
+    if dtype not in CARD_DTYPES:
+        raise ValueError(f"layer_norm_bwd: dtype {dtype} (the kernel takes bf16 and f32)")
+    if not 1 <= C <= MAX_C or R < 1:
+        raise ValueError(f"layer_norm_bwd: needs 1 <= C <= {MAX_C} and R >= 1, got R={R}, "
+                         f"C={C}")
+    size = 2 if dtype == torch.bfloat16 else 4
+    row_bytes = C * size
+    if not aligned or row_bytes % 16:
+        grid = min(_cdiv(R, LN_ROWS_PER_CTA), BWD_MAX_GRID)
+        return LnBwdPlan(False, 32, 0, 0, 0, bwd_red_bytes(C), grid, grid)
+    nvec = row_bytes // 16
+    per_lane = LN_MAX_VALUES // (16 // size)
+    group = 1
+    while group * per_lane < nvec:
+        group *= 2
+    vpl = _cdiv(nvec, group)
+    step = LN_THREADS // group
+    cap = step * max(1, BWD_TILE_BYTES // (step * row_bytes))
+    tile_rows = min(cap, step * _cdiv(_cdiv(R, BWD_MAX_GRID), step))
+    tiles = _cdiv(R, tile_rows)
+    grid = min(tiles, BWD_MAX_GRID)
+    stage = 2 * tile_rows * row_bytes
+    room = (SM_SMEM // LN_CTAS_PER_SM - 1024) // (stage + 8)
+    stages = max(1, min(LN_MAX_STAGES, _cdiv(tiles, grid), room))
+    smem = max(stages * stage, bwd_red_bytes(C)) + 8 * stages
+    if smem > SMEM_MAX:
+        raise ValueError(f"layer_norm_bwd: a tile of {tile_rows} rows of {row_bytes} bytes "
+                         f"needs more than {SMEM_MAX} bytes of shared memory")
+    return LnBwdPlan(True, group, vpl, tile_rows, stages, smem, tiles, grid)
 
 
 def _padded(p: torch.Tensor, C: int) -> torch.Tensor:
@@ -231,11 +298,6 @@ def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-def bwd_ctas(R: int) -> int:
-    """CTAs of K6's row pass: one row per warp, at most BWD_MAX_CTAS."""
-    return max(1, min(-(-R // BWD_ROWS_PER_CTA), BWD_MAX_CTAS))
-
-
 def layer_norm_bwd(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor,
                    eps: float = 1e-6, real_dim: Optional[int] = None):
     """(dx, dweight, dbias) of `layer_norm`: kernel K6 on CUDA, the plain
@@ -244,22 +306,26 @@ def layer_norm_bwd(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor,
         return layer_norm_bwd_plain(x, g, weight, eps, real_dim)
     K.require_cuda(x, "layer_norm_bwd")
     R, C = _check_rows("layer_norm_bwd", x, real_dim)
-    if not (g.shape == x.shape and g.dtype == x.dtype and g.is_contiguous()):
-        raise ValueError("layer_norm_bwd: g must be contiguous, of x's shape and dtype")
+    if not (g.shape == x.shape and g.dtype == x.dtype and g.is_contiguous()
+            and g.device == x.device):
+        raise ValueError("layer_norm_bwd: g must be contiguous, of x's shape, dtype and device")
     n_param = weight.shape[0]
     w = _padded(weight, C).contiguous()
     dx = torch.empty_like(x)
-    ctas = bwd_ctas(R)
-    partial = torch.empty((2, ctas, C), dtype=torch.float32, device=x.device)
-    dwb = torch.empty((2, C), dtype=torch.float32, device=x.device)
     if R == 0:
         return dx, torch.zeros(n_param, device=x.device), torch.zeros(n_param, device=x.device)
+    plan = ln_bwd_plan(R, C, x.dtype, x.data_ptr() % 16 == 0 and g.data_ptr() % 16 == 0
+                       and dx.data_ptr() % 16 == 0)
+    dwb = torch.empty(2 * C, dtype=torch.float32, device=x.device)
+    part = (torch.empty((plan.grid, 2 * C), dtype=torch.float32, device=x.device)
+            if plan.grid > 1 else None)
     BWD_KERNEL.launch(
-        x.data_ptr(), g.data_ptr(), w.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-        dwb[0].data_ptr(), dwb[1].data_ptr(), R, C, real_dim or C, ctas, float(eps),
-        int(x.dtype == torch.bfloat16), K.stream(),
+        x.data_ptr(), g.data_ptr(), w.data_ptr(), dx.data_ptr(),
+        None if part is None else part.data_ptr(), dwb.data_ptr(), R, C, real_dim or C,
+        float(eps), int(x.dtype == torch.bfloat16), plan.tile_rows, plan.stages, plan.grid,
+        K.stream(),
     )
-    return dx, dwb[0, :n_param], dwb[1, :n_param]
+    return dx, dwb[:n_param], dwb[C:C + n_param]
 
 
 class _LayerNorm(torch.autograd.Function):

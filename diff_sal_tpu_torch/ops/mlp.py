@@ -28,12 +28,18 @@ chooses the geometry on the host, so the CPU tests reach it. The TPU kernel's
 four decoder widths (C = 96..768).
 
 An f32 model runs K3's f32 instance (`dsal_block_tail_f32` in the same
-source): the same tail with every product in f32 by FFMA on the CUDA
-cores, 16 rows per CTA, w1 and w2 staged through shared memory in slices
-(`f32_smem` gives its plan, within one CTA's shared memory for every
-width up to MAX_C). The JAX K3 takes f32 too, falling back to its
-reference where f32 weights exceed its VMEM budget; here one instance
-serves every width.
+source): the same flash-MLP with every product in split TF32 on the
+tensor cores (mma.sync m16n8k8, each operand a TF32 hi + lo pair, three
+TF32 products, f32 sums flushed every two k-steps), which keeps f32's
+accuracy at 2.5x FFMA's peak. A CTA of eight warps owns 32 rows: LN(y) in
+f32 in shared memory, per hidden chunk (64 or 128 units) h = LN(y)
+w1[chunk]^T, GELU into shared memory, out += GELU(h) w2[cols, chunk]^T
+with the f32 sums in registers; w1 and w2 tiles arrive by cp.async into a
+double buffer. At most 384 output columns per CTA (C = 768: two column
+splits), and hidden splits into an f32 workspace where the grid is small,
+as the bf16 plan does; `tail_f32_plan` gives the geometry. The JAX K3
+takes f32 too, falling back to its reference where f32 weights exceed its
+VMEM budget; here one instance serves every width.
 
 K3 has no backward, in the JAX package or here: the decoder takes it only
 at eval (JAX `sal_unet.py:387-391`, `fused_tail and not train`) and runs
@@ -59,12 +65,11 @@ KERNEL = K.Kernel(
 
 F32_KERNEL = K.Kernel(
     "block_tail_f32", "mlp.cu", "dsal_block_tail_f32",
-    [K.P] * 9 + [K.I] * 3 + [K.F, K.I, K.P], replaces=KERNEL.replaces,
+    [K.P] * 10 + [K.I] * 3 + [K.F, K.I] + [K.I] * 4 + [K.P], replaces=KERNEL.replaces,
 )
 
 ACT_MODES = ("tanh", "exact")
 MAX_C = 768
-F32_ROWS, F32_CHUNK = 16, 64  # rows per CTA and hidden units per chunk of the f32 instance
 SMEM_MAX = 232_448
 # the bf16 kernel's geometry, as csrc/mlp.cu has it
 NUM_SMS = 132
@@ -76,13 +81,22 @@ TAIL_MAX_NT = 4         # 64-column output tiles per CTA
 TAIL_MAX_STAGES = 8
 TAIL_MAX_KSPLIT = 8
 TAIL_STAGES = {1: 4, 2: 8}  # ring buffers by consumer warpgroups per CTA
+# the f32 instance's geometry, as csrc/mlp.cu has it
+F32_ROWS = 32           # rows per CTA (FR)
+F32_THREADS = 256       # eight warps (FTH)
+F32_LD1 = 32 + 8        # row stride (floats) of a w1 tile of 32 input columns (FLD1)
+F32_LD2 = 16 + 8        # and of a w2 tile of 16 hidden columns (FLD2)
+F32_MAX_NC = 384        # output columns per CTA
+F32_MAX_KSPLIT = 24
+F32_WIDE_NT = (6, 12)   # nt that take hidden chunks of 128 (`f32_wide_chunks`)
 
 
-def f32_smem(C: int) -> int:
-    """Shared memory of one f32-instance CTA (`smem_f32` in csrc/mlp.cu):
-    LN(y) and a w2 slice (16 x C floats each), the hidden chunk (16 x 64)
-    and a w1 slice (32 x 64)."""
-    return (2 * F32_ROWS * C + F32_ROWS * F32_CHUNK + 32 * F32_CHUNK) * 4
+def tail_f32_smem(C: int, nc: int, hc: int) -> int:
+    """Dynamic shared memory of one f32-instance CTA (`tail_f32_smem` in
+    csrc/mlp.cu): LN(y) (32 x (C + 8) floats), GELU(h) of a chunk (32 x
+    (hc + 8)) and two weight tiles of max(hc x 40, nc x 24) floats."""
+    return 4 * (F32_ROWS * (C + 8) + F32_ROWS * (hc + 8)
+                + 2 * max(hc * F32_LD1, nc * F32_LD2))
 
 
 def tail_smem(C: int, stages: int) -> int:
@@ -164,6 +178,68 @@ def tail_plan(R: int, C: int, Hd: int) -> TailPlan:
                     stages, tail_smem(C, stages), row_tiles, row_tiles * col_splits * k_splits)
 
 
+@dataclasses.dataclass(frozen=True)
+class TailF32Plan:
+    """Geometry of one f32 K3 launch: CTAs of 32 rows (`row_tiles` over R)
+    x `col_splits` column blocks of 32 `nt` output columns x `k_splits`
+    hidden splits of `chunks` chunks of `hc` units, `ctas` in all; `smem`
+    bytes. With k_splits > 1 the partial sums go to a (k_splits, R, C) f32
+    workspace."""
+
+    nt: int
+    col_splits: int
+    hc: int
+    k_splits: int
+    chunks: int
+    smem: int
+    row_tiles: int
+    ctas: int
+
+
+@functools.lru_cache(maxsize=None)  # the wrapper asks once per call, with few distinct shapes
+def tail_f32_plan(R: int, C: int, Hd: int) -> TailF32Plan:
+    """The f32 K3 geometry for R rows of width C and hidden Hd: the fewest
+    column splits that keep a CTA at most F32_MAX_NC columns; a hidden
+    split only where row tiles and column splits leave more than half of
+    the CTA slots idle (the split's partial sums cost a pass through device
+    memory), into the largest divisor of the chunk count (at most
+    F32_MAX_KSPLIT) that keeps the CTAs within the slots (two per SM where
+    shared memory lets two fit). The decoder's wide tails (nt 6 or 12)
+    take chunks of 128 (four n-tiles per warp in the first product, half
+    the chunk steps) where that still fills more than half of the slots.
+    Raises ValueError on what the kernel does not take."""
+    if C % 32 or not 32 <= C <= MAX_C:
+        raise ValueError(f"block_tail: needs C % 32 == 0 and 32 <= C <= {MAX_C}, got {C}")
+    if Hd % TAIL_CHUNK or Hd < TAIL_CHUNK:
+        raise ValueError(f"block_tail: needs Hd % {TAIL_CHUNK} == 0, got {Hd}")
+    if R < 1:
+        raise ValueError(f"block_tail: R = {R}")
+    col_splits = min(s for s in range(1, C // 32 + 1)
+                     if C % (32 * s) == 0 and C // s <= F32_MAX_NC)
+    nt = C // (32 * col_splits)
+    row_tiles = _cdiv(R, F32_ROWS)
+    base = row_tiles * col_splits
+
+    def slots(hc):
+        return NUM_SMS * max(1, min(2, SM_SMEM // (tail_f32_smem(C, 32 * nt, hc) + 1024)))
+
+    def k_split(hc):
+        return max(d for d in range(1, F32_MAX_KSPLIT + 1)
+                   if (Hd // hc) % d == 0 and base * d <= slots(hc))
+    wide = nt in F32_WIDE_NT and Hd % 128 == 0
+    if 2 * base > slots(TAIL_CHUNK):
+        hc, k_splits = (128 if wide else TAIL_CHUNK), 1
+    else:
+        hc, k_splits = TAIL_CHUNK, k_split(TAIL_CHUNK)
+        if wide and 2 * base * k_split(128) > slots(128):
+            hc, k_splits = 128, k_split(128)
+    smem = tail_f32_smem(C, 32 * nt, hc)
+    if smem > SMEM_MAX:
+        raise ValueError(f"block_tail: C = {C} needs {smem} bytes of shared memory")
+    return TailF32Plan(nt, col_splits, hc, k_splits, Hd // hc // k_splits, smem, row_tiles,
+                       base * k_splits)
+
+
 def gelu(h: torch.Tensor, mode: str) -> torch.Tensor:
     if mode == "tanh":
         return torch.nn.functional.gelu(h, approximate="tanh")
@@ -176,16 +252,18 @@ def block_tail_plain(skip, attn, ln_w, ln_b, w1, b1, w2, b2, eps=1e-6,
                      act_mode="tanh"):
     """K3's plain version, rounding as the TPU kernel does: y in f32,
     LN(y) rounded to the weight dtype for fc1, GELU in f32, rounded again
-    for fc2, f32 accumulation, one rounding of the output."""
+    for fc2, f32 accumulation, one rounding of the output (all in f64 for
+    f64 inputs: the reference the f32 instance is measured against)."""
     dt = w1.dtype
-    y = skip.float() + attn.float()
+    f = K.acc_dtype(skip.dtype)
+    y = skip.to(f) + attn.to(f)
     C = y.shape[-1]
     mean = y.sum(-1, keepdim=True) / C
     var = ((y * y).sum(-1, keepdim=True) / C - mean * mean).clamp_min(0.0)
-    xn = (y - mean) * torch.rsqrt(var + eps) * ln_w.float() + ln_b.float()
-    h = xn.to(dt).float() @ w1.float().t() + b1.float()
+    xn = (y - mean) * torch.rsqrt(var + eps) * ln_w.to(f) + ln_b.to(f)
+    h = xn.to(dt).to(f) @ w1.to(f).t() + b1.to(f)
     h = gelu(h, act_mode)
-    o = h.to(dt).float() @ w2.float().t() + b2.float()
+    o = h.to(dt).to(f) @ w2.to(f).t() + b2.to(f)
     return (y + o).to(skip.dtype)
 
 
@@ -227,13 +305,14 @@ def block_tail(skip: torch.Tensor, attn: torch.Tensor, ln_w: torch.Tensor,
     if R == 0:
         return out
     if dt == torch.float32:
-        if C % 32 or Hd % 64 or C > MAX_C:
-            raise ValueError(f"block_tail: needs C % 32 == 0, C <= {MAX_C}, Hd % 64 == 0 "
-                             f"(C={C}, Hd={Hd})")
+        fp = tail_f32_plan(R, C, Hd)
+        ws = (torch.empty((fp.k_splits, R, C), dtype=torch.float32, device=skip.device)
+              if fp.k_splits > 1 else None)
         F32_KERNEL.launch(
             skip.data_ptr(), attn.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
             w1.data_ptr(), vecs[2].data_ptr(), w2.data_ptr(), vecs[3].data_ptr(),
-            out.data_ptr(), R, C, Hd, float(eps), ACT_MODES.index(act_mode), K.stream(),
+            out.data_ptr(), None if ws is None else ws.data_ptr(), R, C, Hd, float(eps),
+            ACT_MODES.index(act_mode), fp.nt, fp.col_splits, fp.hc, fp.k_splits, K.stream(),
         )
         return out
     plan = tail_plan(R, C, Hd)

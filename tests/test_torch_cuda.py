@@ -319,6 +319,108 @@ def test_layer_norm_bwd_kernel_real_dim(card):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
 
 
+# K6 at the training paths' (rows, C): MViT's four stages at B = 4 with
+# the cls row, its cls rows alone, the decoder's first stage, the audio
+# branch, and ragged counts
+LN_BWD_PATH_SHAPES = [(172036, 96), (43009, 192), (10753, 384), (2689, 768), (1, 96),
+                      (2, 768), (4, 384), (18, 512), (1000, 512), (673, 768)]
+
+
+def _ln_bwd_inputs(g, R, C, dtype):
+    x = _randn(g, R, C, dtype=dtype, scale=2.0) + 1.0
+    go = _randn(g, R, C, dtype=dtype)
+    w = _randn(g, C, dtype=torch.float32) + 1
+    return x, go, w
+
+
+@pytest.mark.parametrize("R,C", LN_BWD_PATH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_bwd_kernel_path_shapes(card, R, C, dtype):
+    """K6 at every path shape: one launch (the bulk path, `ln_bwd_plan`,
+    and the reduction of the CTAs' partial rows), dx in the
+    working dtype's tolerance, the f32 parameter gradients within 1e-4 of
+    the plain version's (sums over up to 172036 rows in another order,
+    held as phase 6 holds them: 1e-5 of the sum of the terms' magnitudes
+    per channel, and 1e-4 relative)."""
+    g = torch.Generator().manual_seed(R + C)
+    x, go, w = _ln_bwd_inputs(g, R, C, dtype)
+    assert t_ln.ln_bwd_plan(R, C, dtype).bulk
+    before = t_ln.BWD_KERNEL.launches
+    dx, dw, db = t_ln.layer_norm_bwd(x, go, w, 1e-6)
+    assert t_ln.BWD_KERNEL.launches == before + 1
+    rx, rw, rb = t_ln.layer_norm_bwd_plain(x, go, w, 1e-6)
+    _check(dx, rx, dtype)
+    xf, gf = x.float(), go.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = ((xf * xf).mean(-1, keepdim=True) - mean * mean).clamp_min(0.0)
+    mags = ((gf * (xf - mean) * torch.rsqrt(var + 1e-6)).abs().sum(0), gf.abs().sum(0))
+    for a, b, mag in ((dw, rw, mags[0]), (db, rb, mags[1])):
+        assert a.shape == b.shape == (C,)
+        assert bool(((a - b).abs() <= 1e-5 * mag + 1e-4 * b.abs()).all()), float(
+            (a - b).abs().max())
+
+
+@pytest.mark.parametrize("R", [1, 2, 65, 1001, 20003])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_bwd_kernel_ragged_rows_and_real_dim(card, R, dtype):
+    """1-2 rows (one CTA, which writes d_weight and d_bias itself) and row
+    counts off the tiles, over a zero-padded axis (real_dim < C): the pad
+    lanes of dx get the mean coupling, the parameter gradients have
+    real_dim entries."""
+    g = torch.Generator().manual_seed(R + 7)
+    x = torch.nn.functional.pad(_randn(g, R, 96, dtype=dtype) + 1.0, (0, 32))
+    go = _randn(g, R, 128, dtype=dtype)
+    w = _randn(g, 96, dtype=torch.float32) + 1
+    dx, dw, db = t_ln.layer_norm_bwd(x, go, w, 1e-6, real_dim=96)
+    rx, rw, rb = t_ln.layer_norm_bwd_plain(x, go, w, 1e-6, real_dim=96)
+    _check(dx, rx, dtype)
+    assert dw.shape == db.shape == (96,)
+    torch.testing.assert_close(dw, rw, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(db, rb, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_bwd_kernel_takes_unaligned_rows_in_its_row_kernel(card, dtype):
+    """x or g one element into its storage, or rows that are not whole
+    16-byte vectors: the same entry runs its row kernel (the same partial
+    rows and reduction), one K6 launch, never the plain version."""
+    g = torch.Generator().manual_seed(6)
+    R, C = 5000, 96
+    x, go, w = _ln_bwd_inputs(g, R, C, dtype)
+
+    def shifted(t):  # the same values one element into a larger storage
+        s = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+        return s.copy_(t)
+    cases = [(shifted(x), go, w), (x, shifted(go), w),
+             _ln_bwd_inputs(g, 3000, 100 if dtype == torch.bfloat16 else 98, dtype)]
+    for xx, gg, ww in cases:
+        RR, CC = xx.shape
+        aligned = xx.data_ptr() % 16 == 0 and gg.data_ptr() % 16 == 0
+        assert xx.is_contiguous() and gg.is_contiguous()
+        assert not t_ln.ln_bwd_plan(RR, CC, dtype, aligned).bulk
+        before = t_ln.BWD_KERNEL.launches
+        dx, dw, db = t_ln.layer_norm_bwd(xx, gg, ww, 1e-6)
+        assert t_ln.BWD_KERNEL.launches == before + 1
+        rx, rw, rb = t_ln.layer_norm_bwd_plain(xx, gg, ww, 1e-6)
+        _check(dx, rx, dtype)
+        torch.testing.assert_close(dw, rw, atol=1e-3, rtol=1e-4)
+        torch.testing.assert_close(db, rb, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("R,C", [(172036, 96), (2689, 768), (1000, 512), (3, 384)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_bwd_kernel_is_deterministic(card, R, C, dtype):
+    """Three launches give the same bits, dx and the parameter gradients:
+    the CTAs' partial rows are added in a fixed order, no atomics."""
+    g = torch.Generator().manual_seed(R - C)
+    x, go, w = _ln_bwd_inputs(g, R, C, dtype)
+    outs = [t_ln.layer_norm_bwd(x, go, w, 1e-6) for _ in range(3)]
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+
+
 def test_kernel_wrappers_record_a_backward_or_raise(card):
     """On CUDA tensors that require grad, K1, K2 and K4 return a result
     with a grad_fn whose backward runs K5, K6 and the plain resize
@@ -891,6 +993,77 @@ def test_block_tail_f32_kernel(card, C, R):
     out = t_mlp.block_tail(*args)
     assert t_mlp.F32_KERNEL.launches == before + 1
     _check(out, t_mlp.block_tail_plain(*args), f)
+
+
+def _tail_f32_args(g, R, C, act):
+    f = torch.float32
+    Hd = 2 * C
+    skip, attn = _randn(g, R, C, dtype=f), _randn(g, R, C, dtype=f)
+    lw, lb = _randn(g, C, dtype=f) + 1, _randn(g, C, dtype=f, scale=0.1)
+    w1, b1 = _randn(g, Hd, C, dtype=f, scale=C ** -0.5), _randn(g, Hd, dtype=f, scale=0.1)
+    w2, b2 = _randn(g, C, Hd, dtype=f, scale=Hd ** -0.5), _randn(g, C, dtype=f, scale=0.1)
+    return (skip, attn, lw, lb, w1, b1, w2, b2, 1e-6, act)
+
+
+# the decoder's four calls at full width, B = 2 (a DDIM run's rows), and
+# phase 10's small model's rows
+TAIL_F32_SHAPES = [(768, 840), (384, 3360), (192, 13440), (96, 53760), (768, 30), (384, 120),
+                   (192, 480), (96, 1920)]
+
+
+@pytest.mark.parametrize("C,R", TAIL_F32_SHAPES)
+@pytest.mark.parametrize("act", ["tanh", "exact"])
+def test_block_tail_f32_kernel_decoder_shapes(card, C, R, act):
+    """K3's f32 instance (split TF32) at the decoder's four calls at full
+    width and at phase 10's rows, both GELUs: one launch (with its split
+    reduction where the plan splits the hidden axis), within 1e-5 of the
+    plain version in f32, and no further from the plain version in f64
+    than max(1e-5, twice the f32 plain version's own distance)."""
+    g = torch.Generator().manual_seed(5 * C + R)
+    args = _tail_f32_args(g, R, C, act)
+    before = t_mlp.F32_KERNEL.launches
+    out = t_mlp.block_tail(*args)
+    assert t_mlp.F32_KERNEL.launches == before + 1
+    plain = t_mlp.block_tail_plain(*args)
+    _check(out, plain, torch.float32)
+    ref = t_mlp.block_tail_plain(*(a.double() if isinstance(a, torch.Tensor) else a
+                                   for a in args))
+    own = float((plain.double() - ref).abs().max())
+    assert float((out.double() - ref).abs().max()) <= max(1e-5, 2 * own)
+
+
+def test_block_tail_f32_shapes_take_every_plan(card):
+    """The shapes above launch one and two column splits, hidden chunks of
+    64 and 128, with and without the hidden split."""
+    plans = [t_mlp.tail_f32_plan(R, C, 2 * C) for C, R in TAIL_F32_SHAPES]
+    assert {p.col_splits for p in plans} == {1, 2}
+    assert {p.hc for p in plans} == {64, 128}
+    assert {p.k_splits > 1 for p in plans} == {False, True}
+
+
+@pytest.mark.parametrize("C,R", [(768, 840), (768, 30), (96, 53760)])
+def test_block_tail_f32_kernel_is_deterministic(card, C, R):
+    """Two launches give the same bits (the hidden splits' partial sums in a
+    fixed order)."""
+    g = torch.Generator().manual_seed(C + 2 * R)
+    args = _tail_f32_args(g, R, C, "exact")
+    a = t_mlp.block_tail(*args)
+    b = t_mlp.block_tail(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_block_tail_f32_refuses_grad(card):
+    """K3 (both instances) is eval-only: with grad on and an input that
+    requires grad it raises instead of returning a result with no
+    gradient."""
+    g = torch.Generator().manual_seed(9)
+    args = list(_tail_f32_args(g, 64, 96, "tanh"))
+    args[4] = args[4].clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="eval-only"):
+        t_mlp.block_tail(*args)
+    with torch.no_grad():
+        t_mlp.block_tail(*args)
 
 
 @pytest.mark.parametrize("L,S,C,heads", [(84, 18, 768, 2), (5376, 18, 96, 2), (77, 128, 96, 3),

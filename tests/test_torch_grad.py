@@ -167,8 +167,11 @@ def test_layer_norm_autograd_gradcheck(real_dim):
 
 
 def test_layer_norm_bwd_ctas():
-    assert t_ln.bwd_ctas(1) == 1 and t_ln.bwd_ctas(17) == 3
-    assert t_ln.bwd_ctas(10 ** 6) == t_ln.BWD_MAX_CTAS
+    """K6's persistent CTAs: one for a few rows, one per tile up to two per
+    SM (tests/test_torch_ln_bwd_plan.py checks the plan in full)."""
+    assert t_ln.ln_bwd_plan(1, 96, torch.bfloat16).grid == 1
+    assert t_ln.ln_bwd_plan(17 * 64, 96, torch.bfloat16).grid == 17
+    assert t_ln.ln_bwd_plan(10 ** 6, 96, torch.bfloat16).grid == t_ln.BWD_MAX_GRID
 
 
 # ---------------------------------------------------------------- K4 ------

@@ -17,30 +17,35 @@ of the JAX step through an optax stage that stores them in the optimizer
 state.
 
 Tolerances. The loss: rtol 1e-5 (same f32 function, other summation
-order). The gradients cannot agree to 1e-4 here: at random weights the
-step is ill-conditioned, and f32 rounding alone moves each leaf's
-gradient by ~1e-3. The fixture shows it: it runs the port's step once
-more in f64 (every op in f64, the schedule's f32 coefficients shared),
-and the leaf test (`assert_gradient_leaves_match`) holds each
-implementation to its own f32 rounding, measured against that f64 step:
-the port's f32 gradients and JAX's, each within 5e-3 relative L2 and
-3e-2 max|d| / max|g| on every leaf, and the two within four times the
-larger of those two gaps (two f32 errors, each up to twice the larger
-side's own). It prints, per leaf, relative L2 median (worst) and
-max|d| / max|g| worst: port f32 vs port f64 1.8e-4 (5.6e-4), 1.0e-3; JAX
-f32 vs port f64 9.2e-4 (2.2e-3), 1.3e-2; port f32 vs JAX f32 8.8e-4
-(2.1e-3), 1.3e-2. JAX's f32 gradients sit ~5x further from the f64 step
-than the port's: its gap opens in the backward of the decoder's
-batch-statistics BatchNorms (their sums over the batch's positions, in
-XLA:CPU's f32 reduction order, which depends on the host), and the bound
-on port vs JAX used to rest on the port's gap alone (four times 5.6e-4
-and 1.0e-3), so it failed on some hosts. That the port's f64 step is
-JAX's function is checked in f64 by tests/test_torch_visual_only.py on
-its smaller model; this model's f64 JAX step takes far longer and more
-memory than the suite can give it. A wrong term shows as an error of
-order 1 in some leaf. A leaf whose gradient is zero up to rounding (the
-key-side biases, which a softmax ignores, and the bias before a
-batch-statistics BatchNorm) is held to 1e-6 of the largest gradient.
+order). The gradients cannot agree to 1e-6 here: at random weights f32
+rounding moves each leaf's gradient by ~1e-5. The fixture shows it: it
+runs the port's step once more in f64 (every op in f64, the schedule's f32
+coefficients shared), first, and the other steps take that step's ReLU
+branches (`ReluBranches`: a few of the decoder's ReLU inputs lie within
+f32 rounding of zero, where the gradient jumps, and one element on the
+other side moves every leaf by ~1e-3). The leaf test
+(`assert_gradient_leaves_match`) holds each implementation to its own f32
+rounding, measured against that f64 step: the port's f32 gradients and
+JAX's, each within 5e-3 relative L2 and 3e-2 max|d| / max|g| on every
+leaf, and the two within four times the larger of those two gaps (two
+f32 errors, each up to twice the larger side's own). It prints, per leaf,
+relative L2 median (worst) and max|d| / max|g| worst: port f32 vs port
+f64 4.0e-6 (1.1e-5), 3.3e-5; JAX f32 vs port f64 8.5e-6 (1.1e-3), 1.3e-2;
+port f32 vs JAX f32 1.1e-5 (1.1e-3), 1.3e-2 (full frames: 1.1e-5
+(2.7e-5), 3.4e-5; 1.1e-5 (7.9e-4), 9.9e-3; 2.1e-5 (7.9e-4), 9.9e-3).
+JAX's worst leaf is `visual_net.blocks.8.proj.weight`; every other leaf of
+JAX's sits within ~3e-5 of the f64 step. Without the pinned branches the
+same runs read ~1e-3 median on every pair, and which pairs crossed 5e-3
+depended on the CPU (the summation order of its f32 convolutions decides
+which side of zero those inputs land on): that was fault F4 (ROADMAP.md),
+and it was also most of F2, JAX's f32 gap that an earlier bound blamed on
+XLA:CPU's BatchNorm sums. That the port's f64 step is JAX's function is
+checked in f64 by tests/test_torch_visual_only.py on its smaller model;
+this model's f64 JAX step takes far longer and more memory than the suite
+can give it. A wrong term shows as an error of order 1 in some leaf. A
+leaf whose gradient is zero up to rounding (the key-side biases, which a
+softmax ignores, and the bias before a batch-statistics BatchNorm) is
+held to 1e-6 of the largest gradient.
 The global gradient norm: rtol 1e-4. The BatchNorm running statistics:
 1e-5 * max|stat| + 1e-6. The parameters after Adam's first step: each
 element moves by lr * g / (|g| + eps) of its clipped gradient g, so where
@@ -62,8 +67,10 @@ the two. The loss: the two bf16 losses and the f64 one within 1e-2
 relative.
 """
 
+import contextlib
 import dataclasses
 
+import flax.linen as flax_nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -124,7 +131,8 @@ def run_both(sdf_train: bool, compute_dtype: str = "float32"):
     draws, and the port's step once more in f64: (JAX metrics, gradients
     and state after, as port state-dict entries; the port's model after
     its step; its metrics; its state before; the f64 step's loss and
-    gradients)."""
+    gradients). In f32 the f64 step runs first and the other two take its
+    ReLU branches (`ReluBranches`)."""
     cfg = experiment(sdf_train, compute_dtype)
     jmodel, variables = full_model_variables(cfg.model, seed=31)
     rng = np.random.RandomState(32)
@@ -133,15 +141,18 @@ def run_both(sdf_train: bool, compute_dtype: str = "float32"):
              "audio": rng.randn(B, 9, HW[0] // 2, HW[1] // 2, 1).astype(np.float32)}
     key = jax.random.PRNGKey(33)
     sched = j_make_schedule()
-    tx = optax.chain(_stash_grads(), j_make_optimizer(cfg.optim, steps_per_epoch=4, n_epochs=2))
-    state = create_train_state(jmodel, variables, tx)
-    new_state, metrics = jax.jit(j_make_train_step(jmodel, sched, cfg))(
-        state, jax.tree.map(jnp.asarray, batch), key)
-    # the draws JAX made inside the step (train_step.py:85-96)
+    # the draws JAX makes inside the step (train_step.py:85-96)
     k_deq, k_t, k_noise, _ = jax.random.split(key, 4)
     shape = (B, *HW, 1)
     draws = {"deq": jax.random.normal(k_deq, shape), "noise": jax.random.normal(k_noise, shape),
              "t": jax.random.randint(k_t, (), 0, sched.num_timesteps)}
+    branches = ReluBranches() if compute_dtype == "float32" else None
+    ref64 = port_f64_step(cfg, variables, batch, draws, branches)
+    tx = optax.chain(_stash_grads(), j_make_optimizer(cfg.optim, steps_per_epoch=4, n_epochs=2))
+    state = create_train_state(jmodel, variables, tx)
+    with ReluBranches.pinned_jax(branches):
+        new_state, metrics = jax.jit(j_make_train_step(jmodel, sched, cfg))(
+            state, jax.tree.map(jnp.asarray, batch), key)
     jax_out = {
         "metrics": {k: float(v) for k, v in metrics.items()},
         "grads": bridge.state_dict_from_flax(
@@ -151,38 +162,140 @@ def run_both(sdf_train: bool, compute_dtype: str = "float32"):
              "batch_stats": jax.device_get(new_state.batch_stats)},
             cfg.model.visual.num_layers),
     }
+    return jax_out, *port_f32_step(cfg, variables, batch, draws, branches), ref64
 
-    # one torch thread: the test workers share the CPU, and several
-    # processes of spinning OpenMP threads made these steps 20-70x slower
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """The test workers share the CPU, and several processes of spinning
+    OpenMP threads made the port's steps 20-70x slower."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        return jax_out, *port_steps(cfg, variables, batch, draws)
+        yield
     finally:
         torch.set_num_threads(threads)
 
 
-def port_steps(cfg, variables, batch, draws):
-    """The port's step and its f64 rerun from the same weights, batch and
-    draws: (model after the step, metrics, state before, f64 loss and
-    gradients)."""
+class ReluBranches:
+    """The ReLU branches of the port's f64 step, taken by every other step
+    of a parity test.
+
+    The decoder's ReLUs (UpEmbed, ReduceTemp, the final conv-BN-ReLU; the
+    frozen VGGish's are recorded too, and no gradient crosses them) see
+    some ten thousand pre-activations per step, and at these random weights
+    a few of them lie within f32 rounding of zero (1-3 per ReLU; the
+    smallest at 3.4e-9 of its tensor's largest, visual-only model). There
+    the gradient is discontinuous: which side of zero an element lands on
+    is decided by rounding, by the summation order of each implementation's
+    f32 convolutions (which differs between CPUs) or by JAX's f32 islands in
+    its f64 step. One element on the other side changes its gradient from g
+    to 0, and the batch-statistics BatchNorm above it spreads that change
+    over its whole channel and every leaf behind it: 1e-3 relative L2 on
+    every leaf, from a single flipped element (measured: port f32 against
+    port f64, visual-only model, median 1.4e-3 with three flips, 4.9e-6
+    with the f64 branches taken). So the f64 step records the sign of
+    every ReLU input, and the port's f32 step and JAX's steps (f32, and f64
+    in `jax_step_grads_f64`) compute relu(x) as where(f64 sign, x, 0): the
+    same function on every side, the ReLU's value changed only where the
+    two signs differ, by at most that element's |x|. Elsewhere it is
+    relu(x) exactly. The port's side checks that the signs differ only
+    within `BAND` of the tensor's largest |x|, and each step must take the
+    recorded ReLUs exactly, in order per shape."""
+
+    BAND = 1e-4  # f32 forward values sit within ~1e-6 of f64 here
+
+    def __init__(self):
+        self.masks = []  # (shape, sign of the f64 input) in call order
+        self.flips = []  # per pinned port step: elements whose sign differed
+
+    def _queues(self):
+        queues = {}
+        for shape, m in self.masks:
+            queues.setdefault(shape, []).append(m)
+        return queues
+
+    @contextlib.contextmanager
+    def recording(self):
+        relu = torch.relu
+
+        def record(x):
+            self.masks.append((tuple(x.shape), (x > 0).detach().numpy()))
+            return relu(x)
+        torch.relu = record
+        try:
+            yield
+        finally:
+            torch.relu = relu
+
+    @contextlib.contextmanager
+    def pinned_torch(self):
+        queues, relu, flips = self._queues(), torch.relu, [0]
+
+        def pinned(x):
+            m = torch.from_numpy(queues[tuple(x.shape)].pop(0))
+            off = m != (x > 0)
+            if bool(off.any()):
+                top = float(x.detach().abs().max())
+                assert float(x.detach()[off].abs().max()) <= self.BAND * top, tuple(x.shape)
+                flips[0] += int(off.sum())
+            return torch.where(m, x, torch.zeros((), dtype=x.dtype))
+        torch.relu = pinned
+        try:
+            yield
+        finally:
+            torch.relu = relu
+        assert not any(queues.values()), "a recorded ReLU was not taken"
+        self.flips.append(flips[0])
+
+    @staticmethod
+    @contextlib.contextmanager
+    def pinned_jax(branches):
+        """JAX's steps traced with the recorded branches (flax's `nn.relu`,
+        which the JAX package's modules call); a no-op without them."""
+        if branches is None:
+            yield
+            return
+        queues, relu = branches._queues(), flax_nn.relu
+
+        def pinned(x):
+            m = queues[tuple(x.shape)].pop(0)
+            return jnp.where(m, x, jnp.zeros((), x.dtype))
+        flax_nn.relu = pinned
+        try:
+            yield
+        finally:
+            flax_nn.relu = relu
+        assert not any(queues.values()), "a recorded ReLU was not taken"
+
+
+def port_f64_step(cfg, variables, batch, draws, branches=None):
+    """The port's step in f64 (every op in f64, the schedule's f32
+    coefficients shared), the reference for f32 rounding in the gradients:
+    its loss and gradients. With `branches` it records its ReLU branches."""
+    model64 = port_model(dataclasses.replace(cfg.model, compute_dtype="float32"),
+                         variables).double()
+    opt64 = make_optimizer(model64, pc.from_fields(cfg.optim), steps_per_epoch=4, n_epochs=2)
+    with one_torch_thread(), (branches.recording() if branches else contextlib.nullcontext()):
+        metrics64 = make_train_step(model64, make_schedule(), pc.from_fields(cfg))(
+            opt64, {k: torch.from_numpy(v).double() for k, v in batch.items()},
+            draws={k: torch.from_numpy(np.array(v)) for k, v in draws.items()})
+    return {"total": float(metrics64["total"]),
+            "grads": {n: p.grad for n, p in model64.named_parameters() if p.grad is not None}}
+
+
+def port_f32_step(cfg, variables, batch, draws, branches=None):
+    """The port's step from the same weights, batch and draws, with the
+    f64 step's ReLU branches where given: (model after the step, metrics,
+    state before)."""
     model = port_model(cfg.model, variables)
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
     opt = make_optimizer(model, pc.from_fields(cfg.optim), steps_per_epoch=4, n_epochs=2)
     step = make_train_step(model, make_schedule(), pc.from_fields(cfg))
-    port_metrics = step(opt, {k: torch.from_numpy(v) for k, v in batch.items()},
-                        draws={k: torch.from_numpy(np.asarray(v)) for k, v in draws.items()})
-
-    # the same step in f64: the reference for f32 rounding in the gradients
-    model64 = port_model(dataclasses.replace(cfg.model, compute_dtype="float32"),
-                         variables).double()
-    opt64 = make_optimizer(model64, pc.from_fields(cfg.optim), steps_per_epoch=4, n_epochs=2)
-    metrics64 = make_train_step(model64, make_schedule(), pc.from_fields(cfg))(
-        opt64, {k: torch.from_numpy(v).double() for k, v in batch.items()},
-        draws={k: torch.from_numpy(np.asarray(v)) for k, v in draws.items()})
-    ref64 = {"total": float(metrics64["total"]),
-             "grads": {n: p.grad for n, p in model64.named_parameters() if p.grad is not None}}
-    return model, port_metrics, before, ref64
+    with one_torch_thread(), (branches.pinned_torch() if branches else contextlib.nullcontext()):
+        port_metrics = step(opt, {k: torch.from_numpy(v) for k, v in batch.items()},
+                            draws={k: torch.from_numpy(np.array(v)) for k, v in draws.items()})
+    return model, port_metrics, before
 
 
 def test_loss_and_metrics_match_jax(steps):
@@ -199,7 +312,7 @@ def test_every_gradient_leaf_matches_jax(steps):
     assert_gradient_leaves_match(jax_out["grads"], model, ref64["grads"], min_leaves=400)
 
 
-def jax_step_grads_f64(cfg, variables, batch, key, t):
+def jax_step_grads_f64(cfg, variables, batch, key, t, branches=None):
     """JAX's gradient of its train-step loss in f64, as port state-dict
     entries: `jax.enable_x64`, the model at compute_dtype "float64", the
     variables and the batch in f64, and the loss function of
@@ -209,7 +322,8 @@ def jax_step_grads_f64(cfg, variables, batch, key, t):
     in (under x64 `randint` draws other bits). As in the port's f64 step the
     schedule's f32 coefficients are shared. The JAX model's explicit float32
     islands (the dequantised target, the timestep embedding, the logits
-    head, MViT's pooling) stay f32."""
+    head, MViT's pooling) stay f32. With `branches` its ReLUs take the
+    port's f64 branches (`ReluBranches`)."""
     from diff_sal_tpu.data.transforms import data_transform
     from diff_sal_tpu.diffusion.schedule import q_sample
     from diff_sal_tpu.models.diff_model import VideoSaliencyModel
@@ -241,7 +355,8 @@ def jax_step_grads_f64(cfg, variables, batch, key, t):
             return training_loss(cfg.loss, pred, x0.astype(jnp.float64))["total"]
 
         assert cfg.training.training_target == "x0"
-        grads = jax.jit(jax.grad(loss))(v64["params"], jax.tree.map(f64, batch))
+        with ReluBranches.pinned_jax(branches):
+            grads = jax.jit(jax.grad(loss))(v64["params"], jax.tree.map(f64, batch))
         return bridge.state_dict_from_flax({"params": jax.device_get(grads)},
                                            cfg.model.visual.num_layers)
 

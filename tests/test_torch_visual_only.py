@@ -19,19 +19,22 @@ in f64 (`jax_step_grads_f64`) against the port's f64 step. At 64x96 the
 CvT key pooling keeps one key, so the decoder attention's q and k leaves
 get a zero gradient, which the leaf check holds to 1e-6 of the largest;
 the AV step tests need 128x96 only for the audio branch, which this
-model lacks. They read, relative L2 per leaf, median (worst), max|d| /
-max|g| worst: port f32 vs port f64 4.3e-6 (5.6e-6), 7.3e-6; JAX f32 vs
-port f64 6.3e-5 (1.3e-4), 5.4e-4; port f32 vs JAX f32 6.4e-5 (1.3e-4),
-5.4e-4; port f64 vs JAX f64 1.2e-6 (1.7e-6), 2.9e-6. JAX's worst leaf is
-the bias of the decoder's last patch-embedding BatchNorm
-(`mid_stages.3.patch_embed.0.proj.5`, batch statistics), a sum of dy
-over the batch's positions: the backward of the batch-statistics
-BatchNorms is where JAX's f32 gap opens, and the leaves behind it in the
-backward carry it. The f64 check bounds the two f64 gradients by 1e-5
-relative L2 and 2e-5 max|d| / max|g| per leaf: six times what it reads
-(JAX's f32 islands: the target, the timestep embedding, the logits head,
-MViT's pooling), a tenth of JAX's f32 gap. JAX's f64 step takes minutes
-on a CPU. The port's steps run on one torch thread.
+model lacks. Every step takes the ReLU branches of the port's f64 step
+(`ReluBranches` in tests/test_torch_train_step.py; the port's f32 step
+differs from them at 4 ReLU inputs, each within f32 rounding of zero).
+They read, relative L2 per leaf, median (worst), max|d| / max|g| worst:
+port f32 vs port f64 6.4e-6 (8.2e-6), 9.8e-6; JAX f32 vs port f64 7.8e-6
+(1.0e-5), 1.6e-5; port f32 vs JAX f32 7.0e-6 (9.2e-6), 1.6e-5; port f64
+vs JAX f64 1.2e-6 (1.9e-6), 2.4e-6. The f64 check bounds the two f64
+gradients by 1e-5 relative L2 and 2e-5 max|d| / max|g| per leaf: five
+times what it reads (JAX's f32 islands: the target, the timestep
+embedding, the logits head, MViT's pooling). Without the shared branches
+the pair read 2.7e-3 (1.2e-2 peak) on one CPU: the islands' f32 rounding
+put decoder ReLU inputs that lie within f32 rounding of zero (the
+smallest at 3.4e-9 of its tensor's largest) on the other side, and the
+batch-statistics BatchNorms above them spread the jump over every leaf
+(ROADMAP.md, F4). JAX's f64 step
+takes minutes on a CPU. The port's steps run on one torch thread.
 """
 
 import dataclasses
@@ -57,8 +60,8 @@ from diff_sal_tpu_torch.models.diff_model import build_model
 from diff_sal_tpu_torch.train.optim import make_optimizer
 from diff_sal_tpu_torch.train.train_step import make_train_step
 from test_torch_models import full_model_variables, port_model
-from test_torch_train_step import (_stash_grads, assert_gradient_leaves_match, jax_step_grads_f64,
-                                   port_steps)
+from test_torch_train_step import (ReluBranches, _stash_grads, assert_gradient_leaves_match,
+                                   jax_step_grads_f64, port_f32_step, port_f64_step)
 
 B = 2
 
@@ -113,23 +116,23 @@ def step():
              "salmap": rng.rand(B, *hw, 1).astype(np.float32)}
     key = jax.random.PRNGKey(46)
     sched = j_make_schedule()
-    tx = optax.chain(_stash_grads(), j_make_optimizer(cfg.optim, steps_per_epoch=4, n_epochs=2))
-    state = create_train_state(jmodel, variables, tx)
-    new_state, metrics = jax.jit(j_make_train_step(jmodel, sched, cfg))(
-        state, jax.tree.map(jnp.asarray, batch), key)
     k_deq, k_t, k_noise, _ = jax.random.split(key, 4)
     shape = (B, *hw, 1)
     draws = {"deq": jax.random.normal(k_deq, shape), "noise": jax.random.normal(k_noise, shape),
              "t": jax.random.randint(k_t, (), 0, sched.num_timesteps)}
+    branches = ReluBranches()
+    ref64 = port_f64_step(cfg, variables, batch, draws, branches)
+    tx = optax.chain(_stash_grads(), j_make_optimizer(cfg.optim, steps_per_epoch=4, n_epochs=2))
+    state = create_train_state(jmodel, variables, tx)
+    with ReluBranches.pinned_jax(branches):
+        new_state, metrics = jax.jit(j_make_train_step(jmodel, sched, cfg))(
+            state, jax.tree.map(jnp.asarray, batch), key)
     grads = bridge.state_dict_from_flax({"params": jax.device_get(new_state.opt_state[0])},
                                         cfg.model.visual.num_layers)
-    jax64 = jax_step_grads_f64(cfg, variables, batch, key, int(draws["t"]))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        model, port_metrics, _, ref64 = port_steps(cfg, variables, batch, draws)
-    finally:
-        torch.set_num_threads(threads)
+    jax64 = jax_step_grads_f64(cfg, variables, batch, key, int(draws["t"]), branches)
+    model, port_metrics, _ = port_f32_step(cfg, variables, batch, draws, branches)
+    print(f"ReLU inputs on the other side of zero from the f64 step's: port f32 "
+          f"{branches.flips}")
     return {k: float(v) for k, v in metrics.items()}, grads, model, port_metrics, ref64, jax64
 
 
