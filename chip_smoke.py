@@ -3,7 +3,7 @@ step, AV inference with DPM-Solver++ and the eval lowerings, the
 visual-only model in both MViT layouts, both models in f32, the f32
 attention and training step at full width) on one NVIDIA
 GPU and hold each of its hand-written kernels (thirteen in bf16 and the
-six f32 instances an f32 model runs) against its plain PyTorch version.
+seven f32 instances an f32 model runs) against its plain PyTorch version.
 
     python3 chip_smoke.py [--iters N] [--profile]
 
@@ -69,8 +69,13 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      launched once per denoiser call; the maps against
      the default lowerings on the same inputs and noise (bf16 bound 3e-2);
      ms per run and clips/s with and without the lowerings; K7, K8, K9 and
-     K11 held against their plain versions and timed as in phase 4; the
-     small AV model with the lowerings through DPM++ NFE 2, bf16 on the
+     K11 held against their plain versions and timed as in phase 4, with a
+     `[shape ...]` line per K8 call shape ((out_hw, C, O, inputs)) and per
+     K11 call shape (((B, T, H, W), C, stride): its share of the bound that
+     counts the input pixels some tap touches, and of the one reading all
+     of x), and beside K8, as context, the device time of the unfused head
+     it replaces (K4 + cuDNN's conv + bias + ReLU) on its recorded inputs;
+     the small AV model with the lowerings through DPM++ NFE 2, bf16 on the
      card against f32 on the CPU;
   9. the visual-only model (`ModelConfig.visual_only()`, the DHF1k visual
      pretraining model: MViTv2-small and the SalUNet without audio) at full
@@ -87,7 +92,8 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      the recorded inputs (with the forward's logsumexp, which the backward
      kernels read);
  10. f32 (both packages' default compute dtype) at a small size (128x96):
-     the small AV model (with `fused_attn`, so K7 runs) and the small
+     the small AV model (with `fused_attn`, so K7 runs, and `fused_head`
+     set on its head module, so K8 runs) and the small
      visual-only model in the token-concat layout, f32 through the kernels'
      f32 instances on the card against f32 through the plain versions on
      the CPU, same weights, noise and draws: one DDIM run (map within
@@ -95,7 +101,9 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      within F32_GRAD_TOL relative L2), launches per run and per step
      against `path_launches` with the f32 instances in place of the bf16
      kernels, then each f32 instance held against its plain version on
-     the recorded inputs at the f32 tolerance;
+     the recorded inputs at the f32 tolerance (K8's f32 instance against
+     its plain version computed in f64, within the larger of 1e-5 and twice
+     the f32 plain version's own distance: `hold_f64`);
  11. the f32 attention and K7 at full width: phase 3's recorded K1 calls
      and phase 9's recorded K12 forward calls cast to f32, each through the
      f32 instance, its plain version (computed in f64; the f32 tolerance on
@@ -118,7 +126,11 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      distance from it, one `[shape block_tail_f32]` line per (rows, C) with
      the device time per call and the share of the split-TF32 bound, and
      beside it, as context, the device time of the tail's two products as
-     f32 `torch.matmul` (TF32 off) on the same shapes;
+     f32 `torch.matmul` (TF32 off) on the same shapes; then phase 8's two
+     recorded K8 calls cast to f32 through K8's f32 instance, held against
+     the plain version computed in f64 within the larger of 1e-5 and twice
+     the f32 plain version's own distance, one `[shape
+     resize_conv_relu_f32]` line per call;
  12. the AV training step at full width in f32 (both packages' default),
      B=4, phase 6's recipe: one warm-up step with phase 6's checks, one
      step counted against `f32_launches(cfg, train=True)` (K1 f32 and K5
@@ -172,7 +184,7 @@ KERNELS = INFER_KERNELS + ("bias_attention_bwd", "layer_norm_bwd", "cvt_attentio
 # the f32 instances (an f32 model's route), each a row of its own
 F32_KERNELS = ("bias_attention_f32", "block_tail_f32", "cvt_attention_f32",
                "fused_bias_attention_f32", "bias_attention_bwd_f32",
-               "fused_bias_attention_bwd_f32")
+               "fused_bias_attention_bwd_f32", "resize_conv_relu_f32")
 KERNELS += F32_KERNELS
 TRAIN_KERNELS = ("bias_attention_bwd", "layer_norm_bwd")
 # the pooled attention (K1, K12 forward, K5, K12 backward), timed per MViT
@@ -315,21 +327,25 @@ def bound_terms(kernel: str, args, kw):
         Bt, L, C = q.shape
         return e * (2 * q.numel() + 2 * k.numel()), [(4.0 * Bt * L * k.shape[1] * C, mm_peak)]
     if kernel == "depthwise_pool3d":
-        # read the C used channels of x once, w, write out; 27 f32
-        # multiply-adds per output element
+        # read the C used channels of the input pixels some tap touches
+        # once (at stride 8 a 3-tap window reads 3 of every 8 rows and
+        # columns), w, write out; 27 f32 multiply-adds per output element
         x, w, (_, sh, sw) = args[:3]
         B, T, H, W, C = x.shape
+        rows, cols = pool_touched(H, sh), pool_touched(W, sw)
         out = B * T * ((H - 1) // sh + 1) * ((W - 1) // sw + 1) * C
-        return (x.numel() + out) * x.element_size() + w.numel() * 4, [(54.0 * out, F32_FLOPS)]
+        return ((B * T * rows * cols * C + out) * x.element_size() + w.numel() * 4,
+                [(54.0 * out, F32_FLOPS)])
     if kernel in ("resize_conv_relu", "resize_phase_head"):
         xs, (H, W), kern, bias = args[:4]
         B, C, O = xs[0].shape[0], xs[0].shape[-1], kern.shape[-1]
         e = xs[0].element_size()
         nbytes = (sum(x.numel() for x in xs) + kern.numel() + B * H * W * O) * e + O * 4
         if kernel == "resize_conv_relu":
-            # the 3x3 conv on the tensor cores, the resize-sum (4 taps per
-            # input element) in f32
-            return nbytes, [(2.0 * B * H * W * 9 * C * O, BF16_TENSOR_FLOPS),
+            # the 3x3 conv on the tensor cores (the f32 instance's at split
+            # TF32's rate), the resize-sum (4 taps per input element) in f32
+            return nbytes, [(2.0 * B * H * W * 9 * C * O,
+                             BF16_TENSOR_FLOPS if e == 2 else SPLIT_TF32_FLOPS),
                             (8.0 * len(xs) * B * H * W * C, F32_FLOPS)]
         # u_i = x_i K' on the tensor cores, then the gather over the
         # non-zero taps of this input's shifted resize matrices in f32
@@ -346,6 +362,20 @@ def bound_terms(kernel: str, args, kw):
         mm = sum(2.0 * B * x.shape[1] * x.shape[2] * C * 9 * O for x in xs)
         return nbytes, [(mm, BF16_TENSOR_FLOPS), (B * O * (gather + 2.0 * H * W), F32_FLOPS)]
     raise KeyError(kernel)
+
+
+def pool_touched(n: int, s: int) -> int:
+    """How many of n input rows (or columns) a 3-tap window at stride s,
+    padding 1, touches."""
+    return len({o * s + k for o in range((n - 1) // s + 1) for k in (-1, 0, 1)} & set(range(n)))
+
+
+def pool_full_read_bytes(args) -> int:
+    """K11's bytes bound as it was first counted: all of x read once."""
+    x, w, (_, sh, sw) = args[:3]
+    B, T, H, W, C = x.shape
+    out = B * T * ((H - 1) // sh + 1) * ((W - 1) // sw + 1) * C
+    return (x.numel() + out) * x.element_size() + w.numel() * 4
 
 
 def attention_plan(name, args):
@@ -568,13 +598,50 @@ def shape_key(name, args):
         return tuple(args[0].shape)
     if base == "cvt_attention":
         return tuple(args[0].shape)
+    if base == "depthwise_pool3d":
+        x, _, stride = args[:3]
+        return tuple(x.shape[:4]), x.shape[4], tuple(stride)
+    if base == "resize_conv_relu":
+        xs, out_hw, kern = args[:3]
+        return tuple(out_hw), xs[0].shape[-1], kern.shape[-1], len(xs)
     return None
 
 
 # what the key of a `[shape ...]` line lists
 SHAPE_LABEL = {"layer_norm": "(rows, C, bulk)", "layer_norm_bwd": "(rows, C, bulk)",
                "block_tail": "(rows, C)",
-               "cvt_attention": "(Bt, L, C)"}
+               "cvt_attention": "(Bt, L, C)",
+               "depthwise_pool3d": "((B, T, H, W), C, stride)",
+               "resize_conv_relu": "(out_hw, C, O, inputs)"}
+
+
+# f32 instances held against their plain version computed in f64, within
+# the larger of the f32 tolerance and twice the f32 plain version's own
+# distance from it: K8's plain version is one f32 conv2d, and the algorithm
+# cuDNN picks for it on the card sits further from f64 (2.4e-5 at the head's
+# C = 768) than the kernel does
+F64_HELD = ("resize_conv_relu_f32",)
+
+
+def hold_f64(name, out, plain_fn, args, kw):
+    """Holds `out` (an f32 kernel's output on args) against plain_fn
+    computed in f64 within max(f32 tolerance, twice the f32 plain version's
+    own distance from it); returns (max|d|, the plain version's)."""
+    def dbl(v):
+        if isinstance(v, torch.Tensor):
+            return v.double()
+        if isinstance(v, (list, tuple)):
+            return type(v)(dbl(t) for t in v)
+        return v
+    ref = plain_fn(*dbl(args), **kw).double()
+    own = float((plain_fn(*args, **kw).double() - ref).abs().max())
+    d = float((out.double() - ref).abs().max())
+    torch.cuda.synchronize()
+    limit = max(TOL[torch.float32][0], 2 * own)
+    assert out.shape == ref.shape and d <= limit, (
+        f"{name}: kernel output at shape {tuple(out.shape)} {d:.3e} from the plain version "
+        f"in f64, limit {limit:.3e} (the f32 plain version {own:.3e})")
+    return d, own
 
 
 def hold_kernels(names, recorders, plain, counts, profile=False):
@@ -597,9 +664,14 @@ def hold_kernels(names, recorders, plain, counts, profile=False):
         # shape key -> calls, kernel thunks, library thunks, event ms, library
         # event ms, bound ms
         groups = {}
+        full_x = {}  # K11: the bytes bound reading all of x, per shape group (ms)
         for args, kw in rec.calls:
             got = _outputs(rec.fn(*args, **kw))
-            ref = _outputs(plain[name](*args, **kw))
+            if name in F64_HELD:
+                err = max(err, hold_f64(name, got[0], plain[name], args, kw)[0])
+                ref = got = ()
+            else:
+                ref = _outputs(plain[name](*args, **kw))
             torch.cuda.synchronize()
             for i, (a, b) in enumerate(zip(got, ref)):
                 atol, rtol = _tolerance(name, i, b, args)
@@ -634,6 +706,11 @@ def hold_kernels(names, recorders, plain, counts, profile=False):
             g[3] += call_ms
             g[4] += call_lib or 0.0
             g[5] += max(nbytes / HBM_BYTES_PER_S, sum(n / p for n, p in ops)) * 1e3
+            if name == "depthwise_pool3d":
+                key = shape_key(name, args)
+                full_x[key] = full_x.get(key, 0.0) + max(
+                    pool_full_read_bytes(args) / HBM_BYTES_PER_S,
+                    sum(n / p for n, p in ops)) * 1e3
         dev_ms = lib_dev_ms = 0.0
         dev_events = 0
         for key, g in groups.items():
@@ -687,11 +764,17 @@ def hold_kernels(names, recorders, plain, counts, profile=False):
                     f"SDPA {1e3 * ldms / n if ldms else 0.0:.2f} us")
             elif key is not None:
                 lib_us = f"{1e3 * ldms / n:.2f} us" if ldms is not None else "none"
+                old = (f"; reading all of x {1e3 * full_x[key] / n:.2f} us, "
+                       f"{100.0 * full_x[key] / dms:.1f}%" if key in full_x else "")
                 log(f"[shape {name}] {SHAPE_LABEL[name.removesuffix('_f32')]} {key}: {n} calls, "
                     f"device {1e3 * dms / n:.2f} us "
                     f"per call, bound {1e3 * bound / n:.2f} us per call, "
-                    f"{100.0 * bound / dms:.1f}% of bound; events {ms / n:.4f} ms per call; "
+                    f"{100.0 * bound / dms:.1f}% of bound{old}; events {ms / n:.4f} ms per call; "
                     f"library device {lib_us} per call")
+        if full_x:
+            tot = sum(full_x.values())
+            log(f"[kernel {name}] bound reading all of x (as first counted) {tot:.3f} ms, "
+                f"{100.0 * tot / dev_ms:.1f}% of it by device time")
         rec.calls.clear()
     return rows
 
@@ -753,11 +836,13 @@ def lowered_config(cfg):
         decoder=dataclasses.replace(cfg.decoder, fused_attn=True, head_lowres=True))
 
 
-def path_launches(cfg, nfe: int = 1, train: bool = False):
+def path_launches(cfg, nfe: int = 1, train: bool = False, fused_head: bool = False):
     """Launches of each kernel in one `sample_saliency` run of `cfg` with
     `nfe` denoiser calls, or (`train`) in one training step, from the
     config's structure: the encoders run once per map or step, the decoder
-    once per call; the eval lowerings (K3, K7, K8, K9) at eval only."""
+    once per call; the eval lowerings (K3, K7, K8, K9) at eval only. With
+    `fused_head` (the head module's field, which no config sets) the head
+    runs through K8 unless `head_lowres` takes it through K9."""
     from diff_sal_tpu_torch.models.mvit import block_plan
 
     v, d = cfg.visual, cfg.decoder
@@ -787,9 +872,11 @@ def path_launches(cfg, nfe: int = 1, train: bool = False):
         want.update({attn + "_bwd": v.num_layers, "layer_norm_bwd": ln - 2,
                      "bilinear_resize_sum": 1})
     else:
+        k8 = fused_head and not d.head_lowres
         want.update({"block_tail": nfe * stages,
-                     "bilinear_resize_sum": 0 if d.head_lowres else nfe,
+                     "bilinear_resize_sum": 0 if d.head_lowres or k8 else nfe,
                      "resize_phase_head": nfe if d.head_lowres else 0,
+                     "resize_conv_relu": nfe if k8 else 0,
                      "cvt_attention": nfe * stages if d.fused_attn else 0})
     return want
 
@@ -927,6 +1014,8 @@ def dpm_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi, full_ca
     counts = dict(counts8[2])
     counts["resize_conv_relu"] = counts_k8[2]["resize_conv_relu"]
     full_calls["cvt_attention"] = list(recorders["cvt_attention"].calls)
+    full_calls["resize_conv_relu"] = list(recorders["resize_conv_relu"].calls)
+    unfused_head(full_calls["resize_conv_relu"])
     rows = hold_kernels(("cvt_attention", "resize_conv_relu", "resize_phase_head",
                          "depthwise_pool3d"), recorders, plain, counts)
 
@@ -954,6 +1043,31 @@ def dpm_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi, full_ca
         f"{err:.3e} (limit 3e-2)")
     assert err <= 3e-2, err
     return rows
+
+
+def unfused_head(calls):
+    """Context for K8: on its recorded inputs, the device time of the route
+    it replaces, ConvBNRelu's default path at eval (`models/layers.py`): K4's
+    resize-sum, then cuDNN's conv with the folded kernel and bias, then
+    ReLU. Timed only."""
+    from diff_sal_tpu_torch.ops import resize
+
+    F = torch.nn.functional
+    thunks = []
+    for args, kw in calls:
+        xs, out_hw, kern, bias = args[:4]
+        w = kern.permute(3, 2, 0, 1).contiguous()
+        b = bias.to(kern.dtype)
+
+        def head(xs=xs, out_hw=out_hw, w=w, b=b):
+            a = resize.bilinear_resize_sum_fwd(xs, out_hw)
+            return torch.relu(F.conv2d(a.permute(0, 3, 1, 2), w, b, 1, 1)).permute(0, 2, 3, 1)
+        thunks.append(head)
+    ms = device_ms(thunks)[0]
+    log(f"[shape resize_conv_relu] the unfused head on the {len(calls)} recorded calls (K4 + "
+        f"cuDNN conv + bias + ReLU): device {1e3 * ms / len(calls):.2f} us per call, "
+        f"{ms:.4f} ms per run")
+    return ms
 
 
 def visual_config(cls_stream: bool = True):
@@ -1133,11 +1247,11 @@ def visual_only_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi,
                         plain, counts, cli.profile)
 
 
-def f32_launches(cfg, nfe: int = 1, train: bool = False):
+def f32_launches(cfg, nfe: int = 1, train: bool = False, fused_head: bool = False):
     """`path_launches` for an f32 model: the f32 instances launch where the
-    bf16 kernels would (attention, K3, K7), every other kernel takes f32 as
-    it is."""
-    want = path_launches(cfg, nfe, train)
+    bf16 kernels would (attention, K3, K7, K8), every other kernel takes
+    f32 as it is."""
+    want = path_launches(cfg, nfe, train, fused_head)
     for name in F32_KERNELS:
         base = name.removesuffix("_f32")
         want[name], want[base] = want[base], 0
@@ -1180,10 +1294,14 @@ def f32_phase(dev, schedule, data_cfg, recorders, plain):
         audio = torch.randn(2, 9, hw[0] // 2, hw[1] // 2, 1, generator=gc) if av else None
         noise = torch.randn(2, *hw, 1, generator=gc)
         cpu_model = build_model(cfg, seed=31 + i, device="cpu")
+        card = VideoSaliencyModel(cfg).eval()
+        # the AV model's head through K8 (its f32 instance on the card), as
+        # phase 8 sets it: a module field, in both models
+        for m in (cpu_model, card):
+            m.decoder_net.invpt_decoder.mt_proj.fused_head = av
         ref = sample_saliency(cpu_model, schedule, SamplingConfig(), data_cfg, rgb, audio,
                               noise=noise)
         sd = {k: v.clone() for k, v in cpu_model.state_dict().items()}
-        card = VideoSaliencyModel(cfg).eval()
         card.load_state_dict(sd)
         card.to(dev)
 
@@ -1208,7 +1326,7 @@ def f32_phase(dev, schedule, data_cfg, recorders, plain):
         c = kernels.launch_counts()
         record(False)
         keep(False, c)
-        check_launches(c, f32_launches(cfg, 1), f"f32 {what} DDIM run")
+        check_launches(c, f32_launches(cfg, 1, fused_head=av), f"f32 {what} DDIM run")
         err = float((got.cpu() - ref).abs().max())
         log(f"[f32] {what}: f32 card vs f32 CPU plain, DDIM NFE 1: max|d| {err:.3e} "
             f"(limit {F32_MAP_TOL}); launches per run " + json.dumps(
@@ -1466,6 +1584,42 @@ def f32_cvt_phase(calls):
     log(f"[f32 full width] cvt_attention_f32: {len(calls)} calls, device {tot[0]:.4f} ms, SDPA "
         f"per head f32 {tot[1]:.4f} ms, bound {tot[2]:.4f} ms, max|d| {err:.3e}")
     return (*tot, err)
+
+
+def f32_conv_phase(calls):
+    """Phase 11, K8 f32: phase 8's recorded K8 calls (DPM++ NFE 2 with
+    `fused_head`) cast to f32, each through K8's f32 instance, held against
+    the plain version computed in f64 within the larger of the f32 tolerance
+    and twice the f32 plain version's own distance from it; one `[shape
+    resize_conv_relu_f32]` line per (out_hw, C, O, inputs) with the device
+    time per call and the share of the bound (the products at split TF32's
+    rate). No path's count reads these launches. Returns (kernel device ms,
+    bound ms, max|d|) over the calls."""
+    from diff_sal_tpu_torch.ops import resize
+
+    tot_ms = tot_bound = err = 0.0
+    with torch.no_grad():
+        for args, kw in calls:
+            xs, out_hw, kern, bias = args[:4]
+            a32 = ([x.float() for x in xs], out_hw, kern.float(), bias.float())
+            out = resize.resize_sum_conv_relu(*a32)
+            d, own = hold_f64("resize_conv_relu_f32", out, resize.resize_sum_conv_relu_plain,
+                              a32, {})
+            key = shape_key("resize_conv_relu", a32)
+            err = max(err, d)
+            del out
+            nbytes, ops = bound_terms("resize_conv_relu_f32", a32, kw)
+            bound = max(nbytes / HBM_BYTES_PER_S, sum(n / p for n, p in ops)) * 1e3
+            ms = device_ms([lambda a=a32: resize.resize_sum_conv_relu(*a)])[0]
+            tot_ms, tot_bound = tot_ms + ms, tot_bound + bound
+            log(f"[shape resize_conv_relu_f32] (out_hw, C, O, inputs) {key}: device "
+                f"{1e3 * ms:.2f} us per call, bound {1e3 * bound:.2f} us (split TF32), "
+                f"{100.0 * bound / ms:.1f}% of bound; max|d| from f64 {d:.3e} (the f32 plain "
+                f"version {own:.3e})")
+    log(f"[f32 full width] resize_conv_relu_f32: {len(calls)} calls, device {tot_ms:.4f} ms, "
+        f"bound {tot_bound:.4f} ms ({100.0 * tot_bound / tot_ms:.1f}% of bound); max|d| from "
+        f"f64 {err:.3e}")
+    return tot_ms, tot_bound, err
 
 
 F32_TRAIN_ITERS = 10  # timed f32 training steps at full width
@@ -1942,6 +2096,7 @@ def main() -> int:
     f32_backward_phase(full_calls)
     f32_cvt_phase(full_calls["cvt_attention"])
     f32_tail_phase(full_calls["block_tail"])
+    f32_conv_phase(full_calls["resize_conv_relu"])
     del full_calls
     log(f"[f32 full width] phase {time.perf_counter() - t0:.1f} s")
 

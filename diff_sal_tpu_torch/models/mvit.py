@@ -97,6 +97,7 @@ class MultiScaleAttention(nn.Module):
         if pool_mode == "pallas" and tuple(pool_kernel) != (3, 3, 3):
             raise ValueError(f"pool_mode='pallas' takes a (3, 3, 3) pool, got {pool_kernel}")
         self.pool_mode = pool_mode
+        self._pool_weights = {}  # parts -> (pool weights' state, K11's tiled weight)
         self.cls_stream = cls_stream
         self.num_heads = num_heads
         self.out_dims = out_dims
@@ -126,14 +127,32 @@ class MultiScaleAttention(nn.Module):
         mvit.py:594)."""
         H = self.num_heads
         if self.pool_mode == "pallas":
-            w = torch.cat([getattr(self, f"pool_{p}").weight[:, 0].permute(1, 2, 3, 0)
-                           .repeat(1, 1, 1, H) for p in parts], -1)
-            return pool_ops.depthwise_pool3d(x.to(dt), w.float().contiguous(), stride)
+            return pool_ops.depthwise_pool3d(x.to(dt), self._pool_weight(parts), stride)
         w = torch.cat([getattr(self, f"pool_{p}").weight.repeat(H, 1, 1, 1, 1)
                        for p in parts], 0)
         return conv3d(x, w, None, dt, stride=stride,
                       padding=tuple(k // 2 for k in self.pool_kernel),
                       groups=w.shape[0])
+
+    def _pool_weight(self, parts) -> torch.Tensor:
+        """K11's (3, 3, 3, C) f32 weight: each part's kernel tiled across
+        heads. Where a gradient is taken it is built on every call, so that
+        the gradients reach `pool_*.weight`; otherwise (eval) one copy per
+        `parts` is kept and built again when a pool weight changes (its
+        version counter, storage, device or dtype)."""
+        ws = [getattr(self, f"pool_{p}").weight for p in parts]
+
+        def build():
+            return torch.cat([w[:, 0].permute(1, 2, 3, 0).repeat(1, 1, 1, self.num_heads)
+                              for w in ws], -1).float().contiguous()
+        if torch.is_grad_enabled() and any(w.requires_grad for w in ws):
+            return build()
+        state = tuple((w._version, w.data_ptr(), w.device, w.dtype) for w in ws)
+        kept = self._pool_weights.get(parts)
+        if kept is None or kept[0] != state:
+            with torch.no_grad():
+                kept = self._pool_weights[parts] = (state, build())
+        return kept[1]
 
     def _norm(self, t: torch.Tensor, part: str) -> torch.Tensor:
         """Per-head LayerNorm of a (B, L, heads*hd) tensor."""

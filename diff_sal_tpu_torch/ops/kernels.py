@@ -177,7 +177,8 @@ def registry() -> Dict[str, Kernel]:
     return {k.name: k for k in (attention.KERNEL, layernorm.KERNEL, mlp.KERNEL,
                                 resize.KERNEL, attention.BWD_KERNEL,
                                 layernorm.BWD_KERNEL, attention.CVT_KERNEL,
-                                resize.CONV_KERNEL, resize.PHASE_KERNEL, resize.ADD_KERNEL,
+                                resize.CONV_KERNEL, resize.CONV_F32_KERNEL, resize.PHASE_KERNEL,
+                                resize.ADD_KERNEL,
                                 pool.KERNEL, attention.CLS_KERNEL, attention.CLS_BWD_KERNEL,
                                 *attention.F32_KERNELS, mlp.F32_KERNEL)}
 

@@ -8,16 +8,22 @@ kernel `diff_sal_tpu/ops/pool.py:217 depthwise_pool3d` (body `_pool_kernel`
 :75), which MViT runs with `MViTConfig.pool_mode="pallas"`.
 
 On the H100 the pool is bound by bytes (27 multiply-adds per output
-element against one read of x and one write of out). The kernel
-(`csrc/pool.cu`) is a gather: one thread per output position and 16
-bytes of channels reads its 27 taps with 16-byte loads (neighbouring
-threads share taps through L1/L2), accumulates in f32 and writes once.
-It reads x in place, with its pixels any multiple of 16 bytes apart, so
-the q or kv columns of the qkv projection's output need no copy; the
-cuDNN route (`models/layers.py:conv3d`) copies them to NCDHW first. The
-TPU kernel needs C % 128 == 0 for its lanes; this one takes any C that
-is a multiple of 8 (bf16) or 4 (f32), such as the port's unpadded
-head_dim of 96.
+element against one read of the input pixels some tap touches and one
+write of out). The kernel (`csrc/pool.cu`) gives a thread a strip of
+outputs along W and two channels and walks the temporal planes once, as
+the TPU kernel walks T with its ring: each input plane is loaded once per
+strip (the next plane's loads in flight while this one's products run)
+and added to the three outputs it feeds in three rolling f32
+accumulators; adjacent outputs share their column taps in registers, and
+the 27 weights of the thread's channels stay in registers. `pool_plan`
+picks the strip length and how many output planes a thread walks from the
+call's shape, so that the small strided calls still reach every SM. It
+reads x in place, with its pixels any multiple of 16 bytes apart, so the
+q or kv columns of the qkv projection's output need no copy; the cuDNN
+route (`models/layers.py:conv3d`) copies them to NCDHW first. The TPU
+kernel needs C % 128 == 0 for its lanes; this one takes any C that is a
+multiple of 8 (bf16) or 4 (f32), such as the port's unpadded head_dim of
+96.
 
 K11 is differentiable: an autograd Function whose backward is plain
 math, the depthwise conv3d VJP in x's dtype with the weights cast to it,
@@ -27,6 +33,7 @@ TPU has no backward kernel there, so neither does the port.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -36,14 +43,56 @@ from diff_sal_tpu_torch.ops import kernels as K
 
 KERNEL = K.Kernel(
     "depthwise_pool3d", "pool.cu", "dsal_depthwise_pool3d",
-    [K.P] * 3 + [K.I] * 11 + [K.P],
+    [K.P] * 3 + [K.I] * 13 + [K.P],
     replaces="diff_sal_tpu/ops/pool.py:217 depthwise_pool3d (_pool_kernel :75)",
 )
+
+
+NUM_SMS = 132  # H100 SXM
+POOL_THREADS = 128  # per CTA, as csrc/pool.cu's THREADS
+POOL_V = 2  # channels per thread
 
 
 def _out_size(n: int, s: int) -> int:
     # kernel 3, padding 1, stride s
     return (n - 1) // s + 1
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class PoolPlan:
+    """K11's launch geometry: `strip` outputs along W and `t_block` output
+    planes per thread (POOL_V channels each), `strips` x `t_blocks` x Ho x
+    B x C / POOL_V threads in `ctas` CTAs of POOL_THREADS."""
+    strip: int
+    t_block: int
+    strips: int
+    t_blocks: int
+    threads: int
+    ctas: int
+
+
+def pool_plan(B: int, T: int, H: int, W: int, C: int, sh: int, sw: int) -> PoolPlan:
+    """The K11 geometry for x (B, T, H, W, C) at stride (1, sh, sw): strips
+    of 4 outputs where column strides let neighbours share taps (sw <= 2),
+    else 1; each thread walks all T, the walk halved while the grid leaves
+    an SM without a CTA."""
+    if min(B, T, H, W, sh, sw) < 1 or C < POOL_V or C % POOL_V:
+        raise ValueError(f"depthwise_pool3d: no plan for x {(B, T, H, W, C)} "
+                         f"stride (1, {sh}, {sw})")
+    Ho, Wo = _out_size(H, sh), _out_size(W, sw)
+    strip = 4 if sw <= 2 else 1
+    strips = _cdiv(Wo, strip)
+    rows = B * Ho * strips * (C // POOL_V)  # threads per plane block
+    t_block = T
+    while t_block > 1 and _cdiv(rows * _cdiv(T, t_block), POOL_THREADS) < NUM_SMS:
+        t_block = _cdiv(t_block, 2)
+    t_blocks = _cdiv(T, t_block)
+    return PoolPlan(strip, t_block, strips, t_blocks, rows * t_blocks,
+                    _cdiv(rows * t_blocks, POOL_THREADS))
 
 
 def _ncdhw_weight(w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -104,8 +153,9 @@ def pool_fwd(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((B, T, Ho, Wo, C), dtype=dt, device=x.device)
     if out.numel() == 0:
         return out
+    plan = pool_plan(B, T, H, W, C, sh, sw)
     KERNEL.launch(x.data_ptr(), w.data_ptr(), out.data_ptr(), B, T, H, W, C, ps, Ho, Wo,
-                  sh, sw, int(dt == torch.bfloat16), K.stream())
+                  sh, sw, plan.strip, plan.t_block, int(dt == torch.bfloat16), K.stream())
     return out
 
 

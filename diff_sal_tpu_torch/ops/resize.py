@@ -44,11 +44,17 @@ K8 `resize_sum_conv_relu` replaces the TPU kernel
 `diff_sal_tpu/ops/resize.py:388 resize_sum_conv_relu` (body
 `_resize_sum_conv_kernel` :334), the head at full resolution. It is bound
 by operations (9 C O multiply-adds per output pixel): the kernel
-(`csrc/resize_conv.cu`) is an implicit GEMM on the tensor cores that
-gathers the resize-sum of each 8 x 16 pixel tile with its halo into shared
-memory, 16 channels at a time, rounds it to bf16 as the TPU kernel does
-for the MXU, and runs the nine shifted 3x3 taps as WMMA products with f32
-accumulation; the (H, W, C) sum never reaches device memory.
+(`csrc/resize_conv.cu`) is an implicit GEMM on the tensor cores in which
+the (H, W, C) sum never reaches device memory. In bf16, producer warps
+gather the resize-sum of each 8 x 16 pixel tile with its halo, 32 channels
+at a time (each input's pixels under the halo staged in shared memory),
+round it to bf16 as the TPU kernel does for the MXU and hand it
+through a two-stage shared-memory ring to a consumer warpgroup that runs
+the nine shifted 3x3 taps as wgmma products with f32 accumulation (the
+kernel slice by TMA from the kernel transposed to (9 O, C)). Its f32
+instance (an f32 model's head; the TPU kernel computes in the input's
+dtype) keeps the resize-sum in f32 and runs the products in split TF32 on
+the tensor cores. `conv_plan` gives the geometry.
 
 K9 `resize_sum_conv_relu_phase` replaces the TPU kernel
 `diff_sal_tpu/ops/resize.py:567 resize_sum_conv_relu_phase` (body
@@ -68,6 +74,7 @@ unfused ops.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -91,9 +98,14 @@ ADD_KERNEL = K.Kernel(
 
 CONV_KERNEL = K.Kernel(
     "resize_conv_relu", "resize_conv.cu", "dsal_resize_conv_relu",
-    [K.P] * 4 + [K.P] * 5 + [K.I] * 8 + [K.I] * 6 + [K.P],
+    [K.P] * 4 + [K.P] * 5 + [K.I] * 8 + [K.I] * 7 + [K.P],
     replaces="diff_sal_tpu/ops/resize.py:388 resize_sum_conv_relu "
              "(_resize_sum_conv_kernel :334)",
+)
+# K8's f32 instance: the same entry arguments, the kernel as (3, 3, C, O) f32
+CONV_F32_KERNEL = K.Kernel(
+    "resize_conv_relu_f32", "resize_conv.cu", "dsal_resize_conv_relu_f32",
+    CONV_KERNEL.argtypes, replaces=CONV_KERNEL.replaces,
 )
 PHASE_KERNEL = K.Kernel(
     "resize_phase_head", "resize_phase.cu", "dsal_resize_phase_head",
@@ -104,6 +116,60 @@ PHASE_KERNEL = K.Kernel(
 
 MAX_INPUTS = 4
 MAX_HEAD_OUT = 128  # O of the fused heads, as the TPU kernels take
+
+# K8's geometry, as csrc/resize_conv.cu: 8 x 16 pixel tiles, a two-stage
+# ring of 32-channel chunks (bf16: three dx-shifted copies of the 10 x 16
+# halo rows, nine TMA boxes of the kernel slice), 16-channel chunks in f32
+CONV_TILE = (8, 16)
+CONV_KC = {torch.bfloat16: 32, torch.float32: 16}
+CONV_THREADS = {torch.bfloat16: 384, torch.float32: 256}
+CONV_WIDTHS = (32, 48, 64, 96, 128)  # the wgmma / n-tile widths the kernels take
+CONV_STAGES = 2
+CONV_TABLE_BYTES = MAX_INPUTS * (10 + 18) * 16
+CONV_PATCH_BYTES = 128 * 80  # bf16: the inputs' pixels under a tile's halo, a chunk
+SMEM_MAX = 232448
+
+
+def conv_smem(np_: int, dtype: torch.dtype) -> int:
+    """K8's dynamic shared memory for the padded width `np_`: bf16 1024
+    bytes of alignment, two stages of the three 10 x 16-row dx copies of a
+    32-channel chunk and the nine (np_, 32) kernel boxes, the mbarriers, the
+    tap tables, the patches' bounds and two buffers of staged input pixels
+    (128 of 80 bytes each); f32 the double-buffered 180-pixel halo (row
+    stride 20 floats) and kernel slice (rows of np_ + 8 floats), the
+    tables."""
+    if dtype == torch.bfloat16:
+        return 1024 + CONV_STAGES * (3 * 2 * 160 * 32 + 9 * np_ * 64) + 16 * CONV_STAGES \
+            + CONV_TABLE_BYTES + MAX_INPUTS * 32 + 2 * CONV_PATCH_BYTES
+    return 2 * 180 * 20 * 4 + 2 * 9 * 16 * (np_ + 8) * 4 + CONV_TABLE_BYTES
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """K8's launch: O padded to `np_` (the products' width), `chunks` of
+    `kc` channels, a grid of (W / 16, H / 8, B) tiles of `threads`, `smem`
+    bytes of shared memory each."""
+    np_: int
+    kc: int
+    chunks: int
+    grid: Tuple[int, int, int]
+    threads: int
+    smem: int
+
+
+def conv_plan(B: int, H: int, W: int, C: int, O: int, dtype: torch.dtype) -> ConvPlan:
+    """The K8 geometry for a (B, H, W) head of C inputs and O outputs;
+    raises ValueError on what the kernels do not take."""
+    if dtype not in CONV_KC:
+        raise ValueError(f"resize_sum_conv_relu: dtype {dtype}, expected bf16 or f32")
+    if min(B, H, W) < 1 or C < 16 or C % 16 or O < 16 or O % 16 or O > MAX_HEAD_OUT:
+        raise ValueError(f"resize_sum_conv_relu: needs C % 16 == 0, O % 16 == 0, "
+                         f"O <= {MAX_HEAD_OUT} (C={C}, O={O}, out {(B, H, W)})")
+    np_ = min(w for w in CONV_WIDTHS if w >= O)
+    kc = CONV_KC[dtype]
+    th, tw = CONV_TILE
+    return ConvPlan(np_, kc, -(-C // kc), (-(-W // tw), -(-H // th), B), CONV_THREADS[dtype],
+                    conv_smem(np_, dtype))
 
 
 def _taps(in_size: int, out_size: int):
@@ -352,28 +418,33 @@ def resize_sum_conv_relu(xs: Sequence[torch.Tensor], out_hw: Tuple[int, int],
                          kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """relu(conv3x3_same(sum_i bilinear_resize(x_i, out_hw)) + bias) for n
     <= 4 maps (B, h_i, w_i, C), kernel (3, 3, C, O) with any eval-time
-    affine folded in, bias (O,): kernel K8 on CUDA (bf16, C % 16 == 0, O %
-    16 == 0, O <= 128), the plain version on the CPU. Eval only."""
+    affine folded in, bias (O,): kernel K8 on CUDA (bf16, or f32 through
+    its f32 instance; C % 16 == 0, O % 16 == 0, O <= 128), the plain
+    version on the CPU. Eval only."""
     xs = list(xs)
     _check_eval_only("resize_sum_conv_relu (kernel K8)", *xs, kernel, bias)
     if xs[0].device.type == "cpu":
         return resize_sum_conv_relu_plain(xs, out_hw, kernel, bias)
     B, C, O, dt = _check_head_inputs("resize_sum_conv_relu", xs, kernel, bias,
-                                     (torch.bfloat16,))
-    K.check(C % 16 == 0 and O % 16 == 0 and O <= MAX_HEAD_OUT,
-            f"resize_sum_conv_relu: needs C % 16 == 0, O % 16 == 0, O <= {MAX_HEAD_OUT} "
-            f"(C={C}, O={O})")
+                                     (torch.bfloat16, torch.float32))
     H, W = out_hw
+    plan = conv_plan(B, H, W, C, O, dt)
     shapes = tuple((x.shape[1], x.shape[2]) for x in xs)
     idx, wts = _tap_tables(shapes, (H, W), xs[0].device)
     b = bias.float().contiguous()
     out = torch.empty((B, H, W, O), dtype=dt, device=xs[0].device)
+    if dt == torch.bfloat16:
+        # tap-major rows of output channels, C contiguous: the products' B
+        # operand as the TMA boxes read it
+        kern, entry = kernel.permute(0, 1, 3, 2).reshape(9 * O, C).contiguous(), CONV_KERNEL
+    else:
+        kern, entry = kernel, CONV_F32_KERNEL
     ptrs = [x.data_ptr() for x in xs] + [None] * (MAX_INPUTS - len(xs))
     hs = [s[0] for s in shapes] + [0] * (MAX_INPUTS - len(xs))
     ws = [s[1] for s in shapes] + [0] * (MAX_INPUTS - len(xs))
-    CONV_KERNEL.launch(
-        *ptrs, idx.data_ptr(), wts.data_ptr(), kernel.data_ptr(), b.data_ptr(), out.data_ptr(),
-        *hs, *ws, len(xs), B, H, W, C, O, K.stream(),
+    entry.launch(
+        *ptrs, idx.data_ptr(), wts.data_ptr(), kern.data_ptr(), b.data_ptr(), out.data_ptr(),
+        *hs, *ws, len(xs), B, H, W, C, O, plan.np_, K.stream(),
     )
     return out
 

@@ -1,5 +1,6 @@
-"""The port's thirteen Hopper kernels against their plain PyTorch versions,
-on the card, and autograd through them. Every test here needs a CUDA device and nvcc: the `cuda` marker
+"""The port's thirteen Hopper kernels and their f32 instances against their
+plain PyTorch versions, on the card, and autograd through them. Every test
+here needs a CUDA device and nvcc: the `cuda` marker
 names them and the `card` fixture skips them where
 `torch.cuda.is_available()` is false. This file imports no JAX (the card's
 machine has none); run it there with
@@ -16,7 +17,11 @@ f32 bias gradients come from dS as bf16 hi + lo parts on the tensor cores
 (~16 mantissa bits) and p recomputed from the row logsumexp: they are held
 to the bf16 bound too. The attention backward kernels read the forward's
 logsumexp, so each test takes it from the forward kernel first. The f32
-instances (f32 models) are held to 1e-5 like every f32 kernel.
+instances (f32 models) are held to 1e-5 like every f32 kernel, K8's
+against its plain version computed in f64, within the larger of 1e-5 and
+twice the f32 plain version's own distance: that plain version is one f32
+conv2d, and the algorithm cuDNN picks for it sits up to ~2.4e-5 from f64
+at C = 768.
 """
 
 import dataclasses
@@ -54,6 +59,19 @@ def _check(out, plain, dtype):
     torch.cuda.synchronize()
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     torch.testing.assert_close(out.float(), plain.float(), **tol)
+
+
+def _check_head(out, xs, out_hw, k, b):
+    """K8's output against its plain version: bf16 at the bf16 tolerance,
+    f32 against the plain version in f64 within max(1e-5, twice the f32
+    plain version's own distance from it)."""
+    plain = t_resize.resize_sum_conv_relu_plain
+    if out.dtype == torch.bfloat16:
+        return _check(out, plain(xs, out_hw, k, b), torch.bfloat16)
+    ref = plain([x.double() for x in xs], out_hw, k.double(), b.double())
+    own = float((plain(xs, out_hw, k, b).double() - ref).abs().max())
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.double(), ref, atol=max(F32_TOL["atol"], 2 * own), rtol=0)
 
 
 @pytest.mark.parametrize("D", [64, 96, 128])
@@ -589,6 +607,49 @@ def test_depthwise_pool_kernel_path_shapes(card, shape, C, stride):
            torch.bfloat16)
 
 
+def _mvit_pool_calls():
+    """Every pool of MViT-small at 224x384x16, B=2, as its attention calls
+    K11: x a column slice of the (B, T, H, W, 3 C) qkv output, C, stride."""
+    from diff_sal_tpu_torch.config import ModelConfig
+    from diff_sal_tpu_torch.models.mvit import block_plan
+
+    calls = set()
+    for p in block_plan(ModelConfig.audio_visual().visual):
+        C, (T, H, W) = p["out_dims"], p["in_size"]
+        if p["stride_q"] == p["stride_kv"]:
+            calls.add(((T, H, W), C, 0, 3 * C, p["stride_q"]))
+        else:
+            calls.add(((T, H, W), C, 0, C, p["stride_q"]))
+            calls.add(((T, H, W), C, C, 3 * C, p["stride_kv"]))
+    return sorted(calls)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("thw,C,lo,hi,stride", _mvit_pool_calls())
+def test_depthwise_pool_kernel_mvit_calls(card, dtype, thw, C, lo, hi, stride):
+    """K11 on every pool call shape of the full-width AV model, read in
+    place from the qkv tensor as MViT reads it, in both dtypes."""
+    g = torch.Generator().manual_seed(C + lo + stride[1])
+    qkv = _randn(g, 2, *thw, 3 * C, dtype=dtype)
+    x = qkv[..., lo:hi]
+    w = _randn(g, 3, 3, 3, hi - lo, dtype=torch.float32, scale=0.3)
+    before = t_pool.KERNEL.launches
+    out = t_pool.depthwise_pool3d(x, w, stride)
+    assert t_pool.KERNEL.launches == before + 1
+    _check(out, t_pool.pool_plain(x, w, stride), dtype)
+
+
+@pytest.mark.parametrize("shape,stride", [((1, 1, 1, 1), (1, 1, 1)), ((1, 3, 5, 9), (1, 2, 2)),
+                                          ((3, 2, 13, 7), (1, 3, 5)), ((1, 7, 4, 30), (1, 1, 2))])
+def test_depthwise_pool_kernel_ragged(card, shape, stride):
+    """K11 where the plan splits T unevenly, strips overhang W, T = 1 and
+    strides the model does not use."""
+    g = torch.Generator().manual_seed(sum(shape))
+    x = _randn(g, *shape, 24, dtype=torch.float32)
+    w = _randn(g, 3, 3, 3, 24, dtype=torch.float32, scale=0.3)
+    _check(t_pool.depthwise_pool3d(x, w, stride), t_pool.pool_plain(x, w, stride), torch.float32)
+
+
 def test_depthwise_pool_kernel_backward(card):
     """K11's output records a backward, and the gradients (the conv VJP)
     equal those of the plain version's autograd graph."""
@@ -654,6 +715,44 @@ def test_resize_conv_relu_kernel(card, shapes, out_hw, C, O):
     _check(out, t_resize.resize_sum_conv_relu_plain(xs, out_hw, k, b), torch.bfloat16)
 
 
+@pytest.mark.parametrize("shapes,out_hw,C,O", [(HEAD_PATH, (112, 192), 768, 96),
+                                               ([(5, 7), (11, 3)], (37, 29), 32, 16),
+                                               ([(3, 4)], (9, 50), 48, 128),
+                                               ([(4, 3), (8, 6), (16, 12), (32, 24)], (64, 48),
+                                                768, 96)])
+def test_resize_conv_relu_f32_kernel(card, shapes, out_hw, C, O):
+    """K8's f32 instance (split TF32) at the head's shapes at B=2, at
+    ragged sizes and at the small AV model's head (128x96), held to the
+    plain version in f64; it counts as its own kernel's launch."""
+    g = torch.Generator().manual_seed(C + O + 2)
+    xs, k, b = _head_args(g, shapes, C, O, torch.float32)
+    before, before16 = t_resize.CONV_F32_KERNEL.launches, t_resize.CONV_KERNEL.launches
+    out = t_resize.resize_sum_conv_relu(xs, out_hw, k, b)
+    assert t_resize.CONV_F32_KERNEL.launches == before + 1
+    assert t_resize.CONV_KERNEL.launches == before16
+    _check_head(out, xs, out_hw, k, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("O", [32, 48, 64, 80, 112])
+def test_resize_conv_relu_kernel_widths(card, dtype, O):
+    """K8 in both dtypes at every padded product width (O rounded up to 32,
+    48, 64, 96 or 128), C not a multiple of the 32-channel bf16 chunk."""
+    g = torch.Generator().manual_seed(O + 3)
+    xs, k, b = _head_args(g, [(6, 10), (3, 5)], 80, O, dtype)
+    _check_head(t_resize.resize_sum_conv_relu(xs, (21, 35), k, b), xs, (21, 35), k, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resize_conv_relu_kernel_takes_larger_inputs(card, dtype):
+    """K8 with inputs larger than the output (a tile's taps reach past the
+    bf16 producers' staged patch, which then read device memory) beside one
+    the patch holds."""
+    g = torch.Generator().manual_seed(5)
+    xs, k, b = _head_args(g, [(40, 70), (7, 9)], 64, 32, dtype)
+    _check_head(t_resize.resize_sum_conv_relu(xs, (21, 35), k, b), xs, (21, 35), k, b)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shapes,out_hw,C,O", [(HEAD_PATH, (112, 192), 768, 96),
                                                ([(5, 7), (11, 3)], (37, 29), 32, 16),
@@ -696,8 +795,11 @@ def test_new_kernels_refuse_what_they_do_not_take(card):
                                    _randn(g, 1, 128, 768), 2, 0.125)
     with pytest.raises(K.KernelLaunchError):  # K7: head_dim not a multiple of 16
         t_attn.cvt_cross_attention(*(_randn(g, 1, n, 72) for n in (8, 2, 2)), 3, 0.125)
-    xs, k, b = _head_args(g, [(3, 4)], 32, 16, torch.float32)
-    with pytest.raises(ValueError):  # K8 takes bf16 only
+    xs, k, b = _head_args(g, [(3, 4)], 32, 16, torch.float16)
+    with pytest.raises(ValueError):  # K8 takes bf16 and f32 (its f32 instance), not f16
+        t_resize.resize_sum_conv_relu(xs, (6, 8), k, b)
+    xs, k, b = _head_args(g, [(3, 4)], 40, 16)
+    with pytest.raises(ValueError):  # K8: C not a multiple of 16
         t_resize.resize_sum_conv_relu(xs, (6, 8), k, b)
     with pytest.raises(ValueError):  # K11: temporal stride 1 only
         t_pool.depthwise_pool3d(_randn(g, 1, 4, 5, 5, 16), _randn(g, 3, 3, 3, 16,

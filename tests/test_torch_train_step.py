@@ -30,11 +30,13 @@ JAX's, each within 5e-3 relative L2 and 3e-2 max|d| / max|g| on every
 leaf, and the two within four times the larger of those two gaps (two
 f32 errors, each up to twice the larger side's own). It prints, per leaf,
 relative L2 median (worst) and max|d| / max|g| worst: port f32 vs port
-f64 4.0e-6 (1.1e-5), 3.3e-5; JAX f32 vs port f64 8.5e-6 (1.1e-3), 1.3e-2;
-port f32 vs JAX f32 1.1e-5 (1.1e-3), 1.3e-2 (full frames: 1.1e-5
-(2.7e-5), 3.4e-5; 1.1e-5 (7.9e-4), 9.9e-3; 2.1e-5 (7.9e-4), 9.9e-3).
-JAX's worst leaf is `visual_net.blocks.8.proj.weight`; every other leaf of
-JAX's sits within ~3e-5 of the f64 step. Without the pinned branches the
+f64 4.0e-6 (1.1e-5), 3.3e-5; JAX f32 vs port f64 6.5e-6 (1.7e-5), 3.1e-5;
+port f32 vs JAX f32 7.8e-6 (1.9e-5), 5.7e-5 (full frames: 1.1e-5
+(2.7e-5), 3.4e-5; 1.1e-5 (2.5e-5), 2.9e-5; 2.0e-5 (5.1e-5), 4.9e-5).
+Before MViT's skip max pools were pinned too (fault F6, `ReluBranches`),
+JAX's f32 gradient of `visual_net.blocks.8.proj.weight` sat 1.1e-3 from
+the f64 step (max|d| / max|g| 1.3e-2; full frames 7.9e-4, 9.9e-3): one
+pool window whose winner f32 rounding decides. Without the pinned branches the
 same runs read ~1e-3 median on every pair, and which pairs crossed 5e-3
 depended on the CPU (the summation order of its f32 convolutions decides
 which side of zero those inputs land on): that was fault F4 (ROADMAP.md),
@@ -77,6 +79,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.nn.functional as F
 
 from diff_sal_tpu import config as jc
 from diff_sal_tpu.diffusion.schedule import make_schedule as j_make_schedule
@@ -178,8 +181,8 @@ def one_torch_thread():
 
 
 class ReluBranches:
-    """The ReLU branches of the port's f64 step, taken by every other step
-    of a parity test.
+    """The ReLU branches (and max-pool winners) of the port's f64 step,
+    taken by every other step of a parity test.
 
     The decoder's ReLUs (UpEmbed, ReduceTemp, the final conv-BN-ReLU; the
     frozen VGGish's are recorded too, and no gradient crosses them) see
@@ -201,12 +204,29 @@ class ReluBranches:
     two signs differ, by at most that element's |x|. Elsewhere it is
     relu(x) exactly. The port's side checks that the signs differ only
     within `BAND` of the tensor's largest |x|, and each step must take the
-    recorded ReLUs exactly, in order per shape."""
+    recorded ReLUs exactly, in order per shape.
+
+    MViT's strided skip max pools (`models/mvit.py`, JAX's `nn.max_pool`)
+    are the same kind of kink (fault F6, ROADMAP.md): the gradient goes to
+    each window's winner, and where two entries of a window lie within f32
+    rounding of each other the winner is decided by rounding. In the AV
+    model one window of block 8's pool (of 147456) has its f64 top two
+    1.9e-7 of the tensor's largest |x| apart, JAX's f32 step picks the
+    other one (its inputs sit 1.3e-6 from f64), and that one element moved
+    JAX's gradient of `visual_net.blocks.8.proj.weight` 1.1e-3 from f64
+    (rel_pos tables of blocks 3-5 ~1e-3 too), 6.2e-6 with the f64 winners
+    taken. So the f64 step also records each pool's winners, and the
+    other steps take the recorded entry of every window (the max pool's
+    value changed only where the two winners differ, by at most their
+    difference; the port's side checks it is within `BAND`)."""
 
     BAND = 1e-4  # f32 forward values sit within ~1e-6 of f64 here
 
-    def __init__(self):
+    def __init__(self, pools: bool = True):
         self.masks = []  # (shape, sign of the f64 input) in call order
+        # (input shape (B, C, T, H, W), f64 winners) in call order; None: the
+        # pools are left free (tests/f6_pool_winners.py measures them so)
+        self.pools = [] if pools else None
         self.flips = []  # per pinned port step: elements whose sign differed
 
     def _queues(self):
@@ -217,20 +237,28 @@ class ReluBranches:
 
     @contextlib.contextmanager
     def recording(self):
-        relu = torch.relu
+        relu, pool = torch.relu, F.max_pool3d
 
         def record(x):
             self.masks.append((tuple(x.shape), (x > 0).detach().numpy()))
             return relu(x)
+
+        def record_pool(x, kernel, stride, padding, **kw):
+            out, won = pool(x, kernel, stride, padding, return_indices=True)
+            self.pools.append((tuple(x.shape), won.numpy()))
+            return out
         torch.relu = record
+        if self.pools is not None:
+            F.max_pool3d = record_pool
         try:
             yield
         finally:
-            torch.relu = relu
+            torch.relu, F.max_pool3d = relu, pool
 
     @contextlib.contextmanager
     def pinned_torch(self):
         queues, relu, flips = self._queues(), torch.relu, [0]
+        pools, pool = list(self.pools or []), F.max_pool3d
 
         def pinned(x):
             m = torch.from_numpy(queues[tuple(x.shape)].pop(0))
@@ -240,12 +268,29 @@ class ReluBranches:
                 assert float(x.detach()[off].abs().max()) <= self.BAND * top, tuple(x.shape)
                 flips[0] += int(off.sum())
             return torch.where(m, x, torch.zeros((), dtype=x.dtype))
+
+        def pinned_pool(x, kernel, stride, padding, **kw):
+            shape, won = pools.pop(0)
+            assert shape == tuple(x.shape), (shape, tuple(x.shape))
+            out = pool(x, kernel, stride, padding)
+            B, C = shape[:2]
+            got = x.reshape(B, C, -1).gather(2, torch.from_numpy(won).reshape(B, C, -1))
+            got = got.reshape(out.shape)
+            off = got != out
+            if bool(off.any()):
+                top = float(x.detach().abs().max())
+                assert float((out - got).detach()[off].abs().max()) <= self.BAND * top, shape
+                flips[0] += int(off.sum())
+            return got
         torch.relu = pinned
+        if self.pools is not None:
+            F.max_pool3d = pinned_pool
         try:
             yield
         finally:
-            torch.relu = relu
+            torch.relu, F.max_pool3d = relu, pool
         assert not any(queues.values()), "a recorded ReLU was not taken"
+        assert not pools, "a recorded max pool was not taken"
         self.flips.append(flips[0])
 
     @staticmethod
@@ -257,16 +302,30 @@ class ReluBranches:
             yield
             return
         queues, relu = branches._queues(), flax_nn.relu
+        pools, pool = list(branches.pools or []), flax_nn.max_pool
 
         def pinned(x):
             m = queues[tuple(x.shape)].pop(0)
             return jnp.where(m, x, jnp.zeros((), x.dtype))
+
+        def pinned_pool(x, window_shape, strides=None, padding="VALID"):
+            out = pool(x, window_shape, strides=strides, padding=padding)
+            if x.ndim != 5:  # VGGish's 2-D pools: no gradient reaches them
+                return out
+            shape, won = pools.pop(0)  # (B, C, T', H', W') indices into T H W
+            B, C = x.shape[0], x.shape[-1]
+            assert (B, C) + tuple(x.shape[1:4]) == shape, (shape, x.shape)
+            won = jnp.asarray(np.moveaxis(won, 1, -1).reshape(B, -1, C))
+            return jnp.take_along_axis(x.reshape(B, -1, C), won, axis=1).reshape(out.shape)
         flax_nn.relu = pinned
+        if branches.pools is not None:
+            flax_nn.max_pool = pinned_pool
         try:
             yield
         finally:
-            flax_nn.relu = relu
+            flax_nn.relu, flax_nn.max_pool = relu, pool
         assert not any(queues.values()), "a recorded ReLU was not taken"
+        assert not pools, "a recorded max pool was not taken"
 
 
 def port_f64_step(cfg, variables, batch, draws, branches=None):
