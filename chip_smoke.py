@@ -36,10 +36,13 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      their shared memory), and for K2, K3 and K6 one line per (rows, C)
      with the device time per call, the bound per call and the share of it
      (K2 and K6 also with whether the bulk path took it);
-     then K10, which no model path calls: the four recorded task maps added
-     one by one into a zero accumulator (launches counted in that run),
-     against K4's sum of the same maps and each call against K10's plain
-     version;
+     K4 with a `[shape ...]` line per call shape (its plan: band, chunk,
+     column tile, CTAs) and beside it, as context (timed only, never on
+     the port's path), the device time of four `F.interpolate(bilinear)`
+     calls on channels-last views of its maps and their sum; then K10,
+     which no model path calls: the four recorded task maps added one by
+     one into a zero accumulator (launches counted in that run), against
+     K4's sum of the same maps and each call against K10's plain version;
   5. the whole port at a small size: bf16 through the kernels on the card
      against f32 through the plain versions on the CPU;
   6. the training step at full width: the AV config in bf16, B=4, x0
@@ -73,8 +76,13 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      `[shape ...]` line per K8 call shape ((out_hw, C, O, inputs)) and per
      K11 call shape (((B, T, H, W), C, stride): its share of the bound that
      counts the input pixels some tap touches, and of the one reading all
-     of x), and beside K8, as context, the device time of the unfused head
-     it replaces (K4 + cuDNN's conv + bias + ReLU) on its recorded inputs;
+     of x), and beside K8 and K9, as context, the device time of the
+     unfused head they replace (K4 + cuDNN's conv + bias + ReLU) on each
+     one's recorded inputs; K9's device time split into its cuBLAS products
+     and its gather kernel, each against its share of the bound, a `[shape
+     ...]` line with its plan, and its bound as first counted (every output
+     recomputing its dy contraction: `bound_ms_first_count` on its `kernels`
+     row);
      the small AV model with the lowerings through DPM++ NFE 2, bf16 on the
      card against f32 on the CPU;
   9. the visual-only model (`ModelConfig.visual_only()`, the DHF1k visual
@@ -347,21 +355,42 @@ def bound_terms(kernel: str, args, kw):
             return nbytes, [(2.0 * B * H * W * 9 * C * O,
                              BF16_TENSOR_FLOPS if e == 2 else SPLIT_TF32_FLOPS),
                             (8.0 * len(xs) * B * H * W * C, F32_FLOPS)]
-        # u_i = x_i K' on the tensor cores, then the gather over the
-        # non-zero taps of this input's shifted resize matrices in f32
+        # u_i = x_i K' on the tensor cores, then the separable form's f32
+        # work: per task the dy contraction once per (output row, input
+        # column, dx) over the live row taps, the dx contraction once per
+        # output over the live column taps; bias and ReLU
         from diff_sal_tpu_torch.ops import resize
 
         shapes = tuple((x.shape[1], x.shape[2]) for x in xs)
-        _, wts = resize._phase_tables(shapes, (H, W), xs[0].dtype, "cpu")
-        gather = 0.0
-        for k in range(len(xs)):
-            nz = (wts[k] != 0).sum(0).double()  # non-zero taps per table entry
-            rows = 2.0 + 2.0 * nz[:3 * H].reshape(3, H).sum(0)
-            cols = nz[3 * H:].reshape(3, W).sum(0)
-            gather += float(rows.sum() * cols.sum())
+        _, wts = resize._phase_arrays(shapes, (H, W), xs[0].dtype)
+        sep = 2.0 * H * W
+        for k, (_, w) in enumerate(shapes):
+            live = (wts[k] != 0).sum(0)  # live taps per table entry
+            sep += 2.0 * 3 * w * live[:3 * H].sum() + 2.0 * H * live[3 * H:].sum()
         mm = sum(2.0 * B * x.shape[1] * x.shape[2] * C * 9 * O for x in xs)
-        return nbytes, [(mm, BF16_TENSOR_FLOPS), (B * O * (gather + 2.0 * H * W), F32_FLOPS)]
+        return nbytes, [(mm, BF16_TENSOR_FLOPS), (B * O * sep, F32_FLOPS)]
     raise KeyError(kernel)
+
+
+def phase_gather_terms(args):
+    """K9's operations as first counted: the products and the
+    per-output-pixel gather, every output recomputing its dy contraction
+    per column tap; kept beside the separable count so that shares of the
+    first bound stay comparable."""
+    from diff_sal_tpu_torch.ops import resize
+
+    xs, (H, W), kern = args[:3]
+    B, C, O = xs[0].shape[0], xs[0].shape[-1], kern.shape[-1]
+    _, wts = resize._phase_arrays(tuple((x.shape[1], x.shape[2]) for x in xs), (H, W),
+                                  xs[0].dtype)
+    gather = 0.0
+    for k in range(len(xs)):
+        nz = (wts[k] != 0).sum(0).astype(np.float64)  # non-zero taps per table entry
+        rows = 2.0 + 2.0 * nz[:3 * H].reshape(3, H).sum(0)
+        cols = nz[3 * H:].reshape(3, W).sum(0)
+        gather += float(rows.sum() * cols.sum())
+    mm = sum(2.0 * B * x.shape[1] * x.shape[2] * C * 9 * O for x in xs)
+    return [(mm, BF16_TENSOR_FLOPS), (B * O * (gather + 2.0 * H * W), F32_FLOPS)]
 
 
 def pool_touched(n: int, s: int) -> int:
@@ -604,6 +633,19 @@ def shape_key(name, args):
     if base == "resize_conv_relu":
         xs, out_hw, kern = args[:3]
         return tuple(out_hw), xs[0].shape[-1], kern.shape[-1], len(xs)
+    if base in ("bilinear_resize_sum", "resize_phase_head"):
+        # with the separable plan's (band, chunk, column tile, CTAs)
+        from diff_sal_tpu_torch.ops import resize
+
+        xs, (H, W) = args[:2]
+        shapes = tuple((x.shape[1], x.shape[2]) for x in xs)
+        B, C, dt = xs[0].shape[0], xs[0].shape[-1], xs[0].dtype
+        if base == "bilinear_resize_sum":
+            p = resize.resize_plan(B, H, W, C, shapes, dt)
+        else:
+            C = args[2].shape[-1]
+            p = resize.phase_plan(B, H, W, shapes, C, dt)
+        return (B, H, W), C, shapes, (p.bh, p.cc, p.tw, p.ctas)
     return None
 
 
@@ -612,7 +654,9 @@ SHAPE_LABEL = {"layer_norm": "(rows, C, bulk)", "layer_norm_bwd": "(rows, C, bul
                "block_tail": "(rows, C)",
                "cvt_attention": "(Bt, L, C)",
                "depthwise_pool3d": "((B, T, H, W), C, stride)",
-               "resize_conv_relu": "(out_hw, C, O, inputs)"}
+               "resize_conv_relu": "(out_hw, C, O, inputs)",
+               "bilinear_resize_sum": "((B, H, W), C, inputs, plan (bh, cc, tw, CTAs))",
+               "resize_phase_head": "((B, TH, TW), O, tasks, plan (bh, cc, tw, CTAs))"}
 
 
 # f32 instances held against their plain version computed in f64, within
@@ -722,6 +766,13 @@ def hold_kernels(names, recorders, plain, counts, profile=False):
             lib_dev_ms += lms or 0.0
         kern = kernels.registry()[name]
         bound = max(t_bytes, t_ops)
+        extra = {}
+        if name == "resize_phase_head":
+            first = max(t_bytes, sum(sum(n / p for n, p in phase_gather_terms(a)) * 1e3
+                                   for a, _ in rec.calls))
+            extra["bound_ms_first_count"] = first
+            log(f"[kernel {name}] bound as first counted (every output recomputes its dy "
+                f"contraction) {first:.4f} ms, {100.0 * first / dev_ms:.1f}% of it by device time")
         rows.append({
             "name": name,
             "route": "cuda",
@@ -736,6 +787,7 @@ def hold_kernels(names, recorders, plain, counts, profile=False):
             "library_ms": lib_ms if has_lib else None,
             "device_ms": dev_ms,
             "library_device_ms": lib_dev_ms if has_lib else None,
+            **extra,
         })
         log(f"[kernel {name}] {len(rec.calls)} calls per run: kernel {kern_ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, library {lib_ms if has_lib else None}, "
@@ -1015,7 +1067,11 @@ def dpm_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi, full_ca
     counts["resize_conv_relu"] = counts_k8[2]["resize_conv_relu"]
     full_calls["cvt_attention"] = list(recorders["cvt_attention"].calls)
     full_calls["resize_conv_relu"] = list(recorders["resize_conv_relu"].calls)
-    unfused_head(full_calls["resize_conv_relu"])
+    unfused_head(full_calls["resize_conv_relu"], "resize_conv_relu")
+    phase_calls = list(recorders["resize_phase_head"].calls)
+    unfused_head(phase_calls, "resize_phase_head")
+    phase_split(phase_calls)
+    del phase_calls
     rows = hold_kernels(("cvt_attention", "resize_conv_relu", "resize_phase_head",
                          "depthwise_pool3d"), recorders, plain, counts)
 
@@ -1045,11 +1101,11 @@ def dpm_phase(cli, dev, schedule, data_cfg, recorders, plain, kind, smi, full_ca
     return rows
 
 
-def unfused_head(calls):
-    """Context for K8: on its recorded inputs, the device time of the route
-    it replaces, ConvBNRelu's default path at eval (`models/layers.py`): K4's
-    resize-sum, then cuDNN's conv with the folded kernel and bias, then
-    ReLU. Timed only."""
+def unfused_head(calls, name):
+    """Context for K8 and K9: on the recorded inputs of `name`, the device
+    time of the route they replace, ConvBNRelu's default path at eval
+    (`models/layers.py`): K4's resize-sum, then cuDNN's conv with the folded
+    kernel and bias, then ReLU. Timed only."""
     from diff_sal_tpu_torch.ops import resize
 
     F = torch.nn.functional
@@ -1064,9 +1120,64 @@ def unfused_head(calls):
             return torch.relu(F.conv2d(a.permute(0, 3, 1, 2), w, b, 1, 1)).permute(0, 2, 3, 1)
         thunks.append(head)
     ms = device_ms(thunks)[0]
-    log(f"[shape resize_conv_relu] the unfused head on the {len(calls)} recorded calls (K4 + "
+    log(f"[shape {name}] the unfused head on the {len(calls)} recorded calls (K4 + "
         f"cuDNN conv + bias + ReLU): device {1e3 * ms / len(calls):.2f} us per call, "
         f"{ms:.4f} ms per run")
+    return ms
+
+
+# CUDA kernels of K9's separable gather (csrc/separable.cuh); every other
+# device event of a K9 call is its u_i = x_i K' products
+GATHER_KERNEL = "separable_kernel"
+
+
+def phase_split(calls):
+    """K9's device time on its recorded calls split into the cuBLAS
+    products (u_i = x_i K') and the gather kernel, each against its share
+    of the bound: the products at the bf16 tensor cores' rate, the gather
+    by the larger of its bytes (u_i read once, the output written once) and
+    the separable form's f32 operations."""
+    from diff_sal_tpu_torch.ops import resize
+
+    events = device_events([lambda a=a, k=k: resize.resize_sum_conv_relu_phase(*a, **k)
+                            for a, k in calls])
+    gather = sum(e.time_range.elapsed_us() for e in events if GATHER_KERNEL in e.name) / 1e3
+    total = sum(e.time_range.elapsed_us() for e in events) / 1e3
+    mm_ms = sep_ms = 0.0
+    for a, k in calls:
+        xs, (H, W), kern = a[:3]
+        nbytes, ((mm, mm_peak), (ops, peak)) = bound_terms("resize_phase_head", a, k)
+        O, e = kern.shape[-1], xs[0].element_size()
+        u_bytes = sum(x.numel() // x.shape[-1] * 9 * O for x in xs) * e
+        out_bytes = xs[0].shape[0] * H * W * O * e
+        mm_ms += mm / mm_peak * 1e3
+        sep_ms += max((u_bytes + out_bytes) / HBM_BYTES_PER_S, ops / peak) * 1e3
+    n = len(calls)
+    log(f"[shape resize_phase_head] device time split over the {n} recorded calls: products "
+        f"(cuBLAS) {1e3 * (total - gather) / n:.2f} us per call (bound {1e3 * mm_ms / n:.2f} us, "
+        f"{100.0 * mm_ms / max(total - gather, 1e-9):.1f}%), gather kernel {1e3 * gather / n:.2f} "
+        f"us per call (bound {1e3 * sep_ms / n:.2f} us, {100.0 * sep_ms / max(gather, 1e-9):.1f}%)"
+        f"; {total:.4f} ms per run")
+
+
+def interpolate_sum(call):
+    """Context for K4 (timed only, never on the port's path): the device
+    time of its function as four `F.interpolate(mode="bilinear",
+    align_corners=False)` calls on channels-last views of the recorded task
+    maps and their sum, in x's dtype."""
+    F = torch.nn.functional
+    (xs, out_hw), _ = call
+    views = [x.permute(0, 3, 1, 2) for x in xs]  # NCHW shape, channels-last memory
+
+    def fn():
+        acc = None
+        for v in views:
+            r = F.interpolate(v, size=tuple(out_hw), mode="bilinear", align_corners=False)
+            acc = r if acc is None else acc + r
+        return acc
+    ms = device_ms([fn])[0]
+    log(f"[shape bilinear_resize_sum] four F.interpolate (bilinear, channels-last) + sum on the "
+        f"recorded maps: device {1e3 * ms:.2f} us")
     return ms
 
 
@@ -1939,6 +2050,7 @@ def main() -> int:
     }
     plain.update({n: plain[n.removesuffix("_f32")] for n in F32_KERNELS})
     k4_call = recorders["bilinear_resize_sum"].calls[0]
+    interpolate_sum(k4_call)
     # phase 11 casts the main path's K1 calls (and phase 9's K12 forward
     # calls) to f32; hold_kernels empties the recorders
     full_calls = {"bias_attention": list(recorders["bias_attention"].calls),

@@ -1,20 +1,27 @@
-// K4: multi-scale bilinear resize-and-sum, a gather pass.
+// K4: multi-scale bilinear resize-and-sum, as two separable passes through
+// shared memory.
 //
 // Replaces the TPU kernel diff_sal_tpu/ops/resize.py:235 bilinear_resize_sum
-// (body _resize_sum_kernel :206), which contracts each input with two dense
-// interpolation matrices on the MXU. On the H100 the function is bound by
-// the bytes of its output: (B, H, W, C) written once against ~16
-// multiply-adds per element. So each thread owns one output pixel and VEC
-// consecutive channels (16 bytes), reads the 2x2 half-pixel taps of each of
-// the n <= 4 inputs with 16-byte loads (the small inputs stay in L2),
-// accumulates in f32 and writes its 16 bytes once. Neighbouring threads take
-// neighbouring channel groups, so loads and stores are coalesced.
+// (body _resize_sum_kernel :206), which contracts each input with the dense
+// row matrix into an f32 intermediate `t1`, then with the column matrix, on
+// the MXU, and rounds once. On the H100 the function is bound by the bytes
+// of its output: (B, H, W, C) written once against ~16 multiply-adds per
+// element. The kernel is `separable.cuh` with one shift (NS = 1): per CTA
+// (b, a band of output rows, a chunk of C), a row pass writes each input's
+// row-interpolated f32 rows R_i[y, input column, chunk] (the JAX body's
+// `t1`) into shared memory, each input row read once per band with 16-byte
+// loads, and a column pass adds the two column taps of every R_i from shared
+// memory in f32 registers and writes the output once with 16-byte stores,
+// rounded once to x's dtype. (The first kernel, one thread per output pixel
+// and 8 channels reading the 2x2 taps of every input, made 16 loads of 16
+// bytes from L1/L2 per 16 bytes written.) The plan (`resize_plan` in
+// ops/resize.py) gives the band, the channel chunk and the column tile.
 //
 // Tap tables (built on the host from the same half-pixel rule as the dense
 // matrices): idx (n, 2, H + W) int32 = [lo | hi], wts (n, 2, H + W) f32 =
 // [w_lo | w_hi]; entries [0, H) are rows and [H, H + W) are columns.
 //
-// K10: acc + bilinear_resize(x), the same gather for one input. Replaces the
+// K10: acc + bilinear_resize(x), a gather for one input. Replaces the
 // TPU kernel diff_sal_tpu/ops/resize.py:142 bilinear_resize_add (body
 // _resize_acc_kernel :125). Bound by bytes: acc read once and the output
 // written once (x, the small map, stays in L2), ~8 flops per element. One
@@ -25,6 +32,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "separable.cuh"
 
 namespace {
 
@@ -81,69 +90,6 @@ __device__ inline float round_to(__nv_bfloat16*, float x) {
 }
 __device__ inline float round_to(float*, float x) { return x; }
 
-struct Inputs {
-  const void* x[4];
-  int h[4];
-  int w[4];
-};
-
-template <typename T>
-__global__ void resize_sum_kernel(Inputs in, const int* __restrict__ idx,
-                                  const float* __restrict__ wts, T* __restrict__ out,
-                                  int n, int B, int H, int W, int C) {
-  constexpr int V = Vec<T>::N;
-  const int groups = C / V;
-  const long long total = (long long)B * H * W * groups;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= total) return;
-  const int g = (int)(tid % groups);
-  long long pix = tid / groups;
-  const int x = (int)(pix % W);
-  pix /= W;
-  const int y = (int)(pix % H);
-  const int b = (int)(pix / H);
-  const int L = H + W;
-
-  float acc[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.f;
-
-  for (int k = 0; k < n; ++k) {
-    const int* ik = idx + k * 2 * L;
-    const float* wk = wts + k * 2 * L;
-    const int ylo = ik[y], yhi = ik[L + y];
-    const int xlo = ik[H + x], xhi = ik[L + H + x];
-    const float wyl = wk[y], wyh = wk[L + y];
-    const float wxl = wk[H + x], wxh = wk[L + H + x];
-    const int h = in.h[k], w = in.w[k];
-    const T* base = static_cast<const T*>(in.x[k]) + (long long)b * h * w * C + g * V;
-    float t[V];
-    Vec<T>::load(base + ((long long)ylo * w + xlo) * C, t);
-#pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] += wyl * wxl * t[i];
-    Vec<T>::load(base + ((long long)ylo * w + xhi) * C, t);
-#pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] += wyl * wxh * t[i];
-    Vec<T>::load(base + ((long long)yhi * w + xlo) * C, t);
-#pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] += wyh * wxl * t[i];
-    Vec<T>::load(base + ((long long)yhi * w + xhi) * C, t);
-#pragma unroll
-    for (int i = 0; i < V; ++i) acc[i] += wyh * wxh * t[i];
-  }
-  Vec<T>::store(out + (((long long)b * H + y) * W + x) * C + g * V, acc);
-}
-
-template <typename T>
-void launch(Inputs in, const int* idx, const float* wts, void* out, int n, int B,
-            int H, int W, int C, cudaStream_t stream) {
-  const long long total = (long long)B * H * W * (C / Vec<T>::N);
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  resize_sum_kernel<T><<<blocks, threads, 0, stream>>>(
-      in, idx, wts, static_cast<T*>(out), n, B, H, W, C);
-}
-
 template <typename TA, typename TX>
 __global__ void resize_add_kernel(const TA* __restrict__ acc, const TX* __restrict__ x,
                                   const int* __restrict__ idx, const float* __restrict__ wts,
@@ -197,21 +143,28 @@ void launch_add(const void* acc, const void* x, const int* idx, const float* wts
 
 }  // namespace
 
+// K4: out = sum_i resize(x_i); x_i (B, h_i, w_i, C) bf16 (C % 8 == 0) or f32
+// (C % 4 == 0); (bh, cc, tw, cols, ctas) the plan's band, channel chunk,
+// column tile, staged columns and persistent CTAs
 extern "C" int dsal_resize_sum(const void* x0, const void* x1, const void* x2,
                                const void* x3, const int* idx, const float* wts,
                                void* out, int h0, int h1, int h2, int h3, int w0,
                                int w1, int w2, int w3, int n, int B, int H, int W,
-                               int C, int is_bf16, void* stream) {
-  Inputs in;
-  in.x[0] = x0; in.x[1] = x1; in.x[2] = x2; in.x[3] = x3;
-  in.h[0] = h0; in.h[1] = h1; in.h[2] = h2; in.h[3] = h3;
-  in.w[0] = w0; in.w[1] = w1; in.w[2] = w2; in.w[3] = w3;
+                               int C, int bh, int cc, int tw, int cols, int ctas,
+                               int is_bf16, void* stream) {
+  sep::Args a;
+  a.x[0] = x0; a.x[1] = x1; a.x[2] = x2; a.x[3] = x3;
+  a.h[0] = h0; a.h[1] = h1; a.h[2] = h2; a.h[3] = h3;
+  a.w[0] = w0; a.w[1] = w1; a.w[2] = w2; a.w[3] = w3;
+  a.idx = idx;
+  a.wts = wts;
+  a.bias = nullptr;
+  a.out = out;
+  a.n = n; a.B = B; a.H = H; a.W = W; a.C = C;
+  a.cc = cc; a.tw = tw; a.cols = cols;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    launch<__nv_bfloat16>(in, idx, wts, out, n, B, H, W, C, s);
-  else
-    launch<float>(in, idx, wts, out, n, B, H, W, C, s);
-  return (int)cudaGetLastError();
+  if (is_bf16) return sep::launch<__nv_bfloat16, float, 1>(a, bh, ctas, s);
+  return sep::launch<float, float, 1>(a, bh, ctas, s);
 }
 
 // K10: out = acc + resize(x); acc, out (B, H, W, C), x (B, h, w, C), C % 8 == 0;

@@ -1,4 +1,5 @@
-// K9: the decoder's head as conv-at-low-res, a gather over the nine phases.
+// K9: the decoder's head as conv-at-low-res, as two separable passes through
+// shared memory.
 //
 // Replaces the TPU kernel diff_sal_tpu/ops/resize.py:567
 // resize_sum_conv_relu_phase (body _phase_resize_head_kernel :526). conv3x3
@@ -10,12 +11,20 @@
 // dx, O). Row o of the dy-shifted row matrix Ah_dy is row o + dy - 1 of the
 // bilinear matrix and zero past the borders, which reproduces the conv's
 // zero padding exactly; the same holds for the columns and dx. Each bilinear
-// row has at most two non-zeros, so the contraction is a gather: for every
-// output pixel and 8 output channels a thread reads, per task, per dx, per
-// column tap and per dy, the two row taps of u_i (at most 144 16-byte loads,
-// served mostly from L1/L2: u_i totals ~25 MB at B = 2). On the H100 the
-// kernel is bound by those cached reads, not by HBM (u once, out once) or
-// by arithmetic.
+// row has at most two non-zeros. The kernel is `separable.cuh` with three
+// shifts (NS = 3): per CTA (b, a band of output rows, a chunk of O), a dy
+// pass computes V_i[o, c, dx, chunk] = sum_dy sum_row-taps wy u_i[row, c, dy,
+// dx, chunk] once per (output row, input column, dx) into shared memory in
+// u's dtype, each row of u_i read once per band and dy with 16-byte loads,
+// and a dx pass adds sum_dx sum_col-taps wx V_i[o, col, dx, :] of every task
+// from shared memory in f32 registers, then the f32 bias and ReLU, one
+// rounding and 16-byte stores. V never reaches device memory, as the TPU
+// kernel keeps its (TH, TW, C) accumulator out of HBM. (The first kernel, one
+// thread per output pixel and 8 channels, recomputed the dy contraction for
+// every output column: up to 144 loads of 16 bytes from L1/L2 per 16 bytes
+// written.) On the H100 the gather is bound by reading u_i (~25 MB at B = 2)
+// and writing the output; the plan (`phase_plan` in ops/resize.py) gives the
+// band, the O chunk and the column tile.
 // Rounding follows the TPU kernel: the interpolation weights are given
 // rounded to u's dtype (they are the TPU kernel's bf16 matrices), the dy
 // contraction accumulates in f32 and is rounded to u's dtype, the dx
@@ -31,138 +40,27 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "separable.cuh"
 
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* f) {
-    uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float2 v = __bfloat1622float2(h[i]);
-      f[2 * i] = v.x;
-      f[2 * i + 1] = v.y;
-    }
-  }
-  __device__ static void store(__nv_bfloat16* p, const float* f) {
-    uint4 raw;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = raw;
-  }
-  __device__ static float round(float v) { return __bfloat162float(__float2bfloat16(v)); }
-};
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void load(const float* p, float* f) {
-    float4 v = *reinterpret_cast<const float4*>(p);
-    f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
-  }
-  __device__ static void store(float* p, const float* f) {
-    *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
-  }
-  __device__ static float round(float v) { return v; }
-};
-
-struct Inputs {
-  const void* u[4];
-  int h[4];
-  int w[4];
-};
-
-template <typename T>
-__global__ void phase_head_kernel(Inputs in, const int* __restrict__ idx,
-                                  const float* __restrict__ wts,
-                                  const float* __restrict__ bias, T* __restrict__ out, int n,
-                                  int B, int TH, int TW, int O) {
-  constexpr int V = Vec<T>::N;
-  const int groups = O / V;
-  const long long total = (long long)B * TH * TW * groups;
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= total) return;
-  const int g = (int)(tid % groups);
-  long long pix = tid / groups;
-  const int p = (int)(pix % TW);
-  pix /= TW;
-  const int o = (int)(pix % TH);
-  const int b = (int)(pix / TH);
-  const int L = 3 * (TH + TW);
-  const int O9 = 9 * O;
-
-  float acc[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.f;
-
-  for (int k = 0; k < n; ++k) {
-    const int* ik = idx + k * 2 * L;
-    const float* wk = wts + k * 2 * L;
-    const int h = in.h[k], w = in.w[k];
-    const T* ub = static_cast<const T*>(in.u[k]) + (long long)b * h * w * O9 + g * V;
-    for (int dx = 0; dx < 3; ++dx) {
-      const int ce = 3 * TH + dx * TW + p;
-      for (int ct = 0; ct < 2; ++ct) {
-        const float wx = wk[ct * L + ce];
-        if (wx == 0.f) continue;
-        const int xw = ik[ct * L + ce];
-        // v = round(sum_dy sum_row-taps wy * u[h, xw, dy, dx, :])
-        float v[V];
-#pragma unroll
-        for (int i = 0; i < V; ++i) v[i] = 0.f;
-        for (int dy = 0; dy < 3; ++dy) {
-          const int re = dy * TH + o;
-          const T* col = ub + (long long)xw * O9 + (dy * 3 + dx) * O;
-          for (int rt = 0; rt < 2; ++rt) {
-            const float wy = wk[rt * L + re];
-            if (wy == 0.f) continue;
-            float t[V];
-            Vec<T>::load(col + (long long)ik[rt * L + re] * w * O9, t);
-#pragma unroll
-            for (int i = 0; i < V; ++i) v[i] += wy * t[i];
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < V; ++i) acc[i] += wx * Vec<T>::round(v[i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = fmaxf(acc[i] + bias[g * V + i], 0.f);
-  Vec<T>::store(out + (((long long)b * TH + o) * TW + p) * O + g * V, acc);
-}
-
-template <typename T>
-void launch(Inputs in, const int* idx, const float* wts, const float* bias, void* out, int n,
-            int B, int TH, int TW, int O, cudaStream_t stream) {
-  const long long total = (long long)B * TH * TW * (O / Vec<T>::N);
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  phase_head_kernel<T><<<blocks, threads, 0, stream>>>(in, idx, wts, bias,
-                                                       static_cast<T*>(out), n, B, TH, TW, O);
-}
-
-}  // namespace
-
+// bf16 needs O % 8 == 0, f32 O % 4 == 0; (bh, cc, tw, cols, ctas) the plan's
+// band, O chunk, column tile, staged columns and persistent CTAs
 extern "C" int dsal_resize_phase_head(const void* u0, const void* u1, const void* u2,
                                       const void* u3, const int* idx, const float* wts,
                                       const float* bias, void* out, int h0, int h1, int h2,
                                       int h3, int w0, int w1, int w2, int w3, int n, int B,
-                                      int TH, int TW, int O, int is_bf16, void* stream) {
-  Inputs in;
-  in.u[0] = u0; in.u[1] = u1; in.u[2] = u2; in.u[3] = u3;
-  in.h[0] = h0; in.h[1] = h1; in.h[2] = h2; in.h[3] = h3;
-  in.w[0] = w0; in.w[1] = w1; in.w[2] = w2; in.w[3] = w3;
+                                      int TH, int TW, int O, int bh, int cc, int tw, int cols,
+                                      int ctas, int is_bf16, void* stream) {
+  sep::Args a;
+  a.x[0] = u0; a.x[1] = u1; a.x[2] = u2; a.x[3] = u3;
+  a.h[0] = h0; a.h[1] = h1; a.h[2] = h2; a.h[3] = h3;
+  a.w[0] = w0; a.w[1] = w1; a.w[2] = w2; a.w[3] = w3;
+  a.idx = idx;
+  a.wts = wts;
+  a.bias = bias;
+  a.out = out;
+  a.n = n; a.B = B; a.H = TH; a.W = TW; a.C = O;
+  a.cc = cc; a.tw = tw; a.cols = cols;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    launch<__nv_bfloat16>(in, idx, wts, bias, out, n, B, TH, TW, O, s);
-  else
-    launch<float>(in, idx, wts, bias, out, n, B, TH, TW, O, s);
-  return (int)cudaGetLastError();
+  if (is_bf16) return sep::launch<__nv_bfloat16, __nv_bfloat16, 3>(a, bh, ctas, s);
+  return sep::launch<float, float, 3>(a, bh, ctas, s);
 }

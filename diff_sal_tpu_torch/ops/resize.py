@@ -11,11 +11,14 @@ replaces the TPU kernel `diff_sal_tpu/ops/resize.py:235
 bilinear_resize_sum` (body `_resize_sum_kernel` :206). On the H100 it is
 bound by the bytes it writes: the (B, 112, 192, 768) output is ~2.5x
 the four small inputs together, and it does ~16 multiply-adds per output
-element. The kernel (`csrc/resize.cu`) is a gather pass: one thread per
-(output pixel, 8 channels) reads the 2x2 taps of each input with 16-byte
-loads, sums in f32 and writes the output once. Tap rows, columns and
-weights come from the same `_linear_weights` rule (lo, hi, 1-frac, frac),
-so it matches the matrix form to rounding.
+element. The kernel (`csrc/resize.cu` on `csrc/separable.cuh`) runs the
+JAX body's two passes per CTA (b, a band of output rows, a chunk of C):
+each input's rows interpolated into an f32 intermediate in shared memory
+(each input row read once per band), then its columns from there into f32
+registers, the output rounded once and written once. Tap rows, columns
+and weights come from the same `_linear_weights` rule (lo, hi, 1-frac,
+frac), so it matches the matrix form to rounding; `resize_plan` gives the
+geometry.
 
 K4 is differentiable: an autograd Function whose backward is plain math,
 as in the JAX package (`op_bwd`, resize.py:310): d x_i = Ah_i^T g Aw_i^T in
@@ -62,8 +65,11 @@ K9 `resize_sum_conv_relu_phase` replaces the TPU kernel
 x_i K' at each task's resolution (a matmul outside the kernel, as in the
 JAX package), then sum_i sum_dx Aw_dx (sum_dy Ah_dy u_i[dy, dx]) with the
 dy-shifted resize matrices, + b and ReLU. The kernel
-(`csrc/resize_phase.cu`) is a gather over the two taps per row of each
-shifted matrix, rounding where the TPU kernel rounds. Its plain version is
+(`csrc/resize_phase.cu` on `csrc/separable.cuh`) is K4's two passes with
+three shifts per axis: the dy contraction once per (output row, input
+column, dx) into shared memory, rounded to u's dtype as the TPU kernel
+rounds, then the dx contraction of every task in f32 registers;
+`phase_plan` gives the geometry. Its plain version is
 `resize_sum_conv_relu_lowres`, the JAX package's non-Pallas form.
 
 Both raise when grad mode is on and an input requires grad: the JAX
@@ -84,7 +90,7 @@ from diff_sal_tpu_torch.ops import kernels as K
 
 KERNEL = K.Kernel(
     "bilinear_resize_sum", "resize.cu", "dsal_resize_sum",
-    [K.P] * 4 + [K.P, K.P, K.P] + [K.I] * 4 + [K.I] * 4 + [K.I] * 6 + [K.P],
+    [K.P] * 4 + [K.P, K.P, K.P] + [K.I] * 4 + [K.I] * 4 + [K.I] * 11 + [K.P],
     replaces="diff_sal_tpu/ops/resize.py:235 bilinear_resize_sum "
              "(_resize_sum_kernel :206)",
 )
@@ -109,7 +115,7 @@ CONV_F32_KERNEL = K.Kernel(
 )
 PHASE_KERNEL = K.Kernel(
     "resize_phase_head", "resize_phase.cu", "dsal_resize_phase_head",
-    [K.P] * 4 + [K.P] * 4 + [K.I] * 8 + [K.I] * 6 + [K.P],
+    [K.P] * 4 + [K.P] * 4 + [K.I] * 8 + [K.I] * 11 + [K.P],
     replaces="diff_sal_tpu/ops/resize.py:567 resize_sum_conv_relu_phase "
              "(_phase_resize_head_kernel :526)",
 )
@@ -128,6 +134,27 @@ CONV_STAGES = 2
 CONV_TABLE_BYTES = MAX_INPUTS * (10 + 18) * 16
 CONV_PATCH_BYTES = 128 * 80  # bf16: the inputs' pixels under a tile's halo, a chunk
 SMEM_MAX = 232448
+SM_SMEM = 233_472  # shared memory of an SM; each CTA also holds 1 KB
+NUM_SMS = 132
+
+# K4's and K9's geometry, as csrc/separable.cuh: persistent CTAs of 256
+# threads, two per SM (a CTA's share of an SM's shared memory), each walking
+# at least two work units where the shape has that many; strips of 4 output
+# columns in the column pass, bands of 4, 2 or 1 output rows (the kernel's
+# instances), staged tap pairs of 16 bytes, 48 small ints; channel chunks
+# of 64 channels (K4) and 64 bytes (K9: 32 bf16, 16 f32, each the fastest
+# on the card at the decoder's head) at most
+SEP_THREADS = 256
+SEP_STRIP = 4
+SEP_BANDS = (4, 2, 1)
+SEP_TAP_BYTES = 16
+SEP_INT_BYTES = 48 * 4
+SEP_TW_MAX = 256
+SEP_CTAS_PER_SM = 2
+SEP_SMEM = SM_SMEM // SEP_CTAS_PER_SM - 1024
+SEP_UNITS_PER_CTA = 2
+RESIZE_CHUNK = 64
+PHASE_CHUNK_BYTES = 64
 
 
 def conv_smem(np_: int, dtype: torch.dtype) -> int:
@@ -243,7 +270,7 @@ def bilinear_resize_sum_plain(xs: Sequence[torch.Tensor],
 
 
 @functools.lru_cache(maxsize=None)
-def _tap_tables(shapes: Tuple[Tuple[int, int], ...], out_hw, device):
+def _tap_arrays(shapes: Tuple[Tuple[int, int], ...], out_hw):
     """Per input i: int32 [lo | hi] and f32 [w_lo | w_hi] rows of length
     H + W (rows first, then columns), stacked to (n, 2, H + W)."""
     H, W = out_hw
@@ -254,7 +281,113 @@ def _tap_tables(shapes: Tuple[Tuple[int, int], ...], out_hw, device):
             lo, hi, wl, wh = _taps(a, b)
             idx[i, 0, off:off + b], idx[i, 1, off:off + b] = lo, hi
             wts[i, 0, off:off + b], wts[i, 1, off:off + b] = wl, wh
+    return idx, wts
+
+
+@functools.lru_cache(maxsize=None)
+def _tap_tables(shapes: Tuple[Tuple[int, int], ...], out_hw, device):
+    """`_tap_arrays` as tensors on `device`."""
+    idx, wts = _tap_arrays(shapes, out_hw)
     return (torch.from_numpy(idx).to(device), torch.from_numpy(wts).to(device))
+
+
+def sep_smem(n: int, ns: int, bh: int, tw: int, cols: int, cc: int, mid_bytes: int) -> int:
+    """A K4 / K9 CTA's dynamic shared memory: the tile's column tap pairs
+    and the band's row tap pairs (n * ns each), the small ints, the (bh,
+    cols, ns, cc) intermediate of `mid_bytes` elements, and the row
+    windows' dense (bh, bh + 1) f32 weights per input and shift."""
+    return ((n * ns * tw + n * ns * bh) * SEP_TAP_BYTES + SEP_INT_BYTES
+            + bh * cols * ns * cc * mid_bytes + n * ns * bh * (bh + 1) * 4)
+
+
+@dataclass(frozen=True)
+class SepPlan:
+    """K4's or K9's launch: work units of (a band of `bh` output rows, a
+    chunk of `cc` channels, b, a tile of `tw` output columns), `cols` staged
+    input columns per band row (the sum of `spans`: per input, the most
+    columns the live taps of one tile reach), `smem` bytes a CTA, `ctas`
+    persistent CTAs of SEP_THREADS walking the `units`."""
+    bh: int
+    cc: int
+    tw: int
+    cols: int
+    spans: Tuple[int, ...]
+    smem: int
+    units: int
+    ctas: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _spans(idx: np.ndarray, wts: np.ndarray, ns: int, H: int, W: int, tw: int):
+    """Per input, the most input columns that the live column taps (weight
+    non-zero) of one tile of `tw` output columns reach, over all shifts."""
+    n = idx.shape[0]
+    cols = idx[:, :, ns * H:].reshape(n, 2, ns, W).astype(np.int64)
+    live = wts[:, :, ns * H:].reshape(n, 2, ns, W) != 0
+    lo, hi = np.where(live, cols, np.iinfo(np.int64).max), np.where(live, cols, -1)
+    spans = np.zeros(n, np.int64)
+    for x0 in range(0, W, tw):
+        a, b = lo[..., x0:x0 + tw].min(axis=(1, 2, 3)), hi[..., x0:x0 + tw].max(axis=(1, 2, 3))
+        spans = np.maximum(spans, np.where(b >= a, b - a + 1, 0))
+    return tuple(int(v) for v in spans)
+
+
+def _sep_plan(B, H, W, C, idx, wts, ns, cc, V, mid_bytes) -> SepPlan:
+    """Tiles as wide as the map (at most SEP_TW_MAX columns) and the widest
+    band whose CTA fits two to an SM; narrower chunks, then narrower tiles
+    where no band fits. Then thinner bands, then narrower chunks, while the
+    persistent CTAs would walk fewer than SEP_UNITS_PER_CTA units each (the
+    last units' tail)."""
+    n = idx.shape[0]
+    tw = min(W, SEP_TW_MAX)
+
+    def halve(c):
+        return max(V, c // 2 // V * V)
+
+    while True:
+        spans = _spans(idx, wts, ns, H, W, tw)
+        cols = max(1, sum(spans))
+        bands = [bh for bh in SEP_BANDS
+                 if sep_smem(n, ns, bh, tw, cols, cc, mid_bytes) <= SEP_SMEM]
+        if bands:
+            break
+        if cc > V:
+            cc = halve(cc)
+        elif tw > 1:
+            tw = _cdiv(tw, 2)
+        else:
+            raise ValueError(f"no separable plan for out {(B, H, W, C)}")
+    bh, tiles = bands[0], _cdiv(W, tw)
+    slots = SEP_CTAS_PER_SM * NUM_SMS
+
+    def units():
+        return _cdiv(H, bh) * _cdiv(C, cc) * tiles * B
+
+    while units() < SEP_UNITS_PER_CTA * slots and bh > 1:
+        bh //= 2
+    while units() < SEP_UNITS_PER_CTA * slots and cc > V:
+        cc = halve(cc)
+    smem = sep_smem(n, ns, bh, tw, cols, cc, mid_bytes)
+    return SepPlan(bh, cc, tw, cols, spans, smem, units(), min(units(), slots))
+
+
+@functools.lru_cache(maxsize=None)
+def resize_plan(B: int, H: int, W: int, C: int, shapes: Tuple[Tuple[int, int], ...],
+                dtype: torch.dtype) -> SepPlan:
+    """K4's geometry for n <= 4 inputs of `shapes` summed into (B, H, W,
+    C); raises ValueError on what the kernel does not take."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"resize_sum: dtype {dtype}, expected bf16 or f32")
+    V = 8 if dtype == torch.bfloat16 else 4
+    if (not 1 <= len(shapes) <= MAX_INPUTS or min(B, H, W) < 1 or C < V or C % V
+            or min(min(s) for s in shapes) < 1):
+        raise ValueError(f"resize_sum: no plan for {len(shapes)} inputs {shapes} into "
+                         f"{(B, H, W, C)} (C % {V} == 0)")
+    idx, wts = _tap_arrays(tuple(shapes), (H, W))
+    return _sep_plan(B, H, W, C, idx, wts, 1, min(RESIZE_CHUNK, C), V, 4)
 
 
 def bilinear_resize_sum_fwd(xs: Sequence[torch.Tensor],
@@ -277,6 +410,7 @@ def bilinear_resize_sum_fwd(xs: Sequence[torch.Tensor],
                 "resize_sum inputs: (B,h,w,C) contiguous, 16-byte aligned, one dtype")
     H, W = out_hw
     shapes = tuple((x.shape[1], x.shape[2]) for x in xs)
+    plan = resize_plan(B, H, W, C, shapes, dt)
     idx, wts = _tap_tables(shapes, (H, W), xs[0].device)
     out = torch.empty((B, H, W, C), dtype=dt, device=xs[0].device)
     ptrs = [x.data_ptr() for x in xs] + [None] * (MAX_INPUTS - len(xs))
@@ -284,7 +418,8 @@ def bilinear_resize_sum_fwd(xs: Sequence[torch.Tensor],
     ws = [s[1] for s in shapes] + [0] * (MAX_INPUTS - len(xs))
     KERNEL.launch(
         *ptrs, idx.data_ptr(), wts.data_ptr(), out.data_ptr(), *hs, *ws,
-        len(xs), B, H, W, C, int(dt == torch.bfloat16), K.stream(),
+        len(xs), B, H, W, C, plan.bh, plan.cc, plan.tw, plan.cols, plan.ctas,
+        int(dt == torch.bfloat16), K.stream(),
     )
     return out
 
@@ -484,7 +619,7 @@ def resize_sum_conv_relu_lowres(xs: Sequence[torch.Tensor], out_hw: Tuple[int, i
 
 
 @functools.lru_cache(maxsize=None)
-def _phase_tables(shapes: Tuple[Tuple[int, int], ...], out_hw, dtype, device):
+def _phase_arrays(shapes: Tuple[Tuple[int, int], ...], out_hw, dtype):
     """Per input i: int32 [lo | hi] and f32 [w_lo | w_hi] of the shifted
     resize matrices, weights rounded to `dtype`; entry dy * TH + o is row o
     of Ah_dy, entry 3 TH + dx * TW + p row p of Aw_dx; zero weights where
@@ -502,8 +637,32 @@ def _phase_tables(shapes: Tuple[Tuple[int, int], ...], out_hw, dtype, device):
                 at = base + d * n_out + np.arange(n_out)[ok]
                 idx[i, 0, at], idx[i, 1, at] = lo[src[ok]], hi[src[ok]]
                 wts[i, 0, at], wts[i, 1, at] = wl[src[ok]], wh[src[ok]]
-    wts = torch.from_numpy(wts).to(dtype).float()  # the TPU kernel's bf16 matrices
-    return torch.from_numpy(idx).to(device), wts.to(device)
+    wts = torch.from_numpy(wts).to(dtype).float().numpy()  # the TPU kernel's bf16 matrices
+    return idx, wts
+
+
+@functools.lru_cache(maxsize=None)
+def _phase_tables(shapes: Tuple[Tuple[int, int], ...], out_hw, dtype, device):
+    """`_phase_arrays` as tensors on `device`."""
+    idx, wts = _phase_arrays(shapes, out_hw, dtype)
+    return torch.from_numpy(idx).to(device), torch.from_numpy(wts).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def phase_plan(B: int, TH: int, TW: int, shapes: Tuple[Tuple[int, int], ...], O: int,
+               dtype: torch.dtype) -> SepPlan:
+    """K9's geometry for n <= 4 tasks of `shapes` into (B, TH, TW, O);
+    raises ValueError on what the kernel does not take."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"resize_sum_conv_relu_phase: dtype {dtype}, expected bf16 or f32")
+    V = 8 if dtype == torch.bfloat16 else 4
+    if (not 1 <= len(shapes) <= MAX_INPUTS or min(B, TH, TW) < 1 or O < V or O % V
+            or O > MAX_HEAD_OUT or min(min(s) for s in shapes) < 1):
+        raise ValueError(f"resize_sum_conv_relu_phase: no plan for {len(shapes)} tasks {shapes} "
+                         f"into {(B, TH, TW, O)} (O % {V} == 0, O <= {MAX_HEAD_OUT})")
+    idx, wts = _phase_arrays(tuple(shapes), (TH, TW), dtype)
+    size = 2 if dtype == torch.bfloat16 else 4
+    return _sep_plan(B, TH, TW, O, idx, wts, 3, min(PHASE_CHUNK_BYTES // size, O), V, size)
 
 
 def resize_sum_conv_relu_phase(xs: Sequence[torch.Tensor], out_hw: Tuple[int, int],
@@ -527,6 +686,7 @@ def resize_sum_conv_relu_phase(xs: Sequence[torch.Tensor], out_hw: Tuple[int, in
     us = [torch.matmul(x.reshape(-1, C), kf).reshape(x.shape[0], x.shape[1], x.shape[2], 9 * O)
           for x in xs]
     shapes = tuple((x.shape[1], x.shape[2]) for x in xs)
+    plan = phase_plan(B, TH, TW, shapes, O, dt)
     idx, wts = _phase_tables(shapes, (TH, TW), dt, xs[0].device)
     b = bias.float().contiguous()
     out = torch.empty((B, TH, TW, O), dtype=dt, device=xs[0].device)
@@ -535,6 +695,7 @@ def resize_sum_conv_relu_phase(xs: Sequence[torch.Tensor], out_hw: Tuple[int, in
     ws = [s[1] for s in shapes] + [0] * (MAX_INPUTS - len(xs))
     PHASE_KERNEL.launch(
         *ptrs, idx.data_ptr(), wts.data_ptr(), b.data_ptr(), out.data_ptr(), *hs, *ws,
-        len(xs), B, TH, TW, O, int(dt == torch.bfloat16), K.stream(),
+        len(xs), B, TH, TW, O, plan.bh, plan.cc, plan.tw, plan.cols, plan.ctas,
+        int(dt == torch.bfloat16), K.stream(),
     )
     return out

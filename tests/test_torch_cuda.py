@@ -273,13 +273,73 @@ def test_block_tail_kernel_is_deterministic(card, C, R):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype,C", [(torch.bfloat16, 768), (torch.float32, 96)])
-def test_resize_sum_kernel(card, dtype, C):
-    g = torch.Generator().manual_seed(C)
-    xs = [_randn(g, 2, h, w, C, dtype=dtype) for h, w in
-          [(7, 12), (14, 24), (28, 48), (56, 96)]]
-    _check(t_resize.bilinear_resize_sum(xs, (112, 192)),
-           t_resize.bilinear_resize_sum_plain(xs, (112, 192)), dtype)
+DECODER_MAPS = [(7, 12), (14, 24), (28, 48), (56, 96)]
+# the plan test's shapes (tests/test_torch_resize_plan.py): (B, out_hw,
+# inputs, C): the decoder's sum, the small models' (phase 10, phase 5),
+# ragged outputs, n = 1..4, inputs larger than the output, a map wide enough
+# that the plan splits its columns
+RESIZE_CASES = [(2, (112, 192), DECODER_MAPS, 768),
+                (2, (64, 48), [(4, 3), (8, 6), (16, 12), (32, 24)], 768),
+                (2, (32, 48), [(2, 3), (4, 6), (8, 12), (16, 24)], 96),
+                (2, (37, 29), [(5, 7), (11, 3)], 16), (1, (9, 50), [(3, 4)], 128),
+                (3, (21, 35), [(40, 70), (7, 9)], 32),
+                (1, (7, 11), [(20, 30), (7, 11), (3, 5)], 24), (2, (1, 1), [(1, 1)], 8),
+                (1, (5, 600), [(2, 900), (5, 3)], 40)]
+RESIZE_IDS = ["B{}-{}x{}-n{}-C{}".format(c[0], *c[1], len(c[2]), c[3]) for c in RESIZE_CASES]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,out_hw,shapes,C", RESIZE_CASES, ids=RESIZE_IDS)
+def test_resize_sum_kernel(card, dtype, B, out_hw, shapes, C):
+    """K4 at the plan test's shapes, both dtypes, one launch each."""
+    g = torch.Generator().manual_seed(C + B)
+    xs = [_randn(g, B, h, w, C, dtype=dtype) for h, w in shapes]
+    before = t_resize.KERNEL.launches
+    out = t_resize.bilinear_resize_sum(xs, out_hw)
+    assert t_resize.KERNEL.launches == before + 1
+    _check(out, t_resize.bilinear_resize_sum_plain(xs, out_hw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resize_sum_kernel_is_deterministic(card, dtype):
+    """Two launches at the decoder's shape give the same bits: every output
+    is summed by one thread in a fixed order, no atomics."""
+    g = torch.Generator().manual_seed(13)
+    xs = [_randn(g, 2, h, w, 768, dtype=dtype) for h, w in DECODER_MAPS]
+    a = t_resize.bilinear_resize_sum(xs, (112, 192))
+    b = t_resize.bilinear_resize_sum(xs, (112, 192))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resize_sum_kernel_takes_larger_inputs(card, dtype):
+    """K4 with inputs larger than the output (a band's row taps skip input
+    rows, a tile's columns span more input columns than it has outputs)
+    beside smaller ones, and one far wider than the output."""
+    g = torch.Generator().manual_seed(14)
+    for shapes, out_hw in (([(40, 70), (7, 9), (21, 35)], (21, 35)), ([(3, 2000)], (4, 50))):
+        xs = [_randn(g, 2, h, w, 64, dtype=dtype) for h, w in shapes]
+        _check(t_resize.bilinear_resize_sum(xs, out_hw),
+               t_resize.bilinear_resize_sum_plain(xs, out_hw), dtype)
+
+
+def test_resize_kernels_refuse_what_they_do_not_take(card):
+    """K4 and K9 raise on a dtype, a channel count or an input count they do
+    not take; they never fall back to the plain version."""
+    g = torch.Generator().manual_seed(15)
+    with pytest.raises(ValueError):  # f16
+        t_resize.bilinear_resize_sum([_randn(g, 1, 3, 4, 16, dtype=torch.float16)], (6, 8))
+    with pytest.raises(ValueError):  # bf16 channels in groups of 8
+        t_resize.bilinear_resize_sum([_randn(g, 1, 3, 4, 12)], (6, 8))
+    with pytest.raises(ValueError):  # five inputs
+        t_resize.bilinear_resize_sum([_randn(g, 1, 3, 4, 16)] * 5, (6, 8))
+    xs, k, b = _head_args(g, [(3, 4)], 32, 12)
+    with pytest.raises(ValueError):  # K9 bf16: O % 8
+        t_resize.resize_sum_conv_relu_phase(xs, (6, 8), k, b)
+    xs, k, b = _head_args(g, [(3, 4)], 32, 136)
+    with pytest.raises(ValueError):  # K9: O <= 128
+        t_resize.resize_sum_conv_relu_phase(xs, (6, 8), k, b)
 
 
 def _close_bf16(out, plain):
@@ -754,18 +814,57 @@ def test_resize_conv_relu_kernel_takes_larger_inputs(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("shapes,out_hw,C,O", [(HEAD_PATH, (112, 192), 768, 96),
-                                               ([(5, 7), (11, 3)], (37, 29), 32, 16),
-                                               ([(3, 4)], (9, 50), 48, 128)])
+@pytest.mark.parametrize("shapes,out_hw,C,O", [
+    (HEAD_PATH, (112, 192), 768, 96), ([(5, 7), (11, 3)], (37, 29), 32, 16),
+    ([(3, 4)], (9, 50), 48, 128), ([(4, 3), (8, 6), (16, 12), (32, 24)], (64, 48), 768, 96),
+    ([(2, 3), (4, 6), (8, 12), (16, 24)], (32, 48), 96, 96),
+    ([(20, 30), (7, 11), (3, 5)], (7, 11), 24, 8), ([(1, 1)], (1, 1), 16, 8),
+    ([(2, 900), (5, 3)], (5, 600), 40, 40)])
 def test_resize_phase_head_kernel(card, dtype, shapes, out_hw, C, O):
     """K9 (with its u_i = x_i K' matmul) against resize_sum_conv_relu_lowres
-    at the head's shapes and at ragged sizes."""
+    at the head's shapes, the small models' heads and the plan test's
+    ragged sizes."""
     g = torch.Generator().manual_seed(C + O + 1)
     xs, k, b = _head_args(g, shapes, C, O, dtype)
     before = t_resize.PHASE_KERNEL.launches
     out = t_resize.resize_sum_conv_relu_phase(xs, out_hw, k, b)
     assert t_resize.PHASE_KERNEL.launches == before + 1
     _check(out, t_resize.resize_sum_conv_relu_lowres(xs, out_hw, k, b), dtype)
+
+
+@pytest.mark.parametrize("dtype,O", [(torch.bfloat16, 8), (torch.bfloat16, 16),
+                                     (torch.bfloat16, 96), (torch.bfloat16, 128),
+                                     (torch.float32, 4), (torch.float32, 52)])
+def test_resize_phase_head_kernel_widths(card, dtype, O):
+    """K9 at every O chunk width the plan takes (O below, at and above the
+    32-channel chunk, a ragged last chunk) and f32's 4-channel groups."""
+    g = torch.Generator().manual_seed(O + 21)
+    xs, k, b = _head_args(g, [(6, 10), (3, 5), (12, 20)], 80, O, dtype)
+    _check(t_resize.resize_sum_conv_relu_phase(xs, (24, 40), k, b),
+           t_resize.resize_sum_conv_relu_lowres(xs, (24, 40), k, b), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resize_phase_head_kernel_takes_larger_inputs(card, dtype):
+    """K9 with tasks larger than the output beside smaller ones, and one far
+    wider than the output."""
+    g = torch.Generator().manual_seed(22)
+    for shapes, out_hw in (([(40, 70), (7, 9)], (21, 35)), ([(3, 2000)], (4, 50))):
+        xs, k, b = _head_args(g, shapes, 64, 32, dtype)
+        _check(t_resize.resize_sum_conv_relu_phase(xs, out_hw, k, b),
+               t_resize.resize_sum_conv_relu_lowres(xs, out_hw, k, b), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resize_phase_head_kernel_is_deterministic(card, dtype):
+    """Two launches at the head's shape give the same bits (the products and
+    the kernel: no atomics, no split sums)."""
+    g = torch.Generator().manual_seed(23)
+    xs, k, b = _head_args(g, HEAD_PATH, 768, 96, dtype)
+    a = t_resize.resize_sum_conv_relu_phase(xs, (112, 192), k, b)
+    c = t_resize.resize_sum_conv_relu_phase(xs, (112, 192), k, b)
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
 
 
 def test_eval_only_kernels_raise_under_grad(card):
