@@ -1,7 +1,8 @@
 """Drive the PyTorch port's paths (AV inference with DDIM, the AV training
 step, AV inference with DPM-Solver++ and the eval lowerings, the
 visual-only model in both MViT layouts, both models in f32, the f32
-attention and training step at full width) on one NVIDIA
+attention and training step at full width, and the AV trainer from a
+packed tree on disk to its checkpoints) on one NVIDIA
 GPU and hold each of its hand-written kernels (thirteen in bf16 and the
 seven f32 instances an f32 model runs) against its plain PyTorch version.
 
@@ -148,6 +149,20 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      kernels count once), the f32 backward's and the convolutions' busy
      time as shares of it and of the step, K6's device time in the step,
      the step's top CUDA kernels and peak memory;
+ 13. the trainer from disk to checkpoint at full width (`trainer_phase`):
+     a packed AV tree written with numpy into a temporary directory (4 train
+     and 2 test videos of 160 frames at 224x384, 16 kHz waves), then
+     `train_av_splits` with the AV config in bf16, B=4, 2 epochs of 3 steps
+     and one validation batch each, every step running the log-mel frontend
+     and the uint8 STAViS normalization on the card; checks the logs (one
+     finite row per epoch), the checkpoints and `best.json`, the launches
+     of the whole run (6 steps and 2 evaluations by `path_launches`), a
+     bitwise resume and `restore_best` in a new trainer, and the card's
+     frontend against the numpy one (MEL_TOL); prints ms per step by CUDA
+     events, the StepTimer's times, the loader's wait per epoch and the
+     seconds per checkpoint save and restore; with --profile, one more
+     epoch of the resumed trainer's `fit` under torch.profiler (the
+     device's busy share of its wall time, the save's and the loader's);
 then prints the `kernels` JSON line, the nvidia-smi line and, last, the
 result line {"ok": true, "device": {...}}. The f32 instances' bound takes
 their matrix products at split TF32's rate (495 / 3 TFLOP/s: f32's accuracy
@@ -1877,6 +1892,261 @@ def f32_train_phase(dev, schedule, kind, smi):
         f"{float(m['total']):.3f}; phase {time.perf_counter() - t0:.1f} s")
 
 
+# phase 13: the packed AV tree the trainer reads, written with numpy alone in
+# PackedAVDataset's layout (`data/synthetic.write_packed_av_tree`): one dataset,
+# split1 with 4 train and 2 test videos of 160 frames at 25 fps. The default
+# windows (a step of 90 - 16 = 74 frames) give 3 windows per video: 12 train
+# windows, 3 steps of B=4 per epoch, and 6 test windows, one validation batch
+TRAINER_FRAMES, TRAINER_FPS = 160, 25.0
+TRAINER_FOLDS = {"train": tuple((v, TRAINER_FRAMES) for v in ("t1", "t2", "t3", "t4")),
+                 "test": (("e1", TRAINER_FRAMES), ("e2", TRAINER_FRAMES))}
+TRAINER_EPOCHS = 2
+# the device frontend against the numpy one: the JAX package's own bound for
+# its device path against its host path (tests/test_audio_mel.py:54-60)
+MEL_TOL = 2e-4
+
+
+def profiled_fit(t, config, packed, timed_save, timed_iter, saves, waits, kind, smi):
+    """Phase 13 with --profile: one more epoch of the resumed trainer's
+    `fit` (a new epoch's loaders, as `train_av_splits` builds them) under
+    torch.profiler, with the phase's timing hooks on `_save` and the
+    loader; the device's busy share of the epoch's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diff_sal_tpu_torch.data.loader import Loader
+    from diff_sal_tpu_torch.data.packed import PackedAVDataset
+    from diff_sal_tpu_torch.train.trainer import Trainer
+
+    n_saves, n_waits = len(saves), len(waits)
+    train = Loader(PackedAVDataset(packed, config, "split1", True), B_TRAIN, shuffle=True)
+    val = Loader(PackedAVDataset(packed, config, "split1", False), B_TRAIN, shuffle=False)
+    t.n_epochs = TRAINER_EPOCHS + 1
+    save, loader_iter = Trainer._save, Loader.__iter__
+    Trainer._save, Loader.__iter__ = timed_save, timed_iter
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            t.fit(train, val, log_name="split1")
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+    finally:
+        Trainer._save, Loader.__iter__ = save, loader_iter
+    assert t.epoch == TRAINER_EPOCHS + 1, t.epoch
+    save_ms = sum(saves[n_saves:]) * 1e3
+    wait_ms = sum(r["wait"] for r in waits[n_waits:] if r["loader"] == id(train)) * 1e3
+    del saves[n_saves:], waits[n_waits:]
+    events = [e for e in prof.events()
+              if e.device_type == DeviceType.CUDA and e.time_range.start >= 0]
+    busy = busy_ms(events)
+    log(f"[trainer profile] one epoch of Trainer.fit (3 steps, the checkpoint save, one "
+        f"validation batch): wall {wall:.1f} ms, {len(events)} device events, device busy "
+        f"{busy:.1f} ms (union of intervals): {100.0 * busy / wall:.1f}% busy, "
+        f"{100.0 - 100.0 * busy / wall:.1f}% idle (with the profiler's own host cost); the "
+        f"save {save_ms:.1f} ms ({100.0 * save_ms / wall:.1f}%), the train loader's wait "
+        f"{wait_ms:.1f} ms ({100.0 * wait_ms / wall:.1f}%); StepTimer step "
+        f"{t.timer.step_time.avg * 1e3:.2f} ms, data {t.timer.data_time.avg * 1e3:.2f} ms "
+        f"on {kind} [{smi}]")
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+
+
+def trainer_phase(dev, kind, smi, profile=False):
+    """Phase 13: the AV fine-tune protocol from disk to checkpoint at full
+    width. `train_av_splits` with `ModelConfig.audio_visual()` in bf16 on
+    a packed tree (`write_packed_av_tree`) in a temporary directory:
+    split1, B=4, 2 epochs of 3 steps, each followed by one validation batch
+    (DDIM NFE 1), log_freq 1. Every step reads uint8 frames (STAViS
+    normalization in the model) and 16 kHz excerpts (the log-mel frontend
+    in the step) on the card. Checks: every logged loss and score finite,
+    one row per epoch in `split1/split1.log` and `split1/split1_val.log`,
+    a checkpoint per epoch and `best.json` on the epoch with the higher val
+    total, the kernels' launches in the whole run equal to 6 training steps
+    and 2 evaluations by `path_launches`; a new Trainer on the workdir
+    resumes at epoch 2, step 6 with the second checkpoint's parameters,
+    buffers and Adam moments bit for bit (and the trained trainer's), and
+    logs the same lr; `restore_best` loads the best epoch's state_dict bit
+    for bit; the card's f32 `log_mel_examples` on the phase's excerpts
+    within MEL_TOL of the numpy frontend. Prints the StepTimer's step and
+    data times, ms per step by CUDA events, the loader's wait as a share of
+    each epoch, seconds per checkpoint save and restore, and the phase's
+    wall time. With `profile`, the resumed trainer's `fit` runs one more
+    epoch (3 steps, the checkpoint save and the validation batch) under
+    torch.profiler: the device's busy time (the union of its events'
+    intervals) against the epoch's wall time, with the save's and the
+    train loader's wait's shares of that wall time."""
+    import os
+    import shutil
+    import tempfile
+
+    from diff_sal_tpu_torch.audio.mel import log_mel_examples, waveform_to_examples_np
+    from diff_sal_tpu_torch.config import ExperimentConfig, ModelConfig, TrainingConfig
+    from diff_sal_tpu_torch.data import loader as loader_mod
+    from diff_sal_tpu_torch.data.packed import PackedAVDataset
+    from diff_sal_tpu_torch.data.synthetic import write_packed_av_tree
+    from diff_sal_tpu_torch.ops import kernels
+    from diff_sal_tpu_torch.train import trainer as trainer_mod
+
+    t0 = time.perf_counter()
+    cfg = ExperimentConfig(model=ModelConfig.audio_visual(compute_dtype="bfloat16"),
+                           training=TrainingConfig(batch_size=B_TRAIN, log_freq=1,
+                                                   n_epochs_for_av_data=TRAINER_EPOCHS))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+    Trainer, Loader = trainer_mod.Trainer, loader_mod.Loader
+    init_state, save, loader_iter = Trainer.init_state, Trainer._save, Loader.__iter__
+    step_events, saves, waits = [], [], []
+
+    def timed_init(self, *a, **kw):
+        out = init_state(self, *a, **kw)
+        step = self.train_step
+
+        def timed_step(opt, batch, gen):
+            assert batch["rgb"].dtype == torch.uint8 and "audio" not in batch, sorted(batch)
+            assert batch["wave"].device.type == torch.device(dev).type, batch["wave"].device
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            m = step(opt, batch, gen)
+            ev[1].record()
+            step_events.append(ev)
+            return m
+
+        self.train_step = timed_step
+        return out
+
+    def timed_save(self, epoch):
+        t = time.perf_counter()
+        save(self, epoch)
+        saves.append(time.perf_counter() - t)
+
+    def timed_iter(self):
+        rec = {"epoch": self.epoch, "n": 0, "wait": 0.0, "first": not any(
+            r["loader"] == id(self) for r in waits), "loader": id(self)}
+        waits.append(rec)
+        it, start = loader_iter(self), time.perf_counter()
+        while True:
+            t = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                rec["wall"] = time.perf_counter() - start
+                return
+            rec["wait"] += time.perf_counter() - t
+            rec["n"] += 1
+            yield batch
+
+    try:
+        config = write_packed_av_tree(os.path.join(tmp, "packed"), cfg.model.decoder.img_size,
+                                      TRAINER_FOLDS, TRAINER_FPS, seed=13)
+        t_tree = time.perf_counter() - t0
+        Trainer.init_state, Trainer._save, Loader.__iter__ = timed_init, timed_save, timed_iter
+        try:
+            kernels.reset_launch_counts()
+            t_fit = time.perf_counter()
+            t = trainer_mod.train_av_splits(cfg, config, os.path.join(tmp, "work"),
+                                            splits=("split1",),
+                                            packed_root=os.path.join(tmp, "packed"),
+                                            device=dev)["split1"]
+            torch.cuda.synchronize()
+            t_fit = time.perf_counter() - t_fit
+            counts = kernels.launch_counts()
+        finally:
+            Trainer.init_state, Trainer._save, Loader.__iter__ = init_state, save, loader_iter
+        steps = TRAINER_EPOCHS * 3
+        assert t.cfg.model.uint8_norm == "stavis", t.cfg.model.uint8_norm
+        assert (t.epoch, t.global_step, len(step_events)) == (TRAINER_EPOCHS, steps, steps)
+        rows, val = [], []
+        for out, name in ((rows, "split1.log"), (val, "split1_val.log")):
+            with open(os.path.join(t.workdir, name)) as f:
+                out.extend(r.rstrip("\n").split("\t") for r in f)
+        assert rows[0] == trainer_mod.TRAIN_COLUMNS and val[0] == trainer_mod.VAL_COLUMNS
+        assert len(rows) == len(val) == TRAINER_EPOCHS + 1, (rows, val)
+        for r in rows[1:] + val[1:]:
+            assert all(np.isfinite(float(x)) for x in r), r
+        assert t.ckpt.all_steps() == list(range(TRAINER_EPOCHS)), t.ckpt.all_steps()
+        totals = [float(r[1]) for r in val[1:]]
+        best = t.ckpt.best()
+        assert best["step"] == int(np.argmax(totals)) and best["score"] == max(totals), best
+        train_want = path_launches(t.cfg.model, train=True)
+        eval_want = path_launches(t.cfg.model, nfe=1)
+        want = {n: steps * train_want[n] + TRAINER_EPOCHS * eval_want[n] for n in train_want}
+        check_launches(counts, want, "trainer")
+        log(f"[trainer] {steps} steps and {TRAINER_EPOCHS} validation batches: launches "
+            + json.dumps({n: c for n, c in counts.items() if c}) + " = "
+            f"{steps} x path_launches(train=True) + {TRAINER_EPOCHS} x path_launches(nfe=1); "
+            f"train log {rows[1:]}; val log {val[1:]}; best {best}")
+
+        # resume and restore_best in a new trainer on the same workdir
+        t_new = time.perf_counter()
+        t2 = Trainer(t.cfg, t.workdir, steps_per_epoch=3, n_epochs=TRAINER_EPOCHS, device=dev)
+        t2.init_state()
+        t_new = time.perf_counter() - t_new
+        t_resume = time.perf_counter()
+        t2.resume()
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t_resume
+        assert (t2.epoch, t2.global_step) == (TRAINER_EPOCHS, steps), (t2.epoch, t2.global_step)
+        last = t.ckpt.restore(TRAINER_EPOCHS - 1, map_location=dev)
+        names = t2._trainable_names()
+        mine = t2.optimizer.state_dict(names)
+        for src in (last, {"state_dict": t.model.state_dict(),
+                           "optim_dict": t.optimizer.state_dict(names)}):
+            sd = src["state_dict"]
+            assert set(sd) == set(t2.model.state_dict())
+            for k, v in t2.model.state_dict().items():
+                assert torch.equal(v, sd[k]), k
+            for key in ("mu", "nu"):
+                for k in names:
+                    assert torch.equal(mine[key][k], src["optim_dict"][key][k]), (key, k)
+        assert mine["count"] == last["optim_dict"]["count"] == steps
+        assert repr(t2.lr_schedule(t2.global_step)) == rows[-1][-1], (rows[-1], t2.global_step)
+        t_best = time.perf_counter()
+        t2.restore_best()
+        torch.cuda.synchronize()
+        t_best = time.perf_counter() - t_best
+        best_sd = t.ckpt.restore(best["step"], map_location=dev)["state_dict"]
+        for k, v in t2.model.state_dict().items():
+            assert torch.equal(v, best_sd[k]), k
+        del last, best_sd, mine
+        if profile:
+            profiled_fit(t2, config, os.path.join(tmp, "packed"), timed_save, timed_iter,
+                         saves, waits, kind, smi)
+        del t2
+
+        # the card's frontend against the numpy frontend on the phase's waves
+        ds = PackedAVDataset(os.path.join(tmp, "packed"), config, "split1", True)
+        waves = np.stack([ds[i]["wave"] for i in range(len(ds))])
+        got = log_mel_examples(torch.from_numpy(waves).to(dev)).cpu().numpy()
+        host = np.stack([waveform_to_examples_np(w, 16000) for w in waves])
+        mel_err = float(np.abs(got - host).max())
+        assert got.shape == host.shape == (len(ds), 9, 64, 64) and mel_err <= MEL_TOL, mel_err
+        size = sum(os.path.getsize(t.ckpt.path(s)) for s in range(TRAINER_EPOCHS)) / TRAINER_EPOCHS
+        t.model = t.optimizer = None  # the card's memory
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    ms = [a.elapsed_time(b) for a, b in step_events]
+    train_iters = [r for r in waits if r["n"] == 3]
+    assert len(train_iters) == TRAINER_EPOCHS, waits
+    timer = t.timer
+    log(f"[trainer] ms per step by CUDA events (B={B_TRAIN}, {steps} steps, 2 epochs): "
+        + ", ".join(f"{x:.2f}" for x in ms) + f"; mean of the last {steps - 1} "
+        f"{np.mean(ms[1:]):.2f} ms; StepTimer (last epoch, mean per step): step "
+        f"{timer.step_time.avg * 1e3:.2f} ms (the host's dispatch of the step), data "
+        f"{timer.data_time.avg * 1e3:.2f} ms (the loader's wait and, at log_freq 1, the "
+        f"log point's wait for the step's metrics) on {kind} [{smi}]")
+    log("[trainer] the train loader's wait for a batch, per epoch: "
+        + "; ".join(f"epoch {r['epoch']}: {r['wait'] * 1e3:.1f} ms of a {r['wall'] * 1e3:.1f} ms "
+                    f"epoch ({100.0 * r['wait'] / r['wall']:.1f}%)" for r in train_iters)
+        + f"; its first batch (init_state's sample) "
+        + ", ".join(f"{r['wait'] * 1e3:.1f} ms" for r in waits if r["first"] and "wall" not in r))
+    log(f"[trainer] checkpoints: {size / 2**30:.2f} GiB each; save "
+        + ", ".join(f"{x:.2f}" for x in saves) + f" s; new trainer {t_new:.2f} s, resume "
+        f"(load + copy) {t_resume:.2f} s, restore_best {t_best:.2f} s; frontend on the card "
+        f"vs numpy max|d| {mel_err:.3e} (limit {MEL_TOL}); packed tree written in "
+        f"{t_tree:.1f} s; train_av_splits {t_fit:.1f} s; phase "
+        f"{time.perf_counter() - t0:.1f} s on {kind} [{smi}]")
+
+
 def resize_add_phase(k4_call, recorders, plain):
     """K10, which no model path calls: the four task maps K4 summed in the
     main path's run added one by one into a zero bf16 accumulator (counts
@@ -1916,8 +2186,9 @@ def main() -> int:
                     help="also print torch.profiler tables of one main-path run, one "
                          "training step, one DPM++ NFE 2 run with and without the "
                          "eval lowerings, the visual-only model's DDIM run and "
-                         "training step in each layout, and each attention kernel's "
-                         "recorded calls by CUDA kernel")
+                         "training step in each layout, each attention kernel's "
+                         "recorded calls by CUDA kernel, and one epoch of the "
+                         "trainer's fit")
     cli = ap.parse_args()
 
     t_all = time.perf_counter()
@@ -2214,6 +2485,9 @@ def main() -> int:
 
     # -- phase 12: the f32 training step at full width -----------------------
     f32_train_phase(dev, schedule, kind, smi)
+
+    # -- phase 13: the trainer from a packed tree to checkpoints -------------
+    trainer_phase(dev, kind, smi, profile=cli.profile)
 
     log("[device time] profiler sessions " + json.dumps(DEVICE_MS_TALLY))
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

@@ -18,9 +18,9 @@ decoder's CvT attention through K7 at eval) and
 `SalUNetConfig.head_lowres` (the decoder head as conv-at-low-res through
 K9 at eval). The training step's fields (dequantization, losses,
 optimizer, dropout, drop-path, the train-time dead-frame cut, EMA) and
-the DPM-Solver settings of `SamplingConfig` are here; fields that only
-unported paths read (the trainer's epochs and logging, the mesh) come
-with those paths.
+the DPM-Solver settings of `SamplingConfig` and the trainer's epochs,
+logging and evaluation noise are here; fields that only unported paths
+read (the mesh) come with those paths.
 """
 
 from __future__ import annotations
@@ -87,9 +87,12 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainingConfig:
-    """Train-step knobs (reference `cfgs/diffusion.yml:30-37`)."""
+    """Training-loop knobs (reference `cfgs/diffusion.yml:30-37`)."""
 
     batch_size: int = 48
+    n_epochs: int = 3
+    n_epochs_for_av_data: int = 4
+    log_freq: int = 200
     training_target: str = "x0"  # "x0" | "noise"
     # reference quirk: one shared scalar t per batch (diffusion_trainer.py:111-114)
     shared_timestep_per_batch: bool = True
@@ -97,6 +100,11 @@ class TrainingConfig:
     # parameter EMA, off as in the reference (cfgs/diffusion.yml:21)
     ema: bool = False
     ema_rate: float = 0.9999
+    # evaluation noise: True draws it from a fixed seed, so that repeated
+    # evaluations rank checkpoints on the same noise; False draws a fresh
+    # seed per evaluation, as the reference's per-batch randn does
+    # (diffusion_trainer.py:118-120)
+    eval_fixed_rng: bool = True
 
 
 @dataclasses.dataclass(frozen=True)

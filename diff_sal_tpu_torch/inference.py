@@ -2,7 +2,8 @@
 `sample_image`, diffusion_trainer.py:545-640): encode video and audio
 once, run the configured reverse process (DDIM, DDPM, DPM-Solver or
 DPM-Solver++; the decoder runs once per denoiser call, the encoders
-once), inverse-transform to a [0, 1] map.
+once), inverse-transform to a [0, 1] map. `sample_saliency_from_wave`
+puts the log-mel frontend in front, for raw 16 kHz wave excerpts.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from diff_sal_tpu_torch.audio.mel import device_audio_frontend
 from diff_sal_tpu_torch.config import DataTransformConfig, SamplingConfig
 from diff_sal_tpu_torch.data.transforms import inverse_data_transform
 from diff_sal_tpu_torch.diffusion.dpm_solver import dpm_solver_sample
@@ -62,3 +64,23 @@ def sample_saliency(model: VideoSaliencyModel, schedule: DiffusionSchedule,
     else:
         raise NotImplementedError(f"sample_type={sampling.sample_type!r}")
     return inverse_data_transform(data_cfg, x)
+
+
+def sample_saliency_from_wave(model: VideoSaliencyModel, schedule: DiffusionSchedule,
+                              sampling: SamplingConfig, data_cfg: DataTransformConfig,
+                              rgb: torch.Tensor, wave16k: torch.Tensor, *,
+                              noise: Optional[torch.Tensor] = None,
+                              generator: Optional[torch.Generator] = None,
+                              training_target: str = "x0") -> torch.Tensor:
+    """`sample_saliency` with the audio frontend in front, on the model's
+    device: raw 16 kHz excerpts wave16k (B, 25600) -> log-mel examples ->
+    VGGish -> ... -> maps (the reference runs the frontend in numpy on its
+    loader's workers, SURVEY.md §2.4). The examples are resized to half
+    the model's map size, (112, 192) at 224x384 (the reference's audio
+    size)."""
+    dev = next(model.parameters()).device
+    h, w = model.cfg.decoder.img_size
+    audio = device_audio_frontend(torch.as_tensor(wave16k).to(dev, torch.float32),
+                                  (h // 2, w // 2))
+    return sample_saliency(model, schedule, sampling, data_cfg, rgb, audio, noise=noise,
+                           generator=generator, training_target=training_target)

@@ -14,7 +14,7 @@ its gradient).
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -81,6 +81,16 @@ class VideoSaliencyModel(nn.Module):
             audio_feat = self.encode_audio(data["audio"], train, generator)
         feat_list = self.encode_visual(data["rgb"])
         return self.denoise(data["input"], t, feat_list, audio_feat, train, generator)
+
+
+def param_counts(model: nn.Module) -> Dict[str, float]:
+    """Parameters per sub-network, in millions (the reference prints these
+    when it builds the model, diff_model.py:66-68)."""
+    out: Dict[str, float] = {}
+    for name, p in model.named_parameters():
+        top = name.split(".", 1)[0]
+        out[top] = out.get(top, 0.0) + p.numel() / 1e6
+    return out
 
 
 def build_model(cfg: ModelConfig, seed: int = 0, device="cuda",

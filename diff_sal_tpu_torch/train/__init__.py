@@ -1,3 +1,3 @@
-"""The training slice: losses and eval scores, the optimizer (optax's Adam
-+ MultiStepLR + global-norm clip semantics), parameter EMA, and the train
-and eval steps."""
+"""Training: losses and eval scores, the optimizer (optax's Adam +
+MultiStepLR + global-norm clip semantics), parameter EMA, the train and
+eval steps, checkpoints, and the trainer with the AV fine-tune protocol."""

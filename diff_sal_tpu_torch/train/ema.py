@@ -4,6 +4,7 @@ reference."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
@@ -21,3 +22,20 @@ def ema_update(ema: Dict[str, torch.Tensor], params: Dict[str, torch.Tensor],
     for name, e in ema.items():
         e.copy_(decay * e + (1.0 - decay) * params[name])
     return ema
+
+
+@contextlib.contextmanager
+def swap_in_ema(model: torch.nn.Module, ema: Dict[str, torch.Tensor]):
+    """The model with the EMA shadow in place of its parameters inside the
+    scope (for evaluation); the parameters are put back after it."""
+    params = dict(model.named_parameters())
+    saved = {n: params[n].detach().clone() for n in ema}
+    with torch.no_grad():
+        for n, e in ema.items():
+            params[n].copy_(e)
+    try:
+        yield model
+    finally:
+        with torch.no_grad():
+            for n, v in saved.items():
+                params[n].copy_(v)

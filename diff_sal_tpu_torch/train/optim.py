@@ -18,7 +18,7 @@ parameters (requires_grad False, the VGGish trunk) are left unchanged.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +64,27 @@ class Optimizer:
         self.count = 0
         self.ema: Optional[Dict[str, torch.Tensor]] = None
 
+    def state_dict(self, names: List[str]) -> Dict:
+        """Adam's moments by parameter name (`names`: the trainable
+        parameters' names, in the order the optimizer holds them), the
+        update count and the EMA shadow (None when off)."""
+        assert len(names) == len(self.params), (len(names), len(self.params))
+        return {"count": self.count, "mu": dict(zip(names, self.mu)),
+                "nu": dict(zip(names, self.nu)), "ema": self.ema}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict, names: List[str]):
+        """The inverse of `state_dict`, copied into the optimizer's own
+        tensors."""
+        assert len(names) == len(self.params), (len(names), len(self.params))
+        for mine, key in ((self.mu, "mu"), (self.nu, "nu")):
+            for t, n in zip(mine, names):
+                t.copy_(state[key][n])
+        self.count = int(state["count"])
+        ema = state.get("ema")
+        self.ema = None if ema is None else {
+            n: v.to(self.params[0].device).clone() for n, v in ema.items()}
+
     def zero_grad(self):
         for p in self.params:
             p.grad = None
@@ -97,9 +118,17 @@ class Optimizer:
         return norm
 
 
+def make_optimizer_and_schedule(model: torch.nn.Module, cfg: OptimConfig,
+                                steps_per_epoch: int, n_epochs: int
+                                ) -> Tuple[Optimizer, Callable[[int], float]]:
+    """(optimizer, lr schedule): the schedule is the function the optimizer
+    applies, returned so that a caller logs that same function."""
+    schedule = multistep_lr(cfg.lr, steps_per_epoch, n_epochs, cfg.milestone_fracs, cfg.gamma)
+    return Optimizer(model.parameters(), cfg, schedule), schedule
+
+
 def make_optimizer(model: torch.nn.Module, cfg: OptimConfig, steps_per_epoch: int,
                    n_epochs: int) -> Optimizer:
     """The optimizer over `model`'s trainable parameters, with the
     MultiStepLR schedule of `cfg` (JAX `make_optimizer`)."""
-    schedule = multistep_lr(cfg.lr, steps_per_epoch, n_epochs, cfg.milestone_fracs, cfg.gamma)
-    return Optimizer(model.parameters(), cfg, schedule)
+    return make_optimizer_and_schedule(model, cfg, steps_per_epoch, n_epochs)[0]

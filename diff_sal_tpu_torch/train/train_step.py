@@ -24,6 +24,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from diff_sal_tpu_torch.audio.mel import device_audio_frontend
 from diff_sal_tpu_torch.config import ExperimentConfig
 from diff_sal_tpu_torch.data.transforms import data_transform
 from diff_sal_tpu_torch.diffusion.schedule import DiffusionSchedule, q_sample
@@ -35,17 +36,34 @@ from diff_sal_tpu_torch.train.losses import eval_scores, training_loss
 from diff_sal_tpu_torch.train.optim import Optimizer
 
 
-def _audio(batch) -> Optional[torch.Tensor]:
+def audio_hw_for(cfg: ExperimentConfig) -> Tuple[int, int]:
+    """The model's audio example grid is half the saliency-map size
+    (reference audio_size = sample_size / 2: cfgs/dataset.json 192x112
+    against 384x224), keeping it 16x the coarsest video scale."""
+    h, w = cfg.model.decoder.img_size
+    return (h // 2, w // 2)
+
+
+def resolve_audio(batch, hw=None, device=None) -> Optional[torch.Tensor]:
+    """The model's audio input from a batch: precomputed log-mel examples
+    ("audio"), or raw 16 kHz wave excerpts ("wave", the packed AV
+    pipeline) whose VGGish log-mel frontend runs here, in f32 on `device`
+    (the wave's own when None), in place of the reference's numpy frontend
+    on the loader's workers (saliency_db.py:449-497)."""
+    if "audio" in batch:
+        return batch["audio"]
     if "wave" in batch:
-        raise NotImplementedError("raw-wave batches need the audio frontend, not ported yet")
-    return batch.get("audio")
+        wave = torch.as_tensor(batch["wave"])
+        return device_audio_frontend(wave.to(device=device, dtype=torch.float32), hw)
+    return None
 
 
 def make_train_step(model: VideoSaliencyModel, schedule: DiffusionSchedule,
                     cfg: ExperimentConfig) -> Callable:
     """Returns train_step(optimizer, batch, generator=None, *, draws=None)
     -> metrics. batch: {"rgb": (B,T,H,W,3), "salmap": (B,H,W,1)[, "audio":
-    (B,9,h,w,1)]}; draws: optional {"deq", "t", "noise"}."""
+    (B,9,h,w,1) or "wave": (B, samples) at 16 kHz]}; draws: optional
+    {"deq", "t", "noise"}."""
     T = schedule.num_timesteps
     tc = cfg.training
 
@@ -71,7 +89,7 @@ def make_train_step(model: VideoSaliencyModel, schedule: DiffusionSchedule,
         x_noisy = q_sample(schedule, x0, t, noise)
         target = x0 if tc.training_target == "x0" else noise
         data = {"rgb": batch["rgb"].to(dev), "input": x_noisy}
-        audio = _audio(batch)
+        audio = resolve_audio(batch, audio_hw_for(cfg), dev)
         if audio is not None:
             data["audio"] = audio.to(dev)
 
@@ -103,8 +121,10 @@ def make_eval_step(model: VideoSaliencyModel, schedule: DiffusionSchedule,
     def eval_step(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
                   *, noise: Optional[torch.Tensor] = None
                   ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        dev = next(model.parameters()).device
         pred = sample_saliency(model, schedule, cfg.sampling, cfg.data_transform, batch["rgb"],
-                               _audio(batch), noise=noise, generator=generator,
+                               resolve_audio(batch, audio_hw_for(cfg), dev), noise=noise,
+                               generator=generator,
                                training_target=cfg.training.training_target)
         valid = batch.get("valid")
         scores = eval_scores(pred, batch["salmap"].to(pred.device, torch.float32),
