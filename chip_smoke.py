@@ -1,8 +1,9 @@
 """Drive the PyTorch port's paths (AV inference with DDIM, the AV training
 step, AV inference with DPM-Solver++ and the eval lowerings, the
 visual-only model in both MViT layouts, both models in f32, the f32
-attention and training step at full width, and the AV trainer from a
-packed tree on disk to its checkpoints) on one NVIDIA
+attention and training step at full width, the AV trainer from a packed
+tree on disk to its checkpoints, and the entry points: the CLI, the device
+metrics, adaptive DPM-Solver and the int8 MLPs) on one NVIDIA
 GPU and hold each of its hand-written kernels (thirteen in bf16 and the
 seven f32 instances an f32 model runs) against its plain PyTorch version.
 
@@ -163,6 +164,30 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      seconds per checkpoint save and restore; with --profile, one more
      epoch of the resumed trainer's `fit` under torch.profiler (the
      device's busy share of its wall time, the save's and the loader's);
+ 14. the entry points at full width (`entry_phase`), in a temporary
+     directory: `cli.main(["train-visual", ...])` in process on packed
+     DHF1k trees written with numpy (`write_packed_dhf1k_tree`: 81 and 36
+     frames at 224x384, one B=4 step and one validation batch, bf16):
+     the checkpoint, `best.json`, one finite log row and the whole run's
+     launches against `path_launches` (one step, one DDIM run); then the
+     device metrics (`metrics/device.py`) on the card on the maps of that
+     trainer's `evaluate` after `restore_best` (generator seed 0), the
+     fixations the GT's top 2% of pixels, against the numpy metrics on the
+     CPU (NSS, CC, SIM within METRIC_TOL of max(1, |x|), AUC-Judd within
+     AUC_TOL); then `python -m diff_sal_tpu_torch.cli train-av` as a
+     subprocess on a packed AV tree (`write_packed_av_tree`, split1, bf16,
+     B=4) warm-started from train-visual's weights: rc 0, a checkpoint per
+     epoch (4) and `best.json`, and its "warm start: N entries loaded"
+     line with N > 0; then on phase 3's AV model, inputs and noise
+     (rebuilt from their seeds): `adaptive_sample` (DPM-Solver++, orders 2
+     and 3, default atol / rtol) with its NFE, accepted and rejected steps,
+     the launches against `path_launches(nfe=NFE + 1)` and ms per run;
+     `dpm_solver_sample(wrapped_eps_fn=model_wrapper(x_start))` at NFE 2
+     within 3e-2 of DPM++ NFE 2; the model with `mlp_quant` "w8" and
+     "w8a8" (weights by `quantize_state_dict`): DDIM NFE 1 maps checked,
+     launches equal to phase 3's, MViT's pyramid within QUANT_TOL of the
+     fp model's (max|d| / max|x| and relative L2), and ms per run of the
+     three models timed in turns;
 then prints the `kernels` JSON line, the nvidia-smi line and, last, the
 result line {"ok": true, "device": {...}}. The f32 instances' bound takes
 their matrix products at split TF32's rate (495 / 3 TFLOP/s: f32's accuracy
@@ -2147,6 +2172,317 @@ def trainer_phase(dev, kind, smi, profile=False):
         f"{time.perf_counter() - t0:.1f} s on {kind} [{smi}]")
 
 
+# phase 14: the entry points. Packed DHF1k trees for `train-visual`: 81
+# frames give 4 training windows (len_snippet 32, a step of 16), one B=4
+# step; 36 frames give 4 validation windows (a step of 1), one batch. The
+# AV tree for the `train-av` subprocess: 2 + 2 videos of 160 frames at
+# 25 fps, 3 windows each, one B=4 step and one validation batch per epoch
+ENTRY_TRAIN_FRAMES, ENTRY_VAL_FRAMES = 81, 36
+ENTRY_AV_FOLDS = {"train": (("t1", 160), ("t2", 160)), "test": (("e1", 160), ("e2", 160))}
+# the device metrics against the numpy ones on the same maps: NSS, CC and
+# SIM within 1e-4 of max(1, |value|) (f32 sums over 86016 pixels against
+# f64); AUC-Judd within 5e-3, the numpy metric's 1e-7 jitter breaking the
+# ties the batched one averages (tests/test_metrics.py:47)
+METRIC_TOL, AUC_TOL = 1e-4, 5e-3
+# the quantised MViT's pyramid against the fp one: tests/test_quant.py's
+# bound (max|d| / max|x|), and here also as relative L2
+QUANT_TOL = 0.08
+ENTRY_ITERS = 3  # timed runs per model, in turns
+
+
+def entry_phase(dev, kind, smi, schedule, data_cfg):
+    """Phase 14: the entry points at full width (see the module docstring).
+    Returns nothing; any failed check raises."""
+    import os
+    import shutil
+    import tempfile
+
+    from diff_sal_tpu_torch import cli as port_cli
+    from diff_sal_tpu_torch.config import TrainingConfig
+    from diff_sal_tpu_torch.data.loader import Loader
+    from diff_sal_tpu_torch.data.packed import PackedVideoDataset
+    from diff_sal_tpu_torch.data.synthetic import write_packed_av_tree, write_packed_dhf1k_tree
+    from diff_sal_tpu_torch.metrics import device as metrics_device
+    from diff_sal_tpu_torch.metrics import saliency as metrics_np
+    from diff_sal_tpu_torch.ops import kernels
+    from diff_sal_tpu_torch.train import trainer as trainer_mod
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    try:
+        # -- 1. train-visual, in process ----------------------------------
+        hw = visual_config().decoder.img_size
+        train_root = write_packed_dhf1k_tree(os.path.join(tmp, "dhf1k_train"), hw,
+                                             {"1": ENTRY_TRAIN_FRAMES}, seed=14)
+        val_root = write_packed_dhf1k_tree(os.path.join(tmp, "dhf1k_val"), hw,
+                                           {"601": ENTRY_VAL_FRAMES}, seed=15)
+        work = os.path.join(tmp, "visual")
+        Trainer = trainer_mod.Trainer
+        init_state = Trainer.init_state
+        made, step_events = [], []
+
+        def timed_init(self, *a, **kw):
+            out = init_state(self, *a, **kw)
+            made.append(self)
+            step = self.train_step
+
+            def timed_step(opt, batch, gen):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                m = step(opt, batch, gen)
+                ev[1].record()
+                step_events.append(ev)
+                return m
+
+            self.train_step = timed_step
+            return out
+
+        Trainer.init_state = timed_init
+        try:
+            kernels.reset_launch_counts()
+            t_cli = time.perf_counter()
+            port_cli.main(["train-visual", "--packed_root", train_root, "--packed_val_root",
+                           val_root, "--bf16", "--batch_size", str(B_TRAIN), "--n_epochs", "1",
+                           "--log_freq", "1", "--workdir", work, "--n_threads", "4"])
+            torch.cuda.synchronize()
+            t_cli = time.perf_counter() - t_cli
+            counts = kernels.launch_counts()
+        finally:
+            Trainer.init_state = init_state
+        t = made[0]
+        vcfg = t.cfg.model
+        assert vcfg == visual_config() and t.device == torch.device(dev), (vcfg, t.device)
+        assert (t.epoch, t.global_step, len(step_events)) == (1, 1, 1), (t.epoch, t.global_step)
+        assert t.ckpt.all_steps() == [0] and t.ckpt.best()["step"] == 0, t.ckpt.best()
+        with open(os.path.join(work, "train.log")) as f:
+            rows = [r.rstrip("\n").split("\t") for r in f]
+        assert rows[0] == trainer_mod.TRAIN_COLUMNS and len(rows) == 2, rows
+        assert all(np.isfinite(float(x)) for x in rows[1]), rows
+        want = {n: path_launches(vcfg, train=True)[n] + path_launches(vcfg, nfe=1)[n]
+                for n in KERNELS}
+        check_launches(counts, want, "train-visual")
+        missing = [n for n in ("bias_attention", "layer_norm", "bilinear_resize_sum",
+                               "bias_attention_bwd", "layer_norm_bwd") if counts[n] == 0]
+        assert not missing, missing
+        step_ms = step_events[0][0].elapsed_time(step_events[0][1])
+        log(f"[entry] train-visual (visual-only, bf16, B={B_TRAIN}, 1 step + 1 validation "
+            f"batch) in {t_cli:.1f} s: launches " + json.dumps({n: c for n, c in counts.items()
+                                                                  if c})
+            + f" = path_launches(train=True) + path_launches(nfe=1); log {rows[1]}; the CLI's "
+            f"step {step_ms:.2f} ms by CUDA events (the first, cold) on {kind} [{smi}]")
+
+        # -- 3. the device metrics on step 1's evaluation -------------------
+        t.restore_best()
+        seen = []
+        eval_step = t.eval_step
+
+        def keep(batch, gen):
+            scores, pred = eval_step(batch, gen)
+            seen.append((batch["salmap"], pred))
+            return scores, pred
+
+        t.eval_step = keep
+        val = Loader(PackedVideoDataset(val_root, 32, "val"), B_TRAIN, shuffle=False)
+        scores = t.evaluate(val)
+        (gt, pred), = seen
+        flat = gt.reshape(gt.shape[0], -1)
+        fix = (flat >= torch.quantile(flat.float(), 0.98, dim=1, keepdim=True)).reshape(gt.shape)
+        fix = fix.float()
+        got = {"auc_judd": metrics_device.auc_judd(pred, fix),
+               "nss": metrics_device.nss_fix(pred, fix), "cc": metrics_device.cc_maps(pred, gt),
+               "sim": metrics_device.sim_maps(pred, gt)}
+        assert pred.device.type == torch.device(dev).type
+        assert all(v.device == pred.device for v in got.values())
+        p_np, g_np, f_np = (a.float().cpu().numpy()[..., 0] for a in (pred, gt, fix))
+        ref = {"auc_judd": [metrics_np.AUC_Judd(p, f, rng=np.random.RandomState(0))
+                            for p, f in zip(p_np, f_np)],
+               "nss": [metrics_np.NSS(p, f) for p, f in zip(p_np, f_np)],
+               "cc": [metrics_np.CC(p, g) for p, g in zip(p_np, g_np)],
+               "sim": [metrics_np.SIM(p, g) for p, g in zip(p_np, g_np)]}
+        worst = {}
+        for name, vals in ref.items():
+            d = np.abs(got[name].cpu().numpy() - np.asarray(vals))
+            lim = AUC_TOL if name == "auc_judd" else METRIC_TOL * np.maximum(1.0, np.abs(vals))
+            assert bool(np.all(d <= lim)), (name, got[name], vals)
+            worst[name] = float(d.max())
+        log(f"[entry] device metrics on the card vs numpy on the CPU, step 1's evaluation "
+            f"(B={B_TRAIN}, fixations the GT's top 2%): "
+            + json.dumps({k: [round(float(x), 5) for x in v.cpu()] for k, v in got.items()})
+            + " max|d| " + json.dumps({k: f"{v:.2e}" for k, v in worst.items()})
+            + f" (AUC {AUC_TOL}, others {METRIC_TOL} of max(1, |x|)); evaluate's scores "
+            + json.dumps({k: round(v, 4) for k, v in scores.items()}))
+        t.model = t.optimizer = None
+        del t, made, seen
+
+        # -- 2. train-av, as a subprocess ----------------------------------
+        packed = os.path.join(tmp, "av_packed")
+        config = write_packed_av_tree(packed, hw, ENTRY_AV_FOLDS, 25.0, seed=16)
+        with open(os.path.join(tmp, "dataset.json"), "w") as f:
+            json.dump(config, f)
+        work_av = os.path.join(tmp, "av")
+        t_sub = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "diff_sal_tpu_torch.cli", "train-av", "--packed_root", packed,
+             "--dataset_json", os.path.join(tmp, "dataset.json"), "--splits", "split1",
+             "--bf16", "--batch_size", str(B_TRAIN), "--log_freq", "1", "--pretrain_path",
+             os.path.join(work, "weights"), "--workdir", work_av, "--n_threads", "4"],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600)
+        t_sub = time.perf_counter() - t_sub
+        if proc.returncode != 0:
+            log(proc.stdout[-4000:])
+            log(proc.stderr[-4000:])
+        assert proc.returncode == 0, proc.returncode
+        loaded = [int(line.split()[2]) for line in proc.stdout.splitlines()
+                  if line.startswith("warm start: ")]
+        assert len(loaded) == 1 and loaded[0] > 0, proc.stdout[-2000:]
+        weights = os.path.join(work_av, "split1", "weights")
+        n_av = TrainingConfig().n_epochs_for_av_data
+        assert sorted(os.listdir(weights)) == sorted([f"{i}.pth" for i in range(n_av)]
+                                                     + ["best.json"]), os.listdir(weights)
+        with open(os.path.join(weights, "best.json")) as f:
+            best = json.load(f)
+        # the trainer's log line per step (log_freq 1): its StepTimer's data
+        # (the loader's wait) and step (the host's dispatch of the step)
+        # seconds; with one step an epoch the device's wait for the step's
+        # metrics falls after both
+        timer = [line.split()[-3:] for line in proc.stdout.splitlines()
+                 if line.startswith("epoch ")]
+        assert len(timer) == n_av, proc.stdout[-2000:]
+        log(f"[entry] train-av subprocess rc {proc.returncode} in {t_sub:.1f} s (AV bf16, "
+            f"B={B_TRAIN}, {n_av} epochs of 1 step + 1 validation batch): warm start "
+            f"{loaded[0]} entries loaded from train-visual's best; {n_av} checkpoints, best "
+            f"{best}; host time per step (StepTimer data + step): "
+            + ", ".join(f"{1e3 * (float(d[:-1]) + float(st[:-1])):.1f} ms" for d, _, st in timer))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[entry] CLI part {time.perf_counter() - t0:.1f} s")
+    adaptive_and_quant_phase(dev, kind, smi, schedule, data_cfg)
+    log(f"[entry] phase {time.perf_counter() - t0:.1f} s")
+
+
+def adaptive_and_quant_phase(dev, kind, smi, schedule, data_cfg):
+    """Phase 14, steps 4 and 5: adaptive DPM-Solver and the quantised MViT
+    on phase 3's model, inputs and noise."""
+    from diff_sal_tpu_torch.config import SamplingConfig
+    from diff_sal_tpu_torch.data.transforms import inverse_data_transform
+    from diff_sal_tpu_torch.diffusion import dpm_solver
+    from diff_sal_tpu_torch.inference import sample_saliency
+    from diff_sal_tpu_torch.models.diff_model import VideoSaliencyModel, build_model
+    from diff_sal_tpu_torch.ops import kernels
+    from diff_sal_tpu_torch.ops.quant import quantize_state_dict
+
+    t0 = time.perf_counter()
+    cfg = main_config()
+    model = build_model(cfg, seed=0, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    (H, W), T = cfg.decoder.img_size, cfg.visual.temporal_size
+    # phase 3's first inputs, and x_T from its run(0)'s generator
+    rgb = torch.randn(B, T, H, W, 3, generator=g, device=dev) * 0.5
+    audio = torch.randn(B, 9, H // 2, W // 2, 1, generator=g, device=dev)
+    noise = torch.randn((B, H, W, 1), generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+
+    def check_map(out, what):
+        assert tuple(out.shape) == (B, H, W, 1), (what, out.shape)
+        assert bool(torch.isfinite(out).all()), what
+        lo, hi, std = float(out.min()), float(out.max()), float(out.std())
+        assert 0.0 <= lo and hi <= 1.0 and std > 0.0, (what, lo, hi, std)
+
+    def encoded(m):
+        return m.encode_visual(rgb), m.encode_audio(audio)
+
+    # -- 4. adaptive DPM-Solver++ -------------------------------------
+    def adaptive(order):
+        with torch.no_grad():
+            feats, aud = encoded(model)
+            x, stats = dpm_solver.adaptive_sample(
+                schedule, lambda x, t: model.denoise(x, t, feats, aud), noise.clone(),
+                algorithm="dpmsolver++", order=order, return_stats=True)
+            return inverse_data_transform(data_cfg, x), stats
+
+    for order in (2, 3):
+        kernels.reset_launch_counts()
+        out, stats = adaptive(order)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check_map(out, f"adaptive {order}")
+        calls = stats["nfe"] + 1  # the loop's model calls and the final denoise
+        check_launches(counts, path_launches(cfg, nfe=calls), f"adaptive order {order}")
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out2, stats2 = adaptive(order)
+        ev[1].record()
+        torch.cuda.synchronize()
+        assert stats2 == stats and torch.equal(out2, out), (stats, stats2)
+        log(f"[entry] adaptive DPM-Solver++ order {order} (atol 0.0078, rtol 0.05), AV bf16 "
+            f"B={B}: NFE {stats['nfe']} + 1 final denoise, {stats['accepted']} accepted and "
+            f"{stats['rejected']} rejected steps; launches = path_launches(nfe={calls}); map "
+            f"min {float(out.min()):.4f} max {float(out.max()):.4f}; "
+            f"{ev[0].elapsed_time(ev[1]):.1f} ms per run on {kind} [{smi}]")
+
+    # model_wrapper (an x0 network) through dpm_solver_sample at NFE 2
+    ns = dpm_solver.DiscreteVPSchedule(schedule.betas.double().cpu().numpy())
+    with torch.no_grad():
+        ref = sample_saliency(model, schedule, dpm_sampling(2), data_cfg, rgb, audio,
+                              noise=noise)
+        feats, aud = encoded(model)
+        eps = dpm_solver.model_wrapper(lambda x, t, c: model.denoise(x, t, feats, aud), ns,
+                                       model_type="x_start")
+        wrapped = inverse_data_transform(data_cfg, dpm_solver.dpm_solver_sample(
+            schedule, None, noise.clone(), sampling=dpm_sampling(2), wrapped_eps_fn=eps))
+    check_map(wrapped, "wrapped DPM++")
+    d_wrap = float((wrapped - ref).abs().max())
+    assert d_wrap <= 3e-2, d_wrap
+    log(f"[entry] dpm_solver_sample(wrapped_eps_fn=model_wrapper(x_start)) at NFE 2 vs "
+        f"DPM++ NFE 2: max|d| {d_wrap:.3e} (limit 3e-2)")
+
+    # -- 5. the quantised MViT ------------------------------------------
+    ddim = SamplingConfig()
+    with torch.no_grad():
+        fp_map = sample_saliency(model, schedule, ddim, data_cfg, rgb, audio, noise=noise)
+        fp_feats = model.encode_visual(rgb)
+    models = {"fp": model}
+    for mode in ("w8", "w8a8"):
+        qcfg = dataclasses.replace(cfg, visual=dataclasses.replace(cfg.visual, mlp_quant=mode))
+        qm = VideoSaliencyModel(qcfg).eval()
+        qm.load_state_dict(quantize_state_dict(model.state_dict(), qm.state_dict()), strict=True)
+        qm.to(dev)
+        models[mode] = qm
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            qmap = sample_saliency(qm, schedule, ddim, data_cfg, rgb, audio, noise=noise)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check_map(qmap, mode)
+        check_launches(counts, path_launches(cfg, 1), f"quantised {mode}")
+        with torch.no_grad():
+            q_feats = qm.encode_visual(rgb)
+        rel = []
+        for a, f in zip(q_feats, fp_feats):
+            a, f = a.float(), f.float()
+            rel.append((float((a - f).abs().max() / f.abs().max()),
+                        float((a - f).norm() / f.norm())))
+        assert all(0.0 < m < QUANT_TOL and 0.0 < l2 < QUANT_TOL for m, l2 in rel), rel
+        log(f"[entry] mlp_quant={mode}: MViT pyramid vs fp (max|d|/max|x|, relative L2) "
+            + ", ".join(f"({m:.4f}, {l2:.4f})" for m, l2 in rel)
+            + f" (limit {QUANT_TOL}); DDIM map vs fp max|d| "
+            f"{float((qmap - fp_map).abs().max()):.3e}; launches = phase 3's")
+    ms = {k: [] for k in models}
+    with torch.no_grad():
+        for _ in range(ENTRY_ITERS):
+            for name, m in models.items():
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                sample_saliency(m, schedule, ddim, data_cfg, rgb, audio, noise=noise)
+                ev[1].record()
+                torch.cuda.synchronize()
+                ms[name].append(ev[0].elapsed_time(ev[1]))
+    log(f"[entry] DDIM NFE 1, AV bf16 B={B}, ms per run in turns ({ENTRY_ITERS} each): "
+        + "; ".join(f"{k} " + ", ".join(f"{x:.2f}" for x in v) for k, v in ms.items())
+        + f" on {kind} [{smi}]; adaptive and quantised part {time.perf_counter() - t0:.1f} s")
+
+
 def resize_add_phase(k4_call, recorders, plain):
     """K10, which no model path calls: the four task maps K4 summed in the
     main path's run added one by one into a zero bf16 accumulator (counts
@@ -2488,6 +2824,9 @@ def main() -> int:
 
     # -- phase 13: the trainer from a packed tree to checkpoints -------------
     trainer_phase(dev, kind, smi, profile=cli.profile)
+
+    # -- phase 14: the entry points ------------------------------------------
+    entry_phase(dev, kind, smi, schedule, data_cfg)
 
     log("[device time] profiler sessions " + json.dumps(DEVICE_MS_TALLY))
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

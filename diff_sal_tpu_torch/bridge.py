@@ -7,6 +7,8 @@ strict=True)` accepts. The layout rules are the port's own copy of the JAX
 package's `train/convert.py` exporters:
 
   Linear           kernel (I, O)           -> weight (O, I)
+  quantised Linear kernel_q (I, O) int8, kernel_scale (O,)
+                                           -> weight_q (O, I), weight_scale
   Conv2d           kernel (kh, kw, I, O)   -> weight (O, I, kh, kw)
   Conv3d           kernel (kt, kh, kw, I, O) -> weight (O, I, kt, kh, kw)
   depthwise Conv3d kernel (kt, kh, kw, 1, C) -> weight (C, 1, kt, kh, kw)
@@ -56,7 +58,11 @@ def _ln(sd: Dict, prefix: str, p: Mapping):
 
 
 def _lin(sd: Dict, prefix: str, p: Mapping):
-    sd[prefix + ".weight"] = _inv_linear(p["kernel"])
+    if "kernel_q" in p:  # a quantised Dense (ops/quant.py)
+        sd[prefix + ".weight_q"] = _inv_linear(p["kernel_q"])
+        sd[prefix + ".weight_scale"] = _np(p["kernel_scale"])
+    else:
+        sd[prefix + ".weight"] = _inv_linear(p["kernel"])
     if "bias" in p:
         sd[prefix + ".bias"] = _np(p["bias"])
 

@@ -20,7 +20,12 @@ K9 at eval). The training step's fields (dequantization, losses,
 optimizer, dropout, drop-path, the train-time dead-frame cut, EMA) and
 the DPM-Solver settings of `SamplingConfig` and the trainer's epochs,
 logging and evaluation noise are here; fields that only unported paths
-read (the mesh) come with those paths.
+read (the mesh) come with those paths. JAX's `SamplingConfig` also lists
+`dpm_solver_type`, `dpm_solver_atol` and `dpm_solver_rtol`, which nothing
+in the JAX package reads (its `adaptive_sample` takes `atol` and `rtol`
+as arguments, and its `dpm_solver_sample` raises on
+`dpm_solver_method="adaptive"`): the port has none of them.
+`MViTConfig.mlp_quant` selects int8 block-MLP weights (`ops/quant.py`).
 """
 
 from __future__ import annotations
@@ -147,7 +152,10 @@ class MViTConfig:
     rel_pos_spatial_size: int = 224
     # MLP activation: "tanh" approximation (default) | "exact" erf GELU
     gelu: str = "tanh"
-    # int8 MLP weights: only "none" is ported so far
+    # int8 block-MLP weights, an eval-time deployment transform
+    # (ops/quant.py): "none" | "w8" (int8 weights, f32 accumulation) |
+    # "w8a8" (int8 weights and per-row int8 activations, int32 products);
+    # quantised weights come from quantize_state_dict over an fp state_dict
     mlp_quant: str = "none"
     # cls token on its own (B, 1, C) stream, spatial query rows through
     # kernel K1 (ops/attention.py) | False: the token-concat layout, cls at
@@ -275,6 +283,10 @@ class ExperimentConfig:
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
     sampling: SamplingConfig = dataclasses.field(default_factory=SamplingConfig)
+
+
+def visual_experiment(**kw) -> ExperimentConfig:
+    return ExperimentConfig(model=ModelConfig.visual_only(), **kw)
 
 
 def audio_visual_experiment(**kw) -> ExperimentConfig:

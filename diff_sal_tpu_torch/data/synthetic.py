@@ -1,8 +1,9 @@
 """In-memory synthetic datasets with the real items' contract (JAX package
 `data/synthetic.py`): for tests, benchmarks and overfit runs without data
 on disk. The same seed and index give the same item as the JAX
-package's. `write_packed_av_tree` writes a synthetic tree on disk in
-`data/packed.PackedAVDataset`'s layout."""
+package's. `write_packed_dhf1k_tree` and `write_packed_av_tree` write
+synthetic trees on disk in `data/packed.PackedVideoDataset`'s and
+`PackedAVDataset`'s layouts, with numpy alone."""
 
 from __future__ import annotations
 
@@ -51,6 +52,26 @@ class SyntheticVisualDataset:
 class SyntheticAVDataset(SyntheticVisualDataset):
     def __init__(self, *args, **kw):
         super().__init__(*args, with_audio=True, **kw)
+
+
+def write_packed_dhf1k_tree(root: str, hw: Tuple[int, int], videos: Mapping[str, int],
+                            seed: int = 0) -> str:
+    """A packed DHF1k tree written with numpy alone, in
+    `PackedVideoDataset`'s layout (`data/packed.py`): for each (numeric)
+    video id and frame count, uint8 frames at `hw` and uint8 maps in
+    1..255, and index.json. Returns `root`."""
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    index = {"videos": {}, "img_size": list(hw)}
+    for vid, n in videos.items():
+        np.save(os.path.join(root, f"{vid}_frames.npy"),
+                rng.randint(0, 256, (n, *hw, 3), dtype=np.uint8))
+        np.save(os.path.join(root, f"{vid}_maps.npy"),
+                rng.randint(1, 256, (n, *hw), dtype=np.uint8))
+        index["videos"][str(vid)] = n
+    with open(os.path.join(root, "index.json"), "w") as f:
+        json.dump(index, f)
+    return root
 
 
 def write_packed_av_tree(root: str, hw: Tuple[int, int],

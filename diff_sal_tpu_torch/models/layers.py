@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from diff_sal_tpu_torch.ops import layernorm as ln_ops
 from diff_sal_tpu_torch.ops.kernels import acc_dtype
 from diff_sal_tpu_torch.ops.mlp import gelu
+from diff_sal_tpu_torch.ops.quant import QuantLinear
 from diff_sal_tpu_torch.ops import resize as resize_ops
 
 Dtype = Optional[torch.dtype]
@@ -203,20 +204,35 @@ class BatchNorm(nn.BatchNorm2d):
 
 class Mlp(nn.Module):
     """fc1 -> GELU -> dropout -> fc2 -> dropout on the last axis (dropout
-    only with `train=True`)."""
+    only with `train=True`).
+
+    quant: "none" | "w8" | "w8a8", eval-time int8 storage of the fc
+    weights (`ops/quant.QuantLinear`, JAX `layers.py:73-100`); the layers
+    keep their names fc1 / fc2, their state comes from
+    `ops/quant.quantize_state_dict`, and they raise under train mode."""
 
     def __init__(self, dim: int, hidden: int, out: Optional[int] = None,
-                 act: str = "tanh", dropout: float = 0.0):
+                 act: str = "tanh", dropout: float = 0.0, quant: str = "none"):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, out or dim)
+        if quant == "none":
+            self.fc1 = nn.Linear(dim, hidden)
+            self.fc2 = nn.Linear(hidden, out or dim)
+        else:
+            self.fc1 = QuantLinear(dim, hidden, quant)
+            self.fc2 = QuantLinear(hidden, out or dim, quant)
         self.act = act
         self.dropout = dropout
+        self.quant = quant
+
+    def _fc(self, x: torch.Tensor, fc: nn.Module, dt: Dtype) -> torch.Tensor:
+        return dense(x, fc, dt) if self.quant == "none" else fc(x, dt)
 
     def forward(self, x: torch.Tensor, dt: Dtype = None, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = dropout(gelu(dense(x, self.fc1, dt), self.act), self.dropout, train, generator)
-        return dropout(dense(h, self.fc2, dt), self.dropout, train, generator)
+        if train and self.quant != "none":
+            raise ValueError(f"an Mlp with quant={self.quant!r} is eval-only")
+        h = dropout(gelu(self._fc(x, self.fc1, dt), self.act), self.dropout, train, generator)
+        return dropout(self._fc(h, self.fc2, dt), self.dropout, train, generator)
 
 
 class ConvBNRelu(nn.Sequential):

@@ -13,7 +13,10 @@ row 0 of every head, through kernel K12. Both layouts compute one
 function with one parameter tree. Every LayerNorm runs through kernel K2;
 with `pool_mode="pallas"` (and `cls_stream`, as in JAX) the depthwise
 attention pools run through kernel K11 (`ops/pool.py`) on the qkv columns
-in place, else through cuDNN's grouped conv3d. Parameter names are the
+in place, else through cuDNN's grouped conv3d. With `mlp_quant` ("w8" /
+"w8a8", eval only) every block's MLP holds int8 weights
+(`ops/quant.QuantLinear`) and takes the cls rows with the spatial rows in
+one product. Parameter names are the
 reference's (`patch_embed.projection`, `cls_token`, `blocks.{i}.*`,
 `norm{s}`).
 
@@ -37,6 +40,7 @@ from diff_sal_tpu_torch.ops import attention as attn_ops
 from diff_sal_tpu_torch.ops import layernorm as ln_ops
 from diff_sal_tpu_torch.ops import pool as pool_ops
 from diff_sal_tpu_torch.ops.kernels import acc_dtype
+from diff_sal_tpu_torch.ops.quant import QUANT_MODES
 from diff_sal_tpu_torch.ops.rel_pos import rel_pos_parts, rel_pos_terms
 
 
@@ -252,7 +256,8 @@ class MultiScaleBlock(nn.Module):
             cfg.pool_mode if cfg.cls_stream else "conv", cfg.cls_stream,
         )
         self.norm2 = FusedLayerNorm(out_dims)
-        self.mlp = Mlp(out_dims, int(out_dims * cfg.mlp_ratio), act=cfg.gelu)
+        self.mlp = Mlp(out_dims, int(out_dims * cfg.mlp_ratio), act=cfg.gelu,
+                       quant=cfg.mlp_quant)
         self.proj = nn.Linear(in_dims, out_dims) if in_dims != out_dims else None
 
     def forward(self, sp: torch.Tensor, cls: torch.Tensor, in_size, dt: Dtype = None):
@@ -270,6 +275,12 @@ class MultiScaleBlock(nn.Module):
             skip_sp = x5.permute(0, 2, 3, 4, 1).reshape(B, -1, x5.shape[1])
         sp = skip_sp + attn_sp
         cls = skip_cls + attn_cls
+        if self.mlp.quant != "none":
+            # the quantised MLP works row by row: the cls rows join the
+            # spatial rows in one int8 product (torch._int_mm takes more
+            # than 16 rows; the cls stream alone has B)
+            m = self.mlp(torch.cat([self.norm2(cls), self.norm2(sp)], 1), dt)
+            return sp + m[:, 1:], cls + m[:, :1], out_size
         sp = sp + self.mlp(self.norm2(sp), dt)
         cls = cls + self.mlp(self.norm2(cls), dt)
         return sp, cls, out_size
@@ -295,8 +306,8 @@ class MViT(nn.Module):
         super().__init__()
         if not cfg.with_cls_token:
             raise NotImplementedError("the port builds MViT with its cls token")
-        if cfg.mlp_quant != "none":
-            raise NotImplementedError(f"mlp_quant={cfg.mlp_quant!r} is not ported")
+        if cfg.mlp_quant not in QUANT_MODES:
+            raise ValueError(f"mlp_quant={cfg.mlp_quant!r}; expected one of {QUANT_MODES}")
         if cfg.gelu not in ("tanh", "exact"):
             raise ValueError(f"gelu={cfg.gelu!r}")
         self.cfg = cfg

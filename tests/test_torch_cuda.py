@@ -1629,3 +1629,79 @@ def test_cvt_attention_f32_kernel_walks_across_batch_items(card, Bt, L, S, C):
     again = t_attn.cvt_cross_attention(q, k, v, 2, C ** -0.5)
     torch.cuda.synchronize()
     assert torch.equal(out, again)
+
+
+# ---- int8 MLP quantisation and the device metrics (no hand-written kernel:
+# torch._int_mm and plain torch, held against the CPU route) ----
+
+
+@pytest.mark.parametrize("rows", [17, 2 * 43009])
+@pytest.mark.parametrize("cin,cout", [(96, 384), (384, 96), (768, 3072)])
+def test_quant_linear_w8a8_int_mm_matches_the_cpu(card, rows, cin, cout):
+    """`QuantLinear` w8a8 through torch._int_mm on the card against its
+    exact CPU product (int8 rows and scales, then int32 sums), bf16
+    activations as the model's: the int8 rows bit for bit, the output
+    within one bf16 ulp. The MViT MLP widths and the row counts of the
+    full-width block (B=2, cls rows joined to 8*56*96 spatial rows)."""
+    from diff_sal_tpu_torch.ops import quant as tq
+
+    g = torch.Generator().manual_seed(rows + cin)
+    lin = tq.QuantLinear(cin, cout, "w8a8")
+    lin.weight_q.copy_(torch.randint(-127, 128, (cout, cin), generator=g, dtype=torch.int8))
+    lin.weight_scale.uniform_(1e-3, 2e-3, generator=g)
+    lin.bias.normal_(generator=g)
+    x = torch.randn(rows, cin, generator=g).bfloat16()
+    want = lin(x)
+    got = lin.to("cuda")(x.to("cuda"))
+    torch.cuda.synchronize()
+    q_cpu, _ = tq._quant_rows(x)
+    q_gpu, _ = tq._quant_rows(x.to("cuda"))
+    assert torch.equal(q_gpu.cpu(), q_cpu)
+    a = torch.randint(-127, 128, (rows, cin), generator=g, dtype=torch.int8)
+    assert torch.equal(tq.int_mm(a.cuda(), lin.weight_q).cpu(), tq.int_mm(a, lin.weight_q.cpu()))
+    torch.testing.assert_close(got.cpu().float(), want.float(), **BF16_TOL)
+
+
+def test_int_mm_states_the_card_rule(card):
+    from diff_sal_tpu_torch.ops import quant as tq
+
+    a = torch.ones(16, 32, dtype=torch.int8, device="cuda")
+    b = torch.ones(8, 32, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError, match="16 rows"):
+        tq.int_mm(a, b)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tq.int_mm(torch.ones(32, 30, dtype=torch.int8, device="cuda"),
+                  torch.ones(8, 30, dtype=torch.int8, device="cuda"))
+
+
+def test_quant_mlp_w8_on_the_card_matches_the_cpu(card):
+    from diff_sal_tpu_torch.models.layers import Mlp
+    from diff_sal_tpu_torch.ops import quant as tq
+
+    g = torch.Generator().manual_seed(0)
+    mlp = Mlp(96, 384, quant="w8")
+    fp = Mlp(96, 384)
+    sd = tq.quantize_state_dict(fp.state_dict(), mlp.state_dict())
+    mlp.load_state_dict(sd)
+    x = torch.randn(3, 100, 96, generator=g)
+    want = mlp(x)
+    got = mlp.to("cuda")(x.to("cuda"))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("hw", [(224, 384), (36, 64)])
+def test_device_metrics_on_the_card_match_the_cpu(card, hw):
+    from diff_sal_tpu_torch.metrics import device as tdev
+
+    g = torch.Generator().manual_seed(hw[0])
+    sal = torch.rand(4, *hw, 1, generator=g)
+    sal[1] = torch.round(sal[1] * 20) / 20  # ties
+    gt = torch.rand(4, *hw, 1, generator=g)
+    fix = (torch.rand(4, *hw, 1, generator=g) > 0.98).float()
+    fix[3] = 0.0  # no fixations: NaN
+    for fn, args in ((tdev.auc_judd, (sal, fix)), (tdev.nss_fix, (sal, fix)),
+                     (tdev.cc_maps, (sal, gt)), (tdev.sim_maps, (sal, gt))):
+        want = fn(*args)
+        got = fn(*(a.cuda() for a in args))
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6, equal_nan=True)
