@@ -2,8 +2,9 @@
 step, AV inference with DPM-Solver++ and the eval lowerings, the
 visual-only model in both MViT layouts, both models in f32, the f32
 attention and training step at full width, the AV trainer from a packed
-tree on disk to its checkpoints, and the entry points: the CLI, the device
-metrics, adaptive DPM-Solver and the int8 MLPs) on one NVIDIA
+tree on disk to its checkpoints, the entry points: the CLI, the device
+metrics, adaptive DPM-Solver and the int8 MLPs, and the import of the
+reference's released checkpoints and MViT's `remat`) on one NVIDIA
 GPU and hold each of its hand-written kernels (thirteen in bf16 and the
 seven f32 instances an f32 model runs) against its plain PyTorch version.
 
@@ -177,8 +178,8 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      AUC_TOL); then `python -m diff_sal_tpu_torch.cli train-av` as a
      subprocess on a packed AV tree (`write_packed_av_tree`, split1, bf16,
      B=4) warm-started from train-visual's weights: rc 0, a checkpoint per
-     epoch (4) and `best.json`, and its "warm start: N entries loaded"
-     line with N > 0; then on phase 3's AV model, inputs and noise
+     epoch (4) and `best.json`, and its "warm start: N parameters
+     loaded" line with N > 0; then on phase 3's AV model, inputs and noise
      (rebuilt from their seeds): `adaptive_sample` (DPM-Solver++, orders 2
      and 3, default atol / rtol) with its NFE, accepted and rejected steps,
      the launches against `path_launches(nfe=NFE + 1)` and ms per run;
@@ -188,6 +189,35 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      launches equal to phase 3's, MViT's pyramid within QUANT_TOL of the
      fp model's (max|d| / max|x| and relative L2), and ms per run of the
      three models timed in turns;
+ 15. the released-checkpoint import and MViT's `remat` at full width
+     (`import_phase`, `remat_phase`): (a) phase 3's model (rebuilt from
+     its seed) written as a reference-format DiffSal best.pth into a
+     temporary directory (`module.` prefixes, VGGish's FC head at its
+     reference size, AudioAttnNet's dead patch and position embeddings,
+     random off-centre slices in every CvT q projection, one key outside
+     the model); (b) imported through `diff_sal_tpu_torch.scripts.
+     import_reference_ckpt`, read back by the CLI's `_best_state_dict`
+     and loaded strictly into a fresh model on the card: the drop report
+     names exactly the planted keys, DDIM NFE 1 on phase 3's inputs and
+     noise gives phase 3's map (bound 0: the same weights through the same
+     kernels) with `path_launches(cfg)`; the import's seconds and the
+     file's GiB; (c) a `backbone.` file of the same MViT with a classifier
+     key, imported with `--kind mvit` and warm-started into a fresh AV
+     trainer: visual_net equal to the source's, every other entry (the
+     decoder's BatchNorm statistics among them, F8) its initial value;
+     (d) the AV bf16 step at B=4 (phase 6's recipe and checks) from seed-0
+     weights with `remat` off, on and off again, the same batch and draws:
+     the losses equal (the same forward runs), gradients per sub-network
+     within REMAT_GRAD_RL2 relative L2 (off against off again, the card's
+     own spread, held to it too), launches equal to
+     `path_launches(train=True)` (with `remat`, MViT's K1 and K2 forward
+     launches again in the backward), peak memory (each run's gradients
+     kept on the host, so no run's peak holds another's) and ms per step
+     by CUDA events of each; (e) the AV step in f32 at the reference's
+     per-card batch (F32_REF_BATCH) with `remat` (one step with phase 6's
+     checks, one timed): finite loss, ms per step, peak memory; then the
+     same batch without `remat` (its loss equal, its ms and peak, or that
+     it does not fit);
 then prints the `kernels` JSON line, the nvidia-smi line and, last, the
 result line {"ok": true, "device": {...}}. The f32 instances' bound takes
 their matrix products at split TF32's rate (495 / 3 TFLOP/s: f32's accuracy
@@ -874,7 +904,8 @@ def hold_kernels(names, recorders, plain, counts, profile=False):
 def grad_agreement(got, ref):
     """Relative L2 and cosine of gradient dicts, per sub-network and over
     all, and the worst per-tensor relative L2 (tensors whose reference is
-    zero up to rounding left out)."""
+    zero up to rounding left out), summed in f64: an f32 cosine over tens
+    of millions of entries on the host reads above 1."""
     top = max(float(v.abs().max()) for v in ref.values())
     names = [n for n in ref if float(ref[n].abs().max()) > 1e-6 * top]
     stats = {}
@@ -882,8 +913,8 @@ def grad_agreement(got, ref):
         ns = [n for n in names if sub == "all" or n.startswith(sub + ".")]
         if not ns:  # the visual-only model has no audio branch
             continue
-        a = torch.cat([got[n].flatten() for n in ns])
-        b = torch.cat([ref[n].flatten() for n in ns])
+        a = torch.cat([got[n].flatten() for n in ns]).double()
+        b = torch.cat([ref[n].flatten() for n in ns]).double()
         stats[sub] = (float((a - b).norm() / b.norm()),
                       float(torch.nn.functional.cosine_similarity(a, b, dim=0)))
     worst = max(((float((got[n] - ref[n]).norm() / ref[n].norm()), n) for n in names))
@@ -895,7 +926,7 @@ def first_train_step(tstep, opt, batch, gen, params, what, t0):
     checks: finite loss and gradient norm, a finite gradient on every
     trainable parameter on the graph, non-zero gradients in MViT,
     AudioAttnNet and the decoder, none on the frozen VGGish, parameters
-    moved."""
+    moved. Returns the step's metrics."""
     before = {n: p.detach().clone() for n, p in params.items()}
     m0 = tstep(opt, batch, gen)
     torch.cuda.synchronize()
@@ -918,6 +949,7 @@ def first_train_step(tstep, opt, batch, gen, params, what, t0):
     moved = sum(not torch.equal(p, before[n]) for n, p in params.items() if p.requires_grad)
     assert moved > 0.9 * len(opt.params), (moved, len(opt.params))
     log(f"[{what}] {moved} of {len(opt.params)} trainable tensors moved in the first step")
+    return m0
 
 
 def lowered_config(cfg):
@@ -931,8 +963,9 @@ def lowered_config(cfg):
 def path_launches(cfg, nfe: int = 1, train: bool = False, fused_head: bool = False):
     """Launches of each kernel in one `sample_saliency` run of `cfg` with
     `nfe` denoiser calls, or (`train`) in one training step, from the
-    config's structure: the encoders run once per map or step, the decoder
-    once per call; the eval lowerings (K3, K7, K8, K9) at eval only. With
+    config's structure: the encoders run once per map or step (MViT's
+    blocks twice in a step with `remat`), the decoder once per call; the
+    eval lowerings (K3, K7, K8, K9) at eval only. With
     `fused_head` (the head module's field, which no config sets) the head
     runs through K8 unless `head_lowres` takes it through K9."""
     from diff_sal_tpu_torch.models.mvit import block_plan
@@ -953,9 +986,14 @@ def path_launches(cfg, nfe: int = 1, train: bool = False, fused_head: bool = Fal
     # convolution, as in JAX)
     pools = sum(1 if p["stride_q"] == p["stride_kv"] else 2 for p in block_plan(v))
     attn = "bias_attention" if v.cls_stream else "fused_bias_attention"
+    pools = pools if v.pool_mode == "pallas" and v.cls_stream else 0
+    # with `remat` a step runs every MViT block's forward again in the
+    # backward: its attention, its 7 LayerNorms and its pools (the emitted
+    # scales' norms sit outside the blocks)
+    again = 2 if train and v.remat else 1
     want = {name: 0 for name in KERNELS}
-    want.update({attn: v.num_layers, "layer_norm": ln,
-                 "depthwise_pool3d": pools if v.pool_mode == "pallas" and v.cls_stream else 0})
+    want.update({attn: again * v.num_layers, "layer_norm": ln + (again - 1) * 7 * v.num_layers,
+                 "depthwise_pool3d": again * pools})
     if train:
         # every MViT block's attention and every LayerNorm backward, except
         # two norms off the graph: the finest pyramid scale's (the decoder
@@ -2351,7 +2389,7 @@ def entry_phase(dev, kind, smi, schedule, data_cfg):
         assert len(timer) == n_av, proc.stdout[-2000:]
         log(f"[entry] train-av subprocess rc {proc.returncode} in {t_sub:.1f} s (AV bf16, "
             f"B={B_TRAIN}, {n_av} epochs of 1 step + 1 validation batch): warm start "
-            f"{loaded[0]} entries loaded from train-visual's best; {n_av} checkpoints, best "
+            f"{loaded[0]} parameters loaded from train-visual's best; {n_av} checkpoints, best "
             f"{best}; host time per step (StepTimer data + step): "
             + ", ".join(f"{1e3 * (float(d[:-1]) + float(st[:-1])):.1f} ms" for d, _, st in timer))
     finally:
@@ -2483,6 +2521,291 @@ def adaptive_and_quant_phase(dev, kind, smi, schedule, data_cfg):
         + f" on {kind} [{smi}]; adaptive and quantised part {time.perf_counter() - t0:.1f} s")
 
 
+# phase 15: the reference VGGish's FC head (512*4*6 -> 4096 -> 4096 -> 128,
+# reference vggish.py:114-123), planted in the reference-format file
+VGGISH_HEAD_SHAPES = ((4096, 12288), (4096, 4096), (128, 4096))
+REMAT_ITERS = 3  # timed steps per remat setting
+# (d): relative L2 of remat's gradients from the plain step's, per
+# sub-network. Two plain steps on the card differ by ~9e-3 in visual_net
+# (its backward kernels sum in no fixed order) and by < 1e-7 elsewhere; a
+# recompute that lost one of MViT's 16 blocks would move visual_net by
+# far more. The losses must be equal: the same forward runs.
+REMAT_GRAD_RL2 = 3e-2
+# (e): the reference's recipe is 4 cards x batch 12 (JAX config.py:250-251,
+# the reason `remat` exists), so 12 clips per card
+F32_REF_BATCH = 12
+
+
+def reference_file(sd, cfg, g):
+    """A DiffSal best.pth's state_dict from the port's `sd`: `module.`
+    prefixes, random off-centre slices in every CvT q projection, and the
+    keys the port does not build (VGGish's FC head, AudioAttnNet's patch and
+    position embeddings, one outside the model). Returns (file, planted)."""
+    planted = {}
+    for lid, shape in zip((0, 2, 4), VGGISH_HEAD_SHAPES):
+        planted[f"audio_net.embeddings.{lid}.weight"] = torch.randn(shape, generator=g) * 1e-2
+        planted[f"audio_net.embeddings.{lid}.bias"] = torch.randn(shape[0], generator=g)
+    planted["spatiotemp_net.to_patch_embedding.1.weight"] = torch.randn(512, 512, generator=g)
+    planted["spatiotemp_net.to_patch_embedding.1.bias"] = torch.randn(512, generator=g)
+    planted["spatiotemp_net.pos_embedding"] = torch.randn(1, 85, 512, generator=g)
+    planted["reference_only_counter"] = torch.tensor([3.0])
+    ref = {f"module.{k}": v for k, v in sd.items()}
+    offcentre = 0
+    for k, v in sd.items():
+        if k.endswith("conv_proj_q.conv.weight"):  # (C, 1, 3, 3, 3)
+            w = v.clone()
+            w[:, :, 0] = torch.randn(w[:, :, 0].shape, generator=g)
+            w[:, :, 2] = torch.randn(w[:, :, 2].shape, generator=g)
+            ref[f"module.{k}"] = w
+            offcentre += 1
+    assert offcentre == cfg.decoder.mid_num_stages, offcentre
+    ref.update({f"module.{k}": v for k, v in planted.items()})
+    return ref, planted
+
+
+def import_phase(dev, kind, smi, schedule, data_cfg, main_map):
+    """Phase 15 (a)-(c): the released-checkpoint import at full width (see
+    the module docstring)."""
+    import os
+    import shutil
+    import tempfile
+
+    from diff_sal_tpu_torch import cli as port_cli
+    from diff_sal_tpu_torch.config import ExperimentConfig, SamplingConfig
+    from diff_sal_tpu_torch.inference import sample_saliency
+    from diff_sal_tpu_torch.models.diff_model import VideoSaliencyModel, build_model
+    from diff_sal_tpu_torch.ops import kernels
+    from diff_sal_tpu_torch.scripts import import_reference_ckpt
+    from diff_sal_tpu_torch.train import convert
+    from diff_sal_tpu_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    cfg = main_config()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_import_")
+    try:
+        # -- (a) a reference-format best.pth from phase 3's model ------------
+        sd = build_model(cfg, seed=0, device="cpu").state_dict()
+        ref, planted = reference_file(sd, cfg, torch.Generator().manual_seed(15))
+        path = os.path.join(tmp, "best.pth")
+        torch.save({"state_dict": ref, "optim_dict": None, "epoch": 0, "step": 0}, path)
+        gib = os.path.getsize(path) / 2**30
+
+        # -- (b) through the entry point, loaded strictly on the card ---------
+        out_full = os.path.join(tmp, "full")
+        t_imp = time.perf_counter()
+        report = import_reference_ckpt.main([path, out_full])
+        t_imp = time.perf_counter() - t_imp
+        want = {convert.VGGISH_HEAD: sorted(k for k in planted if ".embeddings." in k),
+                convert.AUDIO_ATTN_DEAD: sorted(k for k in planted
+                                                if k.startswith("spatiotemp_net.")),
+                convert.OTHER: ["reference_only_counter"]}
+        assert report.dropped == want, report.dropped
+        counters = sum(k.endswith("num_batches_tracked") for k in sd)
+        assert report.loaded == len(sd) - counters, (report.loaded, len(sd), counters)
+        model = VideoSaliencyModel(cfg).eval().to(dev)
+        model.load_state_dict(port_cli._best_state_dict(out_full, dev), strict=True)
+        g = torch.Generator(device=dev).manual_seed(0)
+        (H, W), T = cfg.decoder.img_size, cfg.visual.temporal_size
+        rgb = torch.randn(B, T, H, W, 3, generator=g, device=dev) * 0.5
+        audio = torch.randn(B, 9, H // 2, W // 2, 1, generator=g, device=dev)
+        kernels.reset_launch_counts()
+        out = sample_saliency(model, schedule, SamplingConfig(), data_cfg, rgb, audio,
+                              generator=torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        check_launches(counts, path_launches(cfg, 1), "imported model, DDIM")
+        d_map = float((out - main_map).abs().max())
+        # the same weights through the same kernels on the same inputs and noise
+        assert d_map == 0.0, d_map
+        log(f"[import] full: a reference-format best.pth of phase 3's model ({gib:.3f} GiB, "
+            f"{len(ref)} tensors: `module.` prefixes, VGGish's FC head, AudioAttnNet's dead "
+            f"embeddings, off-centre CvT q slices, one key outside the model) imported in "
+            f"{t_imp:.2f} s: {report.loaded} tensors loaded, dropped "
+            + json.dumps({r: len(k) for r, k in report.dropped.items()})
+            + f" (the planted keys); strict load; DDIM NFE 1 on phase 3's inputs and noise: "
+            f"max|d| {d_map:.1e} from phase 3's map (bound 0), launches = path_launches(cfg) "
+            f"on {kind} [{smi}]")
+        del model, out, ref
+
+        # -- (c) the mvit kind, into a warm start (F8) -------------------------
+        visual = {k[len("visual_net."):]: v for k, v in sd.items()
+                  if k.startswith("visual_net.")}
+        kinetics = {f"backbone.{k}": v for k, v in visual.items()}
+        kinetics["cls_head.fc_cls.weight"] = torch.randn(
+            400, 768, generator=torch.Generator().manual_seed(16))
+        mvit_path = os.path.join(tmp, "kinetics.pth")
+        torch.save({"state_dict": kinetics}, mvit_path)
+        out_mvit = os.path.join(tmp, "mvit")
+        rep_mvit = import_reference_ckpt.main([mvit_path, out_mvit, "--kind", "mvit"])
+        assert rep_mvit.dropped == {convert.OUTSIDE_BACKBONE: ["cls_head.fc_cls.weight"]}, \
+            rep_mvit.dropped
+        t = Trainer(ExperimentConfig(model=cfg), os.path.join(tmp, "av"), 1, device=dev)
+        t.init_state(seed=7)
+        initial = {k: v.clone() for k, v in t.model.state_dict().items()}
+        t.warm_start(port_cli._best_state_dict(out_mvit, dev))
+        params = dict(t.model.named_parameters())
+        stats = 0
+        for k, v in t.model.state_dict().items():
+            if k.startswith("visual_net."):
+                assert torch.equal(v.cpu(), visual[k[len("visual_net."):]]), k
+            else:
+                assert torch.equal(v, initial[k]), k
+                stats += k not in params
+        assert stats == 21, stats  # the decoder's 7 BatchNorms, 3 buffers each
+        log(f"[import] mvit: a `backbone.` file with a classifier key: {rep_mvit.loaded} "
+            f"tensors loaded, the classifier dropped; warm start of a fresh AV model: "
+            f"visual_net equal to the source's, every other entry (the {stats} BatchNorm "
+            f"statistics among them, F8) its initial value; import part "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def with_remat(model_cfg, remat: bool):
+    """An experiment config of `model_cfg` with MViT's `remat` set."""
+    from diff_sal_tpu_torch.config import ExperimentConfig
+
+    return ExperimentConfig(model=dataclasses.replace(
+        model_cfg, visual=dataclasses.replace(model_cfg.visual, remat=remat)))
+
+
+def train_batch(b: int, model_cfg, seed: int, dev):
+    """A random AV training batch of `b` clips on `dev`, from `seed`."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    (H, W), T = model_cfg.decoder.img_size, model_cfg.visual.temporal_size
+    return {"rgb": torch.randn(b, T, H, W, 3, generator=gen, device=dev) * 0.5,
+            "salmap": torch.rand(b, H, W, 1, generator=gen, device=dev),
+            "audio": torch.randn(b, 9, H // 2, W // 2, 1, generator=gen, device=dev)}
+
+
+def remat_steps(dev, schedule, tcfg, batch, iters, what):
+    """A fresh model's first training step from seed-0 weights (phase 6's
+    checks) with the launch counts set to 0 just before it and read just
+    after, its gradients (copied to the host, so that they hold no card
+    memory in a later run's peak), then `iters` steps timed by CUDA events.
+    Returns (loss, counts, gradients, ms, peak GiB, held GiB): the peak of
+    `max_memory_allocated` over all of it (the model, Adam's state and the
+    steps) and what the card held before the model was built."""
+    from diff_sal_tpu_torch.models.diff_model import build_model
+    from diff_sal_tpu_torch.ops import kernels
+    from diff_sal_tpu_torch.train.optim import make_optimizer
+    from diff_sal_tpu_torch.train.train_step import make_train_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    m = build_model(tcfg.model, seed=0, device=dev, train=True)
+    opt = make_optimizer(m, tcfg.optim, steps_per_epoch=1000, n_epochs=4)
+    step = make_train_step(m, schedule, tcfg)
+    params = dict(m.named_parameters())
+    gen = torch.Generator(device=dev)
+    kernels.reset_launch_counts()
+    m0 = first_train_step(step, opt, batch, gen.manual_seed(16), params, what,
+                          time.perf_counter())
+    counts = kernels.launch_counts()
+    grads = {n: p.grad.detach().cpu().float() for n, p in params.items()
+             if p.grad is not None}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(iters + 1)]
+    ev[0].record()
+    for i in range(iters):
+        met = step(opt, batch, gen)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    assert np.isfinite(float(met["total"])), met
+    ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+    return (float(m0["total"]), counts, grads, ms, torch.cuda.max_memory_allocated() / 2**30,
+            held)
+
+
+def f32_step(dev, schedule, f32, remat: bool):
+    """(e)'s step at F32_REF_BATCH, or None where it runs out of memory."""
+    import gc
+
+    try:
+        return remat_steps(dev, schedule, with_remat(f32, remat),
+                           train_batch(F32_REF_BATCH, f32, 18, dev), 1,
+                           f"f32 B={F32_REF_BATCH} remat={remat}")
+    except torch.cuda.OutOfMemoryError:
+        pass
+    # the error's frames, and the tensors they held, are gone once its
+    # handler has ended
+    gc.collect()
+    torch.cuda.empty_cache()
+    return None
+
+
+def remat_phase(dev, kind, smi, schedule):
+    """Phase 15 (d) and (e): MViT's `remat` at full width (see the module
+    docstring)."""
+    import gc
+
+    from diff_sal_tpu_torch.config import ModelConfig
+
+    t0 = time.perf_counter()
+
+    # -- (d) bf16, B=4: remat off and on from the same weights and batch ------
+    cfg = main_config()
+    batch = train_batch(B_TRAIN, cfg, 15, dev)
+    # the plain step twice: the card's own run-to-run spread of the
+    # gradients, against which remat's is read
+    res = {}
+    for name, remat in (("off", False), ("on", True), ("off again", False)):
+        tcfg = with_remat(cfg, remat)
+        res[name] = remat_steps(dev, schedule, tcfg, batch, REMAT_ITERS, f"remat {name}")
+        check_launches(res[name][1], path_launches(tcfg.model, train=True),
+                       f"bf16 step, remat={remat}")
+        gc.collect()
+    (l_off, c_off, g_off, ms_off, p_off, h_off), (l_on, c_on, g_on, ms_on, p_on, h_on) = (
+        res["off"], res["on"])
+    l_again, _, g_again, ms_again, p_again, _ = res["off again"]
+    assert l_on == l_off == l_again, (l_off, l_on, l_again)
+    assert set(g_on) == set(g_off) == set(g_again), set(g_on) ^ set(g_off)
+    stats, worst = grad_agreement(g_on, g_off)
+    control, c_worst = grad_agreement(g_again, g_off)
+    for what, got in (("remat", stats), ("control", control)):
+        for sub, (rl2, _) in got.items():
+            assert rl2 <= REMAT_GRAD_RL2, (what, sub, rl2)
+    extra = {n: c_on[n] - c_off[n] for n in c_on if c_on[n] != c_off[n]}
+    log(f"[remat] AV bf16 B={B_TRAIN} step, remat off / on / off again from the same weights "
+        f"and batch: loss {l_off:.6f} / {l_on:.6f} / {l_again:.6f} (bound: equal); gradients "
+        f"on vs off (relative L2, cosine) " + json.dumps(stats) + f" worst tensor {worst}; "
+        f"off again vs off " + json.dumps(control) + f" worst tensor {c_worst} (bound relative "
+        f"L2 {REMAT_GRAD_RL2} per sub-network); launches = path_launches(train=True, remat), "
+        f"the recompute's " + json.dumps(extra) + f"; peak {p_off:.2f} / {p_on:.2f} / "
+        f"{p_again:.2f} GiB ({h_off:.2f} / {h_on:.2f} held before); ms per step by events off "
+        + ", ".join(f"{t:.2f}" for t in ms_off) + " / on " + ", ".join(f"{t:.2f}" for t in ms_on)
+        + " / off again " + ", ".join(f"{t:.2f}" for t in ms_again) + f" on {kind} [{smi}]")
+    del res, g_off, g_on, g_again, batch
+    gc.collect()
+
+    # -- (e) f32 at the reference's per-card batch, with and without remat ----
+    f32 = ModelConfig.audio_visual()
+    got = f32_step(dev, schedule, f32, True)
+    if got is None:
+        raise AssertionError(f"the f32 step with remat does not fit at B={F32_REF_BATCH}")
+    loss, _, _, ms, peak, held = got
+    assert np.isfinite(loss), loss
+    del got
+    gc.collect()
+    # the same batch without remat: what remat saves at this B, and costs
+    plain = f32_step(dev, schedule, f32, False)
+    if plain is None:
+        without = "out of the card's memory"
+    else:
+        assert plain[0] == loss, (plain[0], loss)
+        without = (f"fits: loss equal to remat's, {plain[3][0]:.2f} ms per step, peak "
+                   f"{plain[4]:.2f} GiB")
+    log(f"[remat] AV f32 step with remat at B={F32_REF_BATCH} (the reference's per-card "
+        f"batch): loss {loss:.4f}, {ms[0]:.2f} ms per step by events (after one warm-up step), "
+        f"{1000.0 * F32_REF_BATCH / ms[0]:.2f} clips/s, peak {peak:.2f} GiB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} ({held:.2f} held "
+        f"before); without remat at B={F32_REF_BATCH}: {without} on {kind} [{smi}]; remat "
+        f"part {time.perf_counter() - t0:.1f} s")
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def resize_add_phase(k4_call, recorders, plain):
     """K10, which no model path calls: the four task maps K4 summed in the
     main path's run added one by one into a zero bf16 accumulator (counts
@@ -2606,6 +2929,7 @@ def main() -> int:
     counts = kernels.launch_counts()
     for r in recorders.values():
         r.on = False
+    main_map = out.clone()  # phase 15 reads it back from an imported checkpoint
     assert tuple(out.shape) == (B, H, W, 1), out.shape
     assert bool(torch.isfinite(out).all()), "non-finite saliency map"
     lo, hi, std = float(out.min()), float(out.max()), float(out.std())
@@ -2827,6 +3151,12 @@ def main() -> int:
 
     # -- phase 14: the entry points ------------------------------------------
     entry_phase(dev, kind, smi, schedule, data_cfg)
+
+    # -- phase 15: the released-checkpoint import and MViT's remat -----------
+    t0 = time.perf_counter()
+    import_phase(dev, kind, smi, schedule, data_cfg, main_map)
+    remat_phase(dev, kind, smi, schedule)
+    log(f"[import + remat] phase {time.perf_counter() - t0:.1f} s")
 
     log("[device time] profiler sessions " + json.dumps(DEVICE_MS_TALLY))
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

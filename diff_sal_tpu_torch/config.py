@@ -165,6 +165,9 @@ class MViTConfig:
     # (kernel K11, ops/pool.py; cls_stream only, as in JAX); JAX's
     # "stencil" is the conv's function
     pool_mode: str = "conv"
+    # recompute each block in the backward pass (torch.utils.checkpoint):
+    # the same function and gradients, less memory for a larger batch
+    remat: bool = False
 
     @classmethod
     def small(cls, **kw) -> "MViTConfig":

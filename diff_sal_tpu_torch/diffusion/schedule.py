@@ -98,9 +98,30 @@ def q_sample(schedule: DiffusionSchedule, x_start: torch.Tensor, t: torch.Tensor
     """Forward noising x_t = sqrt(a-bar_t) x0 + sqrt(1 - a-bar_t) eps, for a
     scalar or a (B,) t (JAX `schedule.py:130`; reference
     diffusion_trainer.py:122-137)."""
-    dev = x_start.device
-    t = torch.as_tensor(t, device=dev).long()
-    shape = (-1,) + (1,) * (x_start.ndim - 1) if t.ndim else ()
-    a = schedule.sqrt_alphas_hat.to(dev)[t].reshape(shape)
-    b = schedule.sqrt_one_minus_alphas_hat.to(dev)[t].reshape(shape)
-    return a * x_start + b * noise
+    return (_coef(schedule.sqrt_alphas_hat, t, x_start) * x_start
+            + _coef(schedule.sqrt_one_minus_alphas_hat, t, x_start) * noise)
+
+
+def _coef(table: torch.Tensor, t, like: torch.Tensor) -> torch.Tensor:
+    """table[t] on `like`'s device, shaped to broadcast over a (B, ...) x
+    where t is (B,), as `q_sample` does; a scalar t gives a scalar."""
+    t = torch.as_tensor(t, device=like.device).long()
+    shape = (-1,) + (1,) * (like.ndim - 1) if t.ndim else ()
+    return table.to(like.device)[t].reshape(shape)
+
+
+def predict_noise_from_start(schedule: DiffusionSchedule, x_t: torch.Tensor, t,
+                             x0: torch.Tensor) -> torch.Tensor:
+    """eps = (x_t / sqrt(a-bar) - x0) / sqrt(1/a-bar - 1) (JAX
+    `schedule.py:150`; reference diffusion_trainer.py:434-437); t an int or
+    a tensor."""
+    return ((_coef(schedule.sqrt_recip_alphas_hat, t, x_t) * x_t - x0)
+            / _coef(schedule.sqrt_recipm1_alphas_hat, t, x_t))
+
+
+def predict_start_from_noise(schedule: DiffusionSchedule, x_t: torch.Tensor, t,
+                             noise: torch.Tensor) -> torch.Tensor:
+    """x0 = x_t sqrt(1/a-bar) - eps sqrt(1/a-bar - 1) (JAX `schedule.py:161`;
+    reference diffusion_trainer.py:482-486); t an int or a tensor."""
+    return (_coef(schedule.sqrt_recip_alphas_hat, t, x_t) * x_t
+            - _coef(schedule.sqrt_recipm1_alphas_hat, t, x_t) * noise)

@@ -16,7 +16,10 @@ attention pools run through kernel K11 (`ops/pool.py`) on the qkv columns
 in place, else through cuDNN's grouped conv3d. With `mlp_quant` ("w8" /
 "w8a8", eval only) every block's MLP holds int8 weights
 (`ops/quant.QuantLinear`) and takes the cls rows with the spatial rows in
-one product. Parameter names are the
+one product. With `remat`, each block's forward runs again in the
+backward pass (`torch.utils.checkpoint`, JAX's `nn.remat`,
+mvit.py:1550), so a training step saves only the blocks' inputs and
+launches MViT's forward kernels twice. Parameter names are the
 reference's (`patch_embed.projection`, `cls_token`, `blocks.{i}.*`,
 `norm{s}`).
 
@@ -32,6 +35,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from diff_sal_tpu_torch.config import MViTConfig
 from diff_sal_tpu_torch.models.layers import (Dtype, FusedLayerNorm, Mlp, conv3d,
@@ -325,8 +329,14 @@ class MViT(nn.Module):
         sp, size = self.patch_embed(x, dt)
         cls = self.cls_token.to(sp.dtype).expand(B, 1, -1)
         outs = []
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk, plan in zip(self.blocks, self.plans):
-            sp, cls, _ = blk(sp, cls, size, dt)
+            if remat:
+                # the backward runs the block's forward (its kernels) again
+                # to rebuild what it saves; the size tuple passes through
+                sp, cls, _ = checkpoint(blk, sp, cls, size, dt, use_reentrant=False)
+            else:
+                sp, cls, _ = blk(sp, cls, size, dt)
             size = _pool_out_size(size, plan["stride_q"])
             s = plan["emit_scale"]
             if s is not None and s in self.cfg.out_scales:

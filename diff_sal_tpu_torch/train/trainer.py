@@ -87,11 +87,14 @@ class Trainer:
             raise RuntimeError("init_state first")
 
     def warm_start(self, source_state_dict: Mapping[str, torch.Tensor]):
-        """strict=0 partial load (reference model.py:17-22)."""
+        """strict=0 partial load (reference model.py:17-22) of the model's
+        parameters only, as JAX merges into `state.params` alone: buffers
+        (the decoder's BatchNorm statistics) keep their initial values."""
         self._require_state()
-        merged, loaded, skipped = partial_load(self.model.state_dict(), source_state_dict)
-        self.model.load_state_dict(merged)
-        print(f"warm start: {loaded} entries loaded, {skipped} kept")
+        params = {n: p.detach() for n, p in self.model.named_parameters()}
+        merged, loaded, skipped = partial_load(params, source_state_dict)
+        self.model.load_state_dict(merged, strict=False)
+        print(f"warm start: {loaded} parameters loaded, {skipped} kept")
 
     def resume(self):
         """Model, BatchNorm statistics, Adam's moments, count and EMA from

@@ -12,6 +12,7 @@ default (on) on both sides. Tolerance: max|d| <= 1e-4 on the [0, 1] map.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from diff_sal_tpu import config as jc
@@ -52,6 +53,41 @@ def test_schedule_tables_match_jax():
         for field in ref._fields:
             np.testing.assert_array_equal(getattr(ours, field).numpy(),
                                           np.asarray(getattr(ref, field)), err_msg=field)
+
+
+@pytest.mark.parametrize("name", ["cosine", "linear"])
+def test_inverse_helpers_match_jax(name):
+    """predict_noise_from_start and predict_start_from_noise against JAX's
+    (schedule.py:150-168), f32, t as an int and as a 0-d tensor, and their
+    round trip through q_sample at t = 17; a (B,) t gives each item what
+    its own int t gives."""
+    from diff_sal_tpu.diffusion import schedule as js
+    from diff_sal_tpu_torch.diffusion import schedule as ts
+
+    rng = np.random.RandomState(14)
+    x0, noise = (rng.randn(3, 1, 8, 8).astype(np.float32) for _ in range(2))
+    sched_j, sched_t = j_make_schedule(name), make_schedule(name)
+    for t in (0, 17, 999):
+        x_t = np.asarray(js.q_sample(sched_j, jnp.asarray(x0), t, jnp.asarray(noise)))
+        for tt in (t, torch.tensor(t)):
+            eps = ts.predict_noise_from_start(sched_t, torch.from_numpy(x_t), tt,
+                                              torch.from_numpy(x0))
+            start = ts.predict_start_from_noise(sched_t, torch.from_numpy(x_t), tt,
+                                                torch.from_numpy(noise))
+            np.testing.assert_allclose(eps.numpy(), np.asarray(
+                js.predict_noise_from_start(sched_j, x_t, t, x0)), rtol=1e-6, atol=1e-6)
+            np.testing.assert_allclose(start.numpy(), np.asarray(
+                js.predict_start_from_noise(sched_j, x_t, t, noise)), rtol=1e-6, atol=1e-6)
+        if t == 17:  # the round trip (at t = 0 eps is x_t - x0 over ~1e-2)
+            np.testing.assert_allclose(eps.numpy(), noise, atol=1e-4)
+            np.testing.assert_allclose(start.numpy(), x0, atol=1e-4)
+    steps = torch.tensor([3, 500, 998])
+    x_t = ts.q_sample(sched_t, torch.from_numpy(x0), steps, torch.from_numpy(noise))
+    batched = ts.predict_start_from_noise(sched_t, x_t, steps, torch.from_numpy(noise))
+    for i, t in enumerate(steps):
+        one = ts.predict_start_from_noise(sched_t, x_t[i:i + 1], int(t),
+                                          torch.from_numpy(noise[i:i + 1]))
+        np.testing.assert_array_equal(batched[i:i + 1].numpy(), one.numpy())
 
 
 def test_ddim_multistep_and_ddpm_match_jax():

@@ -738,11 +738,16 @@ def test_warm_start_and_partial_load_counts_match_jax(resumed, tmp_path):
     av = pc.from_fields(parity_cfg(audio=True))
     t = Trainer(av, str(tmp_path / "av"), 2, device="cpu")
     t.init_state()
+    initial = {k: v.clone() for k, v in t.model.state_dict().items()}
     source = whole.model.state_dict()
     t.warm_start(source)
     sd = t.model.state_dict()
+    params = dict(t.model.named_parameters())
     for k, v in source.items():
-        assert torch.equal(sd[k], v), k
+        # parameters from the source; buffers (BatchNorm statistics, which
+        # the source's two training steps moved) keep their initial values
+        assert torch.equal(sd[k], v if k in params else initial[k]), k
+    assert any(not torch.equal(v, initial[k]) for k, v in source.items() if k not in params)
     assert any(k.startswith("audio_net.") for k in sd)
 
     rng = np.random.RandomState(3)
@@ -763,6 +768,53 @@ def test_warm_start_and_partial_load_counts_match_jax(resumed, tmp_path):
     assert (loaded, skipped) == (j_loaded, j_skipped) == (2, 2)
     assert torch.equal(merged["a.w"], flat(source)["a.w"])
     assert torch.equal(merged["a.b"], flat(target)["a.b"])
+
+
+def test_warm_start_loads_parameters_only_as_jax(tmp_path):
+    """F8: both packages warm-start from a source whose BatchNorm running
+    statistics are far from the initial ones (`random_variables`: means
+    0.05 N(0, 1), variances 0.5 + 0.5 |N(0, 1)|). Every parameter ends
+    equal to the source's, in both; every statistic (the decoder's 7
+    BatchNorms: mean, variance and torch's counter) keeps each package's
+    initial value."""
+    from test_torch_models import random_variables
+
+    cfg = parity_cfg(audio=True)
+    layers = cfg.model.visual.num_layers
+    h, w = HW
+    shapes = jax.eval_shape(JModel(cfg.model).init, jax.random.PRNGKey(0), {
+        "rgb": jnp.zeros((1, 16, h, w, 3)), "input": jnp.zeros((1, h, w, 1)),
+        "audio": jnp.zeros((1, 9, h // 2, w // 2, 1))}, jnp.zeros((1,)))
+    init, src = flax_like_variables(shapes, seed=51), random_variables(shapes, seed=52)
+    source = bridge.state_dict_from_flax(src, layers)
+
+    jt = JTrainer(cfg, str(tmp_path / "jax"), steps_per_epoch=2, n_epochs=2, use_mesh=False)
+    jt.state = create_train_state(jt.model, init, jt.tx)
+    jt.warm_start(src["params"])
+    jax_sd = bridge.state_dict_from_flax(jax.device_get(
+        {"params": jt.state.params, "batch_stats": jt.state.batch_stats}), layers)
+    jax_init = bridge.state_dict_from_flax(init, layers)
+
+    t = Trainer(pc.from_fields(cfg), str(tmp_path / "port"), 2, device="cpu")
+    t.init_state()
+    port_init = {k: v.clone() for k, v in t.model.state_dict().items()}
+    t.warm_start(source)
+    port_sd = t.model.state_dict()
+    params = dict(t.model.named_parameters())
+
+    assert set(port_sd) == set(jax_sd) == set(source)
+    stats = sorted(k for k in port_sd if k not in params)
+    assert len(stats) == 21 and all(k.startswith("decoder_net.") for k in stats), stats
+    for k in port_sd:
+        if k in params:
+            assert torch.equal(port_sd[k], source[k]) and torch.equal(jax_sd[k], source[k]), k
+        else:
+            assert torch.equal(port_sd[k], port_init[k]), k
+            assert torch.equal(jax_sd[k], jax_init[k]), k
+            # the bridge's counters are (1,): load_state_dict takes them as ()
+            assert torch.equal(port_sd[k], jax_sd[k].reshape(port_sd[k].shape)), k
+            if not k.endswith("num_batches_tracked"):
+                assert not torch.equal(source[k], port_init[k]), k
 
 
 def test_train_av_splits_ran_the_packed_protocol(runs):
