@@ -3,9 +3,10 @@ step, AV inference with DPM-Solver++ and the eval lowerings, the
 visual-only model in both MViT layouts, both models in f32, the f32
 attention and training step at full width, the AV trainer from a packed
 tree on disk to its checkpoints, the entry points: the CLI, the device
-metrics, adaptive DPM-Solver and the int8 MLPs, and the import of the
-reference's released checkpoints and MViT's `remat`) on one NVIDIA
-GPU and hold each of its hand-written kernels (thirteen in bf16 and the
+metrics, adaptive DPM-Solver and the int8 MLPs, the import of the
+reference's released checkpoints and MViT's `remat`, and data
+parallelism over torch.distributed) on one NVIDIA GPU and hold each of
+its hand-written kernels (thirteen in bf16 and the
 seven f32 instances an f32 model runs) against its plain PyTorch version.
 
     python3 chip_smoke.py [--iters N] [--profile]
@@ -218,6 +219,28 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      checks, one timed): finite loss, ms per step, peak memory; then the
      same batch without `remat` (its loss equal, its ms and peak, or that
      it does not fit);
+ 16. data parallelism (`dp_phase`): the plain references first (one
+     process: DDIM NFE 1 and DPM++ 2M NFE 2 on a B=4 batch whose last row
+     is padding, and the AV step at B=4 from phase 6's weights and batch
+     in bf16 and in f32, the decoder's dropout and DropPath 0: each rank
+     draws its own masks); (a)-(b) two ranks on the one card through gloo
+     (this script with `--dp-spec`, subprocesses on a free port): the two
+     evaluations (all-reduced scores within DP_SCORE_TOL, each rank's maps
+     its rows of one process's within DP_MAP_TOL, launches
+     `path_launches(nfe)`), then the step in bf16 (loss within
+     DP_LOSS_RTOL, each sub-network's gradient direction, cosine >=
+     LAYOUT_GRAD_COS: at half the batch bf16 rounds at other points) and
+     in f32 (loss, gradients within REMAT_GRAD_RL2 relative L2 per
+     sub-network, BatchNorm statistics within DP_STATS_RL2), parameters
+     and buffers bitwise equal across the ranks, launches as
+     `path_launches(train=True)` / `f32_launches`; (c) one rank through
+     NCCL, the step at B=4 in both dtypes, held as (a)'s; ms per step by
+     CUDA events of the plain step, of (c) and of each rank of (a); (d)
+     `train-av` under `torch.distributed.run` with two ranks (this script
+     with `--dp-cli`, the AV protocol cut to 2 epochs) on a packed tree of
+     7 training windows: one header and one row per epoch in each log, a
+     checkpoint per epoch, the logged loss the mean of the ranks' own.
+     Every launch has a timeout; a failed or late process ends the others;
 then prints the `kernels` JSON line, the nvidia-smi line and, last, the
 result line {"ok": true, "device": {...}}. The f32 instances' bound takes
 their matrix products at split TF32's rate (495 / 3 TFLOP/s: f32's accuracy
@@ -2806,6 +2829,459 @@ def remat_phase(dev, kind, smi, schedule):
     torch.cuda.empty_cache()
 
 
+# phase 16: data parallelism over torch.distributed. Two ranks share the one
+# card through gloo (NCCL refuses two ranks on one device); one rank runs
+# over NCCL. The parity config cuts only the decoder's dropout and DropPath
+# to 0: each rank draws its own masks, so no mask can be shared with one
+# process. Every step runs in f32 and in bf16. The bounds against the plain
+# step in f32: the loss 1e-2 relative, the BatchNorm running statistics
+# 1e-3 relative L2 per tensor, each sub-network's averaged gradient
+# REMAT_GRAD_RL2 relative L2 (two plain steps on the card differ by ~9e-3
+# in visual_net). A bf16 step keeps 8 bits, and any change in where it
+# rounds moves its gradients far more than that: two ranks run every
+# kernel at half the batch, whose plans and cuDNN algorithms round at
+# other points (0.10-0.13 relative L2 per sub-network on an H100, 0.11-0.12
+# through the plain versions on the CPU), and even one NCCL rank at the
+# plain step's batch, where only the statistics' summation order differs
+# (sums over the ranks against a mean), moved them 0.045-0.056 on the
+# H100 (PERF.md §6). In bf16 the loss keeps its bound and each
+# sub-network's gradient its direction, cosine >= LAYOUT_GRAD_COS, as two
+# bf16 layouts are held in phase 9; the statistics are printed.
+# Evaluation: the scores 1e-3 (absolute, of nss + cc + sim) and the maps
+# 3e-2 (bf16 on [0, 1]).
+DP_RANKS = 2
+DP_EVAL_B = 4          # global; the last row a padded duplicate
+DP_ITERS = 3           # timed steps per run
+DP_LOSS_RTOL, DP_STATS_RL2, DP_SCORE_TOL, DP_MAP_TOL = 1e-2, 1e-3, 1e-3, 3e-2
+DP_TIMEOUT_S = 300     # each launch, as a whole
+DP_GROUP_TIMEOUT_S = 240
+DP_STEP_SEED, DP_EVAL_SEED = 16, 0
+DP_DTYPES = ("bfloat16", "float32")  # the steps of (a) and (c); (b) runs bf16
+# (d): the train-av tree, 3 + 3 + 1 training windows (7: not a multiple of
+# the ranks' W b = 4) and 3 + 1 test windows (one batch); 2 epochs of the
+# AV protocol
+DP_CLI_FOLDS = {"train": (("t1", 160), ("t2", 160), ("t3", 40)),
+                "test": (("e1", 160), ("e2", 40))}
+DP_CLI_EPOCHS = 2
+
+
+def dp_config(dtype: str = "bfloat16"):
+    """The AV experiment at full width in `dtype`, the decoder's dropout
+    and DropPath at 0."""
+    from diff_sal_tpu_torch.config import ExperimentConfig
+
+    m = main_config()
+    return ExperimentConfig(model=dataclasses.replace(
+        m, compute_dtype=dtype,
+        decoder=dataclasses.replace(m.decoder, dropout=0.0, drop_path_rate=(0.0,) * 4)))
+
+
+def dp_step_launches(cfg):
+    """One training step's launches: the f32 instances in an f32 model."""
+    want = f32_launches if cfg.model.compute_dtype == "float32" else path_launches
+    return want(cfg.model, train=True)
+
+
+def dp_eval_batch(cfg, dev):
+    """The global eval batch: DP_EVAL_B clips, the last one padding."""
+    batch = train_batch(DP_EVAL_B, cfg.model, 21, dev)
+    batch["valid"] = (torch.arange(DP_EVAL_B, device=dev) < DP_EVAL_B - 1).float()
+    return batch
+
+
+def bn_stats(model):
+    return {n: b.detach().float().cpu().clone() for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def state_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for n, t in model.state_dict().items():
+        h.update(n.encode())
+        h.update(t.detach().reshape(-1).cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_steps(step, opt, batch, what, kw=None):
+    """The first step from fresh weights (the draws of DP_STEP_SEED) with
+    the launch counts set to 0 just before it and read just after.
+    Returns (its metrics, the counts)."""
+    from diff_sal_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=opt.params[0].device).manual_seed(DP_STEP_SEED)
+    kernels.reset_launch_counts()
+    m0 = step(opt, batch, gen, **(kw or {}))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    m0 = {k: float(v) for k, v in m0.items()}
+    assert all(np.isfinite(v) for v in m0.values()), (what, m0)
+    return m0, counts
+
+
+def dp_time(step, opt, batch, kw=None):
+    """ms per step of DP_ITERS steps by CUDA events."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(DP_ITERS + 1)]
+    gen = torch.Generator(device=opt.params[0].device).manual_seed(1)
+    ev[0].record()
+    for i in range(DP_ITERS):
+        step(opt, batch, gen, **(kw or {}))
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+
+
+def dp_worker(spec_path: str, rank: int) -> int:
+    """A rank of (a)-(b) or (c): joins the group, runs the evaluations
+    (with `spec["eval"]`) and one training step on its rows in each of
+    spec["dtypes"] (the bf16 one then timed), and writes its results under
+    spec["out"]."""
+    import gc
+    import os
+
+    import torch.distributed as dist
+
+    from diff_sal_tpu_torch.diffusion.schedule import make_schedule
+    from diff_sal_tpu_torch.models.diff_model import build_model
+    from diff_sal_tpu_torch.ops import kernels
+    from diff_sal_tpu_torch.parallel import mesh, multihost
+    from diff_sal_tpu_torch.train.optim import make_optimizer
+    from diff_sal_tpu_torch.train.train_step import make_eval_step, make_train_step
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = spec["world"]
+    dev = torch.device(DEVICE)
+    dev = torch.device("cuda", 0) if dev.type == "cuda" else dev  # every rank on the one card
+    multihost.initialize(init_method=f"tcp://127.0.0.1:{spec['port']}", world_size=world,
+                         rank=rank, local_rank=rank, local_world_size=world, device=dev,
+                         timeout_s=DP_GROUP_TIMEOUT_S)
+    try:
+        group = mesh.make_mesh()
+        res = {"rank": rank, "backend": dist.get_backend(group)}
+        cfg, schedule = dp_config(), make_schedule()
+        model = build_model(cfg.model, seed=0, device=dev, train=True)
+        if spec["eval"]:
+            rows = mesh.shard_batch(dp_eval_batch(cfg, dev), group)
+            n = float(rows["valid"].sum())
+            for name, c, nfe in (("ddim", cfg, 1),
+                                 ("dpm", dataclasses.replace(cfg, sampling=dpm_sampling(2)), 2)):
+                step = make_eval_step(model, schedule, c, group)
+                kernels.reset_launch_counts()
+                with torch.no_grad():
+                    scores, pred = step(rows, torch.Generator(device=dev).manual_seed(
+                        DP_EVAL_SEED))
+                torch.cuda.synchronize()
+                check_launches(kernels.launch_counts(), path_launches(cfg.model, nfe),
+                               f"rank {rank} {name}")
+                res[name] = mesh.reduce_weighted({k: float(v) * n for k, v in scores.items()},
+                                                 n, group, dev)
+                torch.save(pred.float().cpu(), os.path.join(spec["out"], f"{name}_{rank}.pt"))
+        for dtype in spec["dtypes"]:
+            cfg = dp_config(dtype)
+            if model is None:
+                model = build_model(cfg.model, seed=0, device=dev, train=True)
+            opt = make_optimizer(model, cfg.optim, steps_per_epoch=1000, n_epochs=4)
+            step = make_train_step(model, schedule, cfg, group)
+            batch = mesh.shard_batch(train_batch(B_TRAIN, cfg.model, 2, dev), group)
+            kw = {"mask_generator": torch.Generator(device=dev).manual_seed(100 + rank)}
+            m0, counts = dp_steps(step, opt, batch, f"rank {rank} {dtype}", kw)
+            check_launches(counts, dp_step_launches(cfg), f"rank {rank} {dtype} step")
+            res[dtype] = {"loss": m0["total"], "grad_norm": m0["grad_norm"],
+                          "digest": state_digest(model),
+                          "launches": {k: v for k, v in counts.items() if v}}
+            if rank == 0:
+                torch.save({"grads": {n: p.grad.float().cpu()
+                                      for n, p in model.named_parameters()
+                                      if p.grad is not None}, "stats": bn_stats(model)},
+                           os.path.join(spec["out"], f"rank0_{dtype}.pt"))
+            if dtype == "bfloat16":
+                res["ms"] = dp_time(step, opt, batch, kw)
+            del model, opt, step, batch
+            model = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        mesh.barrier(group, dev)
+        with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def dp_cli_worker(spec_path: str) -> int:
+    """(d)'s rank, started by torchrun: `cli.main(["train-av", ...])` with
+    the AV protocol cut to DP_CLI_EPOCHS epochs, each step's metrics on
+    this rank's rows recorded (a host sync per step) into spec["out"]."""
+    import os
+
+    from diff_sal_tpu_torch import cli as port_cli
+    from diff_sal_tpu_torch.train import trainer as trainer_mod
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    make_cfg, init_state = port_cli._make_cfg, trainer_mod.Trainer.init_state
+    steps = []
+
+    def cut(args, audio_visual):
+        cfg = make_cfg(args, audio_visual)
+        return dataclasses.replace(cfg, training=dataclasses.replace(
+            cfg.training, n_epochs_for_av_data=DP_CLI_EPOCHS))
+
+    def recording(self, *a, **kw):
+        out = init_state(self, *a, **kw)
+        step = self.train_step
+
+        def call(*args, **kws):
+            m = step(*args, **kws)
+            steps.append({k: float(v) for k, v in m.items()})
+            return m
+
+        self.train_step = call
+        return out
+
+    port_cli._make_cfg, trainer_mod.Trainer.init_state = cut, recording
+    port_cli.main(spec["argv"])
+    with open(os.path.join(spec["out"], f"cli_rank{os.environ['RANK']}.json"), "w") as f:
+        json.dump(steps, f)
+    return 0
+
+
+def dp_launch(cmds, logs, timeout_s: float, env=None):
+    """Start every command (each in a session of its own, its output into
+    its log file) and wait for all; a command that fails or outlasts the
+    launch's timeout ends the others (their whole process groups) and
+    fails the phase."""
+    import os
+    import signal
+
+    procs = []
+    for cmd, path in zip(cmds, logs):
+        with open(path, "w") as out:
+            procs.append(subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT,
+                                          env=env, start_new_session=True,
+                                          cwd=os.path.dirname(os.path.abspath(__file__))))
+    t0, failed = time.perf_counter(), None
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [p for p in procs if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"exit code {bad[0].returncode}"
+                break
+            if time.perf_counter() - t0 > timeout_s:
+                failed = f"still running after {timeout_s} s"
+                break
+            time.sleep(0.2)
+        else:
+            bad = [p for p in procs if p.returncode != 0]
+            failed = f"exit code {bad[0].returncode}" if bad else None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    if failed:
+        for path in logs:
+            with open(path) as f:
+                log(f"[dp] --- {path} (tail) ---\n" + f.read()[-3000:])
+        raise AssertionError(f"data-parallel launch failed: {failed}")
+    return time.perf_counter() - t0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_hold_step(what, path, losses, ref, bf16: bool):
+    """(a) and (c)'s gates on one step, logged before they are held: the
+    loss (the mean over the ranks' rows), and from rank 0's file the
+    averaged gradients per sub-network and the BatchNorm statistics,
+    against the plain step's. `bf16`: the gradients are held to their
+    direction (cosine) and the statistics printed."""
+    loss = float(np.mean(losses))
+    rel = abs(loss - ref["loss"]) / abs(ref["loss"])
+    got = torch.load(path, weights_only=True)
+    stats, worst = grad_agreement(got["grads"], ref["grads"])
+    bn = max(float((got["stats"][n] - s).norm() / s.norm()) for n, s in ref["stats"].items())
+    bound = (f"cosine >= {LAYOUT_GRAD_COS}" if bf16
+             else f"relative L2 <= {REMAT_GRAD_RL2}")
+    log(f"[dp] {what}: loss {loss:.6f} vs the plain step's {ref['loss']:.6f} (rel {rel:.2e}, "
+        f"bound {DP_LOSS_RTOL}); averaged gradients vs the plain step's (relative L2, cosine) "
+        + json.dumps(stats) + f" worst tensor {worst} (bound per sub-network: {bound}); "
+        f"BatchNorm statistics worst relative L2 {bn:.2e} (bound "
+        f"{'none' if bf16 else DP_STATS_RL2})")
+    assert rel <= DP_LOSS_RTOL, (what, loss, ref["loss"])
+    assert set(got["grads"]) == set(ref["grads"]), set(got["grads"]) ^ set(ref["grads"])
+    for sub, (rl2, cos) in stats.items():
+        assert cos >= LAYOUT_GRAD_COS if bf16 else rl2 <= REMAT_GRAD_RL2, (
+            what, sub, rl2, cos)
+    assert bf16 or bn <= DP_STATS_RL2, (what, bn)
+
+
+def dp_phase(dev, kind, smi, schedule):
+    """Phase 16: data parallelism over torch.distributed (see the module
+    docstring)."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    from diff_sal_tpu_torch.data.synthetic import write_packed_av_tree
+    from diff_sal_tpu_torch.models.diff_model import build_model
+    from diff_sal_tpu_torch.train.optim import make_optimizer
+    from diff_sal_tpu_torch.train.train_step import make_eval_step, make_train_step
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    me = os.path.abspath(__file__)
+    try:
+        # -- the plain references: one process, the global batches ----------
+        ref, ref_eval = {}, {}
+        for dtype in DP_DTYPES:
+            cfg = dp_config(dtype)
+            model = build_model(cfg.model, seed=0, device=dev, train=True)
+            if dtype == "bfloat16":
+                ev = dp_eval_batch(cfg, dev)
+                for name, c in (("ddim", cfg),
+                                ("dpm", dataclasses.replace(cfg, sampling=dpm_sampling(2)))):
+                    with torch.no_grad():
+                        scores, pred = make_eval_step(model, schedule, c)(
+                            ev, torch.Generator(device=dev).manual_seed(DP_EVAL_SEED))
+                    ref_eval[name] = ({k: float(v) for k, v in scores.items()},
+                                      pred.float().cpu())
+                del ev
+            opt = make_optimizer(model, cfg.optim, steps_per_epoch=1000, n_epochs=4)
+            step = make_train_step(model, schedule, cfg)
+            batch = train_batch(B_TRAIN, cfg.model, 2, dev)
+            m0, _ = dp_steps(step, opt, batch, f"plain {dtype}")
+            ref[dtype] = {"loss": m0["total"], "stats": bn_stats(model),
+                          "grads": {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                                    if p.grad is not None}}
+            if dtype == "bfloat16":
+                plain_ms = dp_time(step, opt, batch)
+            del model, opt, step, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t0
+
+        # -- (a) and (b): two ranks on the one card through gloo -------------
+        runs = {}
+        for what, world, with_eval in (("gloo2", DP_RANKS, True), ("nccl1", 1, False)):
+            out = os.path.join(tmp, what)
+            os.makedirs(out)
+            spec = os.path.join(tmp, f"{what}.json")
+            with open(spec, "w") as f:
+                json.dump({"world": world, "port": free_port(), "eval": with_eval, "out": out,
+                           "dtypes": DP_DTYPES}, f)
+            secs = dp_launch([[sys.executable, me, "--dp-spec", spec, "--dp-rank", str(r)]
+                              for r in range(world)],
+                             [os.path.join(tmp, f"{what}_{r}.log") for r in range(world)],
+                             DP_TIMEOUT_S)
+            res = []
+            for r in range(world):
+                with open(os.path.join(out, f"rank{r}.json")) as f:
+                    res.append(json.load(f))
+            runs[what] = (out, res, secs)
+        out, res, secs = runs["gloo2"]
+        assert [r["backend"] for r in res] == ["gloo"] * DP_RANKS, res
+        log(f"[dp] (a) {DP_RANKS} ranks through gloo on the one card, B={B_TRAIN} "
+            f"({B_TRAIN // DP_RANKS} rows each), one step from phase 6's weights and batch in "
+            f"each of {DP_DTYPES}; each rank's launches = path_launches(train=True) (f32: "
+            f"f32_launches) " + json.dumps(res[0]["bfloat16"]["launches"])
+            + f"; launch {secs:.1f} s")
+        for dtype in DP_DTYPES:
+            digests = [r[dtype]["digest"] for r in res]
+            assert len(set(digests)) == 1, (dtype, digests)
+            dp_hold_step(f"(a) {dtype}, parameters and buffers bitwise equal across the ranks",
+                         os.path.join(out, f"rank0_{dtype}.pt"),
+                         [r[dtype]["loss"] for r in res], ref[dtype], dtype == "bfloat16")
+        for name in ("ddim", "dpm"):
+            scores, pred = ref_eval[name]
+            rows = [torch.load(os.path.join(out, f"{name}_{r}.pt"), weights_only=True)
+                    for r in range(DP_RANKS)]
+            d_map = max(float((rows[r] - pred[r::DP_RANKS]).abs().max())
+                        for r in range(DP_RANKS))
+            d_sc = max(abs(r[name][k] - scores[k]) for r in res for k in scores)
+            log(f"[dp] (b) {name} ({'NFE 1' if name == 'ddim' else 'DPM++ 2M NFE 2'}) on the "
+                f"{DP_RANKS} ranks, B={DP_EVAL_B} with a padded row: all-reduced scores "
+                + json.dumps({k: round(v, 5) for k, v in res[0][name].items()})
+                + f" vs one process's, max|d| {d_sc:.2e} (bound {DP_SCORE_TOL}); each rank's "
+                f"maps vs its rows of one process's, max|d| {d_map:.2e} (bound {DP_MAP_TOL}); "
+                f"launches = path_launches(nfe)")
+            assert d_map <= DP_MAP_TOL and d_sc <= DP_SCORE_TOL, (name, d_map, d_sc)
+        out, res_c, secs_c = runs["nccl1"]
+        assert [r["backend"] for r in res_c] == [
+            "nccl" if torch.device(dev).type == "cuda" else "gloo"], res_c
+        for dtype in DP_DTYPES:
+            dp_hold_step(f"(c) one rank through NCCL, B={B_TRAIN}, {dtype}, launches as (a)'s, "
+                         f"launch {secs_c:.1f} s", os.path.join(out, f"rank0_{dtype}.pt"),
+                         [res_c[0][dtype]["loss"]], ref[dtype], dtype == "bfloat16")
+        fmt = lambda ms: ", ".join(f"{t:.2f}" for t in ms)  # noqa: E731
+        log(f"[dp] ms per step by CUDA events ({DP_ITERS} steps after the first): plain "
+            f"B={B_TRAIN} {fmt(plain_ms)}; (c) one NCCL rank B={B_TRAIN} {fmt(res_c[0]['ms'])}; "
+            f"(a) {DP_RANKS} gloo ranks sharing the card, {B_TRAIN // DP_RANKS} rows each: "
+            + "; ".join(f"rank {r['rank']} {fmt(r['ms'])}" for r in res)
+            + f" on {kind} [{smi}]")
+
+        # -- (d): train-av under torchrun, two ranks -------------------------
+        packed = os.path.join(tmp, "av_packed")
+        hw = main_config().decoder.img_size
+        config = write_packed_av_tree(packed, hw, DP_CLI_FOLDS, 25.0, seed=17)
+        with open(os.path.join(tmp, "dataset.json"), "w") as f:
+            json.dump(config, f)
+        work = os.path.join(tmp, "cli")
+        out = os.path.join(tmp, "cli_out")
+        os.makedirs(out)
+        spec = os.path.join(tmp, "cli.json")
+        with open(spec, "w") as f:
+            json.dump({"out": out, "argv": [
+                "train-av", "--packed_root", packed, "--dataset_json",
+                os.path.join(tmp, "dataset.json"), "--splits", "split1", "--bf16",
+                "--batch_size", str(B_TRAIN), "--log_freq", "1", "--workdir", work,
+                "--n_threads", "4"]}, f)
+        secs_d = dp_launch([[sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc_per_node", str(DP_RANKS), me, "--dp-cli", spec]],
+                           [os.path.join(tmp, "cli.log")], DP_TIMEOUT_S)
+        steps = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(out, f"cli_rank{r}.json")) as f:
+                steps.append(json.load(f))
+        # 7 windows: cut to 6, 3 rows a rank, one step of 2 an epoch each
+        assert [len(s) for s in steps] == [DP_CLI_EPOCHS] * DP_RANKS, [len(s) for s in steps]
+        split = os.path.join(work, "split1")
+        with open(os.path.join(split, "split1.log")) as f:
+            rows = [line.rstrip("\n").split("\t") for line in f]
+        with open(os.path.join(split, "split1_val.log")) as f:
+            val_rows = [line.rstrip("\n").split("\t") for line in f]
+        # one writer: one header and one row per epoch in each log
+        assert len(rows) == len(val_rows) == DP_CLI_EPOCHS + 1, (rows, val_rows)
+        assert sorted(os.listdir(os.path.join(split, "weights"))) == sorted(
+            [f"{e}.pth" for e in range(DP_CLI_EPOCHS)] + ["best.json"])
+        col = rows[0].index("loss")
+        logged = [float(r[col]) for r in rows[1:]]
+        glob = [float(np.mean([s[e]["total"] for s in steps])) for e in range(DP_CLI_EPOCHS)]
+        d_log = max(abs(a - b) / abs(b) for a, b in zip(logged, glob))
+        assert d_log <= 1e-6, (logged, glob)
+        log(f"[dp] (d) train-av under torchrun, {DP_RANKS} ranks on the one card (gloo), "
+            f"default AV config in bf16, B={B_TRAIN}, {DP_CLI_EPOCHS} epochs over 7 training "
+            f"windows (cut to 6: one step a rank an epoch): rc 0 in {secs_d:.1f} s; one header "
+            f"and {DP_CLI_EPOCHS} rows in each log, checkpoints "
+            + json.dumps(sorted(os.listdir(os.path.join(split, "weights"))))
+            + f"; logged loss {logged} = the mean of the ranks' own "
+            + json.dumps([[round(s[e]['total'], 6) for s in steps] for e in range(DP_CLI_EPOCHS)])
+            + f" (max rel {d_log:.1e})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[dp] phase {time.perf_counter() - t0:.1f} s (references {t_ref:.1f} s)")
+
+
 def resize_add_phase(k4_call, recorders, plain):
     """K10, which no model path calls: the four task maps K4 summed in the
     main path's run added one by one into a zero bf16 accumulator (counts
@@ -2848,7 +3324,15 @@ def main() -> int:
                          "training step in each layout, each attention kernel's "
                          "recorded calls by CUDA kernel, and one epoch of the "
                          "trainer's fit")
+    # phase 16's own processes: a rank of (a)-(c), and (d)'s torchrun rank
+    ap.add_argument("--dp-spec", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-cli", help=argparse.SUPPRESS)
     cli = ap.parse_args()
+    if cli.dp_spec is not None:
+        return dp_worker(cli.dp_spec, cli.dp_rank)
+    if cli.dp_cli is not None:
+        return dp_cli_worker(cli.dp_cli)
 
     t_all = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3157,6 +3641,9 @@ def main() -> int:
     import_phase(dev, kind, smi, schedule, data_cfg, main_map)
     remat_phase(dev, kind, smi, schedule)
     log(f"[import + remat] phase {time.perf_counter() - t0:.1f} s")
+
+    # -- phase 16: data parallelism over torch.distributed -------------------
+    dp_phase(dev, kind, smi, schedule)
 
     log("[device time] profiler sessions " + json.dumps(DEVICE_MS_TALLY))
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

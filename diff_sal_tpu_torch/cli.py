@@ -13,10 +13,22 @@
 
 The subcommands, options, defaults and choices are the JAX package's, so
 any of its command lines parses unchanged. `--pallas` (the port always
-runs its hand-written kernels), `--no_mesh` (one process, one device) and
-`--wandb` (read by neither CLI) are accepted and change nothing. One
-option is added: `--device` (default `cuda`) on the subcommands that
-build a model; asking for `cuda` where there is no card raises. Decoding
+runs its hand-written kernels) and `--wandb` (read by neither CLI) are
+accepted and change nothing. One option is added: `--device` (default
+`cuda`) on the subcommands that build a model; asking for `cuda` where
+there is no card raises.
+
+Data parallelism: the subcommands that build a model run on every rank of
+a torchrun launch, each rank on its own card (`cuda` means the card of
+the rank's LOCAL_RANK), the global `--batch_size` split over the ranks:
+
+    python -m torch.distributed.run --nproc_per_node N \
+        -m diff_sal_tpu_torch.cli train-av --packed_root ... --batch_size B
+
+(`parallel/multihost.py` joins the group: NCCL where each rank has a card
+of its own, gloo on the CPU or where ranks share a card). `--no_mesh`
+means one process on one device, and raises under a launch of more than
+one rank, whose ranks would each train alone. Decoding
 images (raw datasets, `pack`, `test`, the dumps of `test-av`,
 `eval-metrics`) needs PIL or cv2; training from packed trees
 (`--packed_root`) needs neither. Checkpoints are the port's
@@ -46,8 +58,8 @@ def _common(p: argparse.ArgumentParser):
                    help="checkpoint directory (<workdir>/weights) whose best "
                         "state_dict warm-starts the model")
     p.add_argument("--no_mesh", action="store_true",
-                   help="accepted for the JAX CLI's command lines; the port "
-                        "runs one process on one device either way")
+                   help="one process on one device, no process group; raises "
+                        "under a torchrun launch of more than one rank")
     p.add_argument("--wandb", action="store_true",
                    help="accepted for the JAX CLI's command lines; no effect "
                         "(logs are TSV files under the workdir)")
@@ -94,14 +106,47 @@ def _make_cfg(args, audio_visual: bool):
 
 
 def _device(args):
-    """`--device` as a torch.device; raises for cuda without a card."""
+    """`--device` as a torch.device; raises for cuda without a card. Under
+    a launcher (LOCAL_RANK set) a bare `cuda` is the rank's card."""
     import torch
 
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: torch.cuda.is_available() is false; pass "
                            "--device cpu to run on the CPU")
+    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in os.environ:
+        from diff_sal_tpu_torch.parallel.multihost import rank_device
+
+        dev = rank_device(int(os.environ["LOCAL_RANK"]), "cuda")
     return dev
+
+
+def _setup(args, cfg):
+    """(device, data-parallel group or None) of a command that builds a
+    model: one process with `--no_mesh` or without a launcher's
+    environment, else this rank of the launch's process group."""
+    from diff_sal_tpu_torch.parallel import mesh, multihost
+
+    dev = _device(args)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if args.no_mesh:
+        if world > 1:
+            raise RuntimeError(f"--no_mesh under a launch of WORLD_SIZE={world} ranks: each "
+                               "rank would train alone on its own data; drop --no_mesh, or "
+                               "run one process")
+        return dev, None
+    if multihost.initialize(device=dev) is None:
+        return dev, None
+    args.joined_group = True  # main() leaves it
+    return dev, mesh.make_mesh(cfg.mesh.num_data, cfg.mesh.num_model)
+
+
+def _loader(ds, cfg, group, **kw):
+    """A `Loader` of this rank's rows of each global batch."""
+    from diff_sal_tpu_torch.data.loader import Loader
+    from diff_sal_tpu_torch.train.trainer import rank_loader_kwargs
+
+    return Loader(ds, **rank_loader_kwargs(cfg, group), **kw)
 
 
 def _best_state_dict(path: str, device):
@@ -123,12 +168,10 @@ def _visual_dataset(args, mode: str):
 
 
 def cmd_train_visual(args):
-    from diff_sal_tpu_torch.data.loader import Loader
     from diff_sal_tpu_torch.train.trainer import Trainer
 
-    dev = _device(args)
     cfg = _make_cfg(args, audio_visual=False)
-    bs = cfg.training.batch_size
+    dev, group = _setup(args, cfg)
     if args.packed_root:
         # the decode-free uint8 memmap pipeline (data/packed.py; pack once
         # with `pack dhf1k`); normalization happens on the device
@@ -143,11 +186,11 @@ def cmd_train_visual(args):
         # `testing` tree with GT maps, as the reference's get_val_loader
         # (cfgs/visual.py:96-104)
         val_ds = _visual_dataset(args, "val")
-    train_loader = Loader(train_ds, bs, shuffle=True, num_workers=args.n_threads)
-    val_loader = (Loader(val_ds, bs, shuffle=False, num_workers=args.n_threads)
+    train_loader = _loader(train_ds, cfg, group, shuffle=True, num_workers=args.n_threads)
+    val_loader = (_loader(val_ds, cfg, group, shuffle=False, num_workers=args.n_threads)
                   if val_ds is not None else None)
     t = Trainer(cfg, args.workdir, steps_per_epoch=len(train_loader), n_epochs=args.n_epochs,
-                device=dev)
+                device=dev, group=group)
     t.init_state()
     if args.pretrain_path:
         src = _best_state_dict(args.pretrain_path, dev)
@@ -161,14 +204,14 @@ def cmd_train_visual(args):
 def cmd_train_av(args):
     from diff_sal_tpu_torch.train.trainer import train_av_splits
 
-    dev = _device(args)
+    cfg = _make_cfg(args, audio_visual=True)
+    dev, group = _setup(args, cfg)
     with open(args.dataset_json) as f:
         data_config = json.load(f)
-    cfg = _make_cfg(args, audio_visual=True)
     visual = _best_state_dict(args.pretrain_path, dev) if args.pretrain_path else None
     train_av_splits(cfg, data_config, args.workdir, visual, splits=args.splits.split(","),
                     loader_kwargs=dict(num_workers=args.n_threads),
-                    packed_root=args.packed_root, device=dev)
+                    packed_root=args.packed_root, device=dev, group=group)
 
 
 def cmd_pack(args):
@@ -197,21 +240,21 @@ def cmd_test(args):
     the best checkpoint's weights where there is one, else the latest
     checkpoint's; dumps '<out_dir>/<vid>/%04d.png' and prints the
     nss+cc+sim scores as JSON."""
-    from diff_sal_tpu_torch.data.loader import Loader
     from diff_sal_tpu_torch.train.trainer import Trainer
 
-    dev = _device(args)
     cfg = _make_cfg(args, audio_visual=False)
-    loader = Loader(_visual_dataset(args, "val"), cfg.training.batch_size, shuffle=False,
-                    num_workers=args.n_threads)
-    t = Trainer(cfg, args.workdir, steps_per_epoch=1, device=dev)
+    dev, group = _setup(args, cfg)
+    loader = _loader(_visual_dataset(args, "val"), cfg, group, shuffle=False,
+                     num_workers=args.n_threads)
+    t = Trainer(cfg, args.workdir, steps_per_epoch=1, device=dev, group=group)
     t.init_state()
     try:
         t.restore_best()  # reference test() loads weights/best.pth (:722-729)
     except FileNotFoundError:
         t.resume()
     scores = t.evaluate(loader, save_images_dir=args.out_dir)
-    print(json.dumps({k: round(v, 4) for k, v in scores.items()}))
+    if t.is_main:
+        print(json.dumps({k: round(v, 4) for k, v in scores.items()}))
 
 
 def cmd_test_av(args):
@@ -221,24 +264,28 @@ def cmd_test_av(args):
     '{split}_results/<ds>/<vid>/pred_sal_%06d.jpg', and with --gt_root too
     they are scored offline to CSV. Prints the nss+cc+sim scores."""
     from diff_sal_tpu_torch.data.av_dataset import build_av_datasets
-    from diff_sal_tpu_torch.data.loader import Loader
+    from diff_sal_tpu_torch.parallel import mesh
     from diff_sal_tpu_torch.train.trainer import Trainer
 
-    dev = _device(args)
+    cfg = _make_cfg(args, audio_visual=True)
+    dev, group = _setup(args, cfg)
     with open(args.dataset_json) as f:
         data_config = json.load(f)
-    cfg = _make_cfg(args, audio_visual=True)
     all_scores = {}
     for split in args.splits.split(","):
         ds = build_av_datasets(data_config, split, train=False, exhaustive=True)
-        loader = Loader(ds, cfg.training.batch_size, shuffle=False, drop_last=False,
-                        pad_last=True, num_workers=args.n_threads)
-        t = Trainer(cfg, os.path.join(args.workdir, split), steps_per_epoch=1, device=dev)
+        loader = _loader(ds, cfg, group, shuffle=False, drop_last=False, pad_last=True,
+                         num_workers=args.n_threads)
+        t = Trainer(cfg, os.path.join(args.workdir, split), steps_per_epoch=1, device=dev,
+                    group=group)
         t.init_state()
         t.restore_best()
         result_dir = os.path.join(args.workdir, f"{split}_results")
         scores = t.evaluate(loader, save_images_dir=result_dir if args.save_img else None)
         all_scores[split] = {k: round(v, 4) for k, v in scores.items()}
+        mesh.barrier(group, dev)  # every rank's maps are on disk
+        if not t.is_main:
+            continue
         print(json.dumps({split: all_scores[split]}))
         if args.save_img and args.gt_root:
             from diff_sal_tpu_torch.metrics.offline import evaluate_predictions
@@ -247,7 +294,8 @@ def cmd_test_av(args):
                                        processes=args.processes)
             for task, vals in res.items():
                 print(split, task, vals)
-    print(json.dumps(all_scores))
+    if t.is_main:
+        print(json.dumps(all_scores))
 
 
 def cmd_eval_metrics(args):
@@ -316,7 +364,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    args.fn(args)
+    try:
+        args.fn(args)
+    finally:
+        if getattr(args, "joined_group", False):
+            from diff_sal_tpu_torch.parallel import multihost
+
+            multihost.shutdown()
 
 
 if __name__ == "__main__":

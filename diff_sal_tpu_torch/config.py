@@ -19,8 +19,8 @@ decoder's CvT attention through K7 at eval) and
 K9 at eval). The training step's fields (dequantization, losses,
 optimizer, dropout, drop-path, the train-time dead-frame cut, EMA) and
 the DPM-Solver settings of `SamplingConfig` and the trainer's epochs,
-logging and evaluation noise are here; fields that only unported paths
-read (the mesh) come with those paths. JAX's `SamplingConfig` also lists
+logging and evaluation noise are here, and `MeshConfig`, the layout of
+the data-parallel ranks (`parallel/mesh.py`). JAX's `SamplingConfig` also lists
 `dpm_solver_type`, `dpm_solver_atol` and `dpm_solver_rtol`, which nothing
 in the JAX package reads (its `adaptive_sample` takes `atol` and `rtol`
 as arguments, and its `dpm_solver_sample` raises on
@@ -276,6 +276,26 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The parallel layout (JAX `config.py:464-477`): the reference's one
+    strategy, data parallelism over its ranks (train_dhf1k.py:38-61,
+    model.py:13-15). `num_data=-1` takes every rank of the process group;
+    the model axis is one wide, since tensor-parallel sharding is not
+    ported: `num_model` above 1 raises."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    num_data: int = -1  # -1 => all ranks
+    num_model: int = 1
+
+    def __post_init__(self):
+        if self.num_model != 1:
+            raise NotImplementedError(
+                f"num_model={self.num_model}: tensor-parallel sharding is not ported; "
+                "the port's ranks split the batch only")
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     """Everything one training or evaluation run reads."""
 
@@ -286,6 +306,7 @@ class ExperimentConfig:
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     training: TrainingConfig = dataclasses.field(default_factory=TrainingConfig)
     sampling: SamplingConfig = dataclasses.field(default_factory=SamplingConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
 
 
 def visual_experiment(**kw) -> ExperimentConfig:

@@ -7,7 +7,11 @@ Datasets are plain indexable Python; the loader owns
 * the per-epoch shuffle, `RandomState(seed + epoch)` (the same order on
   every host and in both packages),
 * host sharding: process p iterates `indices[p::n]`, as
-  DistributedSampler(rank, world_size) does,
+  DistributedSampler(rank, world_size) does; with drop_last and n > 1 the
+  epoch's indices are first cut to a multiple of n (the last len % n go),
+  so every process yields the same number of batches and none waits
+  forever in a collective that the others never reach: floor(len / (n b))
+  batches each, as many as one process with batch n b yields,
 * drop_last batching (the reference sets drop_last on every loader),
 * optional pad-to-batch by repeating the last item, with a "valid" mask
   on every batch (the reference pads its last training batch so,
@@ -90,6 +94,8 @@ class Loader:
         if self.shuffle:
             rng = np.random.RandomState(self.seed + self.epoch)
             rng.shuffle(idx)
+        if self.drop_last and self.process_count > 1:
+            idx = idx[: n - n % self.process_count]
         return idx[self.process_index :: self.process_count]
 
     def __len__(self) -> int:

@@ -5,7 +5,7 @@ active on the way in, and clamp-to-[0, 1] on the way out."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,10 +26,13 @@ def logit_transform(x: torch.Tensor, lam: float = 1e-6) -> torch.Tensor:
 
 def data_transform(cfg: DataTransformConfig, x: torch.Tensor,
                    generator: Optional[torch.Generator] = None, *,
-                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   noise: Optional[torch.Tensor] = None,
+                   rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The training-time map transform. Its random draws (uniform and/or
     normal, of x's shape) come from `generator`; `noise` replaces the draw
-    when one dequantization is on (tests hand over the JAX package's)."""
+    when one dequantization is on (tests hand over the JAX package's).
+    `rows` = (rank, ranks): x holds rows rank::ranks of a global batch, and
+    each draw is made for the global batch and cut to those rows."""
 
     def draw(fn):
         if noise is not None:
@@ -37,7 +40,11 @@ def data_transform(cfg: DataTransformConfig, x: torch.Tensor,
                 raise ValueError("noise= takes the draw of one dequantization, two are on")
             return noise.to(device=x.device, dtype=x.dtype)
         dev = generator.device if generator is not None else x.device
-        return fn(x.shape, generator=generator, device=dev, dtype=x.dtype).to(x.device)
+        if rows is None:
+            return fn(x.shape, generator=generator, device=dev, dtype=x.dtype).to(x.device)
+        r, n = rows
+        shape = (x.shape[0] * n,) + tuple(x.shape[1:])
+        return fn(shape, generator=generator, device=dev, dtype=x.dtype)[r::n].to(x.device)
 
     if cfg.uniform_dequantization:
         x = x / 256.0 * 255.0 + draw(torch.rand) / 256.0

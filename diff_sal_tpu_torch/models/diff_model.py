@@ -23,7 +23,7 @@ import torch.nn as nn
 from diff_sal_tpu_torch.config import ModelConfig
 from diff_sal_tpu_torch.data.transforms import normalize_rgb_u8
 from diff_sal_tpu_torch.models.audio_attention import AudioAttnNet
-from diff_sal_tpu_torch.models.layers import FusedLayerNorm
+from diff_sal_tpu_torch.models.layers import BatchNorm, FusedLayerNorm
 from diff_sal_tpu_torch.models.mvit import MViT
 from diff_sal_tpu_torch.models.sal_unet import SalUNet
 from diff_sal_tpu_torch.models.vggish import VGGish
@@ -39,6 +39,15 @@ class VideoSaliencyModel(nn.Module):
         self.audio_net = VGGish(cfg.audio).requires_grad_(False) if cfg.audio else None
         self.spatiotemp_net = AudioAttnNet(cfg.spatiotemp) if cfg.spatiotemp else None
         self.decoder_net = SalUNet(cfg.decoder, with_audio=cfg.audio is not None)
+
+    def set_stats_group(self, group) -> int:
+        """Train-mode BatchNorm statistics over the global batch of
+        `group`'s data-parallel ranks (None: this process's batch alone).
+        Returns the number of BatchNorms set (the decoder's 7)."""
+        norms = [m for m in self.modules() if isinstance(m, BatchNorm)]
+        for m in norms:
+            m.stats_group = group
+        return len(norms)
 
     @property
     def compute_dtype(self) -> Optional[torch.dtype]:

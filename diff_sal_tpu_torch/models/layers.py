@@ -179,12 +179,22 @@ class BatchNorm(nn.BatchNorm2d):
     fast variance) and updates the running ones as flax does, ra = 0.9 ra
     + 0.1 batch, with the biased variance (torch's own update uses the
     unbiased one, so `F.batch_norm` is not used). `num_batches_tracked` is
-    left as loaded."""
+    left as loaded.
+
+    With a `stats_group` (set by `VideoSaliencyModel.set_stats_group`)
+    the train-mode statistics are the global batch's: each rank's sums of
+    x and x^2 and its count, in f32 or wider, are summed over the ranks by
+    a differentiable all-reduce (`parallel/mesh.all_reduce_sum`), so every
+    rank normalises as JAX's one program over the sharded batch does and
+    updates the same running statistics. (`torch.nn.SyncBatchNorm` refuses
+    CPU input and updates the running variance with the unbiased
+    estimate.)"""
 
     MOMENTUM = 0.9  # flax's `momentum`: the weight of the running value
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__(channels, eps=eps)
+        self.stats_group = None
 
     def forward(self, x: torch.Tensor, dt: Dtype = None, train: bool = False) -> torch.Tensor:
         xf = x.to(acc_dtype(x.dtype))
@@ -192,14 +202,29 @@ class BatchNorm(nn.BatchNorm2d):
             a = self.weight * torch.rsqrt(self.running_var + self.eps)
             return ((xf - self.running_mean) * a + self.bias).to(dt or x.dtype)
         dims = tuple(range(x.ndim - 1))
-        mean = xf.mean(dims)
-        var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        if self.stats_group is None:
+            mean = xf.mean(dims)
+            var = ((xf * xf).mean(dims) - mean * mean).clamp_min(0.0)
+        else:
+            mean, var = self._global_stats(xf, dims)
         with torch.no_grad():
             m = self.MOMENTUM
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1.0 - m) * var)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(dt or x.dtype)
+
+    def _global_stats(self, xf: torch.Tensor, dims):
+        """(mean, biased variance) over every rank's rows of the batch."""
+        from diff_sal_tpu_torch.parallel.mesh import all_reduce_sum
+
+        C = xf.shape[-1]
+        count = xf.new_full((1,), xf.numel() // C)
+        sums = all_reduce_sum(torch.cat([xf.sum(dims), (xf * xf).sum(dims), count]),
+                              self.stats_group)
+        mean = sums[:C] / sums[2 * C]
+        var = (sums[C:2 * C] / sums[2 * C] - mean * mean).clamp_min(0.0)
+        return mean, var
 
 
 class Mlp(nn.Module):
