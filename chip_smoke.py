@@ -4,8 +4,9 @@ visual-only model in both MViT layouts, both models in f32, the f32
 attention and training step at full width, the AV trainer from a packed
 tree on disk to its checkpoints, the entry points: the CLI, the device
 metrics, adaptive DPM-Solver and the int8 MLPs, the import of the
-reference's released checkpoints and MViT's `remat`, and data
-parallelism over torch.distributed) on one NVIDIA GPU and hold each of
+reference's released checkpoints and MViT's `remat`, data parallelism
+over torch.distributed, MViT without its cls token and the random-pyramid
+ablation) on one NVIDIA GPU and hold each of
 its hand-written kernels (thirteen in bf16 and the
 seven f32 instances an f32 model runs) against its plain PyTorch version.
 
@@ -241,6 +242,24 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      7 training windows: one header and one row per epoch in each log, a
      checkpoint per epoch, the logged loss the mean of the ranks' own.
      Every launch has a timeout; a failed or late process ends the others;
+ 17. the two model modes (`modes_phase`): (1) the visual-only model with
+     `with_cls_token=False` at full width in bf16 (MViT's attention in
+     plain torch, JAX's einsum path; no K1, K11 or K12): DDIM NFE 1 at B=2
+     (map checked, launches against `path_launches`) and the training step
+     at B=4 (finite loss and gradients, `cls_token` and the finest scale's
+     norm the only trainable tensors off the graph, launches per step, peak
+     memory), each beside the cls-token model on the same weights: ms per
+     run and per step by CUDA events, in turns, and the profiler's device
+     time of one run and one step (`device_ms`); (2) the same mode small (MViT
+     tiny at 128x96) in f32, the card against the CPU with phase 10's
+     bounds and `f32_launches`; (3) the random-pyramid ablation
+     (`visual=None`) at 224x384 in bf16: the pyramid's shapes and dtypes
+     (JAX's: the rgb's, uint8 normalised to f32), equal per seed and fresh
+     per seed, `ValueError` without a generator (also from
+     `sample_saliency` and the train step, as in JAX), the decoder-only
+     forward at B=2 and one backward of the MSE on x0 at B=4 in train mode
+     (gradients finite, peak memory), the AV ablation's forward at B=2,
+     each with its launches against `path_launches`;
 then prints the `kernels` JSON line, the nvidia-smi line and, last, the
 result line {"ok": true, "device": {...}}. The f32 instances' bound takes
 their matrix products at split TF32's rate (495 / 3 TFLOP/s: f32's accuracy
@@ -251,6 +270,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -990,40 +1010,53 @@ def path_launches(cfg, nfe: int = 1, train: bool = False, fused_head: bool = Fal
     blocks twice in a step with `remat`), the decoder once per call; the
     eval lowerings (K3, K7, K8, K9) at eval only. With
     `fused_head` (the head module's field, which no config sets) the head
-    runs through K8 unless `head_lowres` takes it through K9."""
+    runs through K8 unless `head_lowres` takes it through K9. MViT without
+    its cls token runs 5 LayerNorms per block and its attention in plain
+    torch (no K1, K11 or K12); `visual=None` (the random-pyramid ablation)
+    launches nothing for the visual side."""
     from diff_sal_tpu_torch.models.mvit import block_plan
 
     v, d = cfg.visual, cfg.decoder
     stages = d.mid_num_stages  # one TransformerBlock each
     calls = 1 if train else nfe
-    # MViT: norm1 and norm2 on the spatial and on the cls rows, norm_q/k/v,
-    # one norm per emitted scale; AudioAttnNet (AV model only): two per
-    # layer and a final one; the decoder per call: each block's norm and
-    # its q, k and v token norms, one per stage output, and norm2, which
-    # runs inside K3 at eval
+    # AudioAttnNet (AV model only): two per layer and a final one; the
+    # decoder per call: each block's norm and its q, k and v token norms,
+    # one per stage output, and norm2, which runs inside K3 at eval
     audio = 2 * cfg.spatiotemp.depth + 1 if cfg.spatiotemp is not None else 0
-    ln = (7 * v.num_layers + len(v.out_scales) + audio
-          + calls * (6 if train else 5) * stages)
-    # one pool per block where q and kv share a stride, else a q and a kv
-    # pool; K11 only with the cls stream (the token-concat layout pools by
-    # convolution, as in JAX)
-    pools = sum(1 if p["stride_q"] == p["stride_kv"] else 2 for p in block_plan(v))
-    attn = "bias_attention" if v.cls_stream else "fused_bias_attention"
-    pools = pools if v.pool_mode == "pallas" and v.cls_stream else 0
-    # with `remat` a step runs every MViT block's forward again in the
-    # backward: its attention, its 7 LayerNorms and its pools (the emitted
-    # scales' norms sit outside the blocks)
-    again = 2 if train and v.remat else 1
+    ln = audio + calls * (6 if train else 5) * stages
     want = {name: 0 for name in KERNELS}
-    want.update({attn: again * v.num_layers, "layer_norm": ln + (again - 1) * 7 * v.num_layers,
-                 "depthwise_pool3d": again * pools})
+    # LayerNorm backwards off the graph: the finest pyramid scale's norm
+    # (the decoder never reads it) and the last block's norm2 of the cls
+    # row (its output is never read)
+    off_graph = 0
+    if v is not None:
+        # MViT per block: norm1 and norm2 (on the spatial rows, and again on
+        # the cls row), norm_q/k/v (cls and spatial rows in one launch);
+        # one norm per emitted scale
+        per_block = 7 if v.with_cls_token else 5
+        ln += per_block * v.num_layers + len(v.out_scales)
+        off_graph = 2 if v.with_cls_token else 1
+        # with `remat` a step runs every MViT block's forward again in the
+        # backward: its attention, its LayerNorms and its pools (the emitted
+        # scales' norms sit outside the blocks)
+        again = 2 if train and v.remat else 1
+        want["layer_norm"] += (again - 1) * per_block * v.num_layers
+        if v.with_cls_token:
+            # one pool per block where q and kv share a stride, else a q and
+            # a kv pool; K11 only with the cls stream (the token-concat
+            # layout pools by convolution, as in JAX)
+            pools = sum(1 if p["stride_q"] == p["stride_kv"] else 2 for p in block_plan(v))
+            attn = "bias_attention" if v.cls_stream else "fused_bias_attention"
+            want[attn] = again * v.num_layers
+            want["depthwise_pool3d"] = (again * pools if v.pool_mode == "pallas"
+                                        and v.cls_stream else 0)
+            if train:
+                want[attn + "_bwd"] = v.num_layers
+    want["layer_norm"] += ln
     if train:
-        # every MViT block's attention and every LayerNorm backward, except
-        # two norms off the graph: the finest pyramid scale's (the decoder
-        # never reads it) and the last block's norm2 of the cls row (its
-        # output is never read); the resize-sum's backward is plain math
-        want.update({attn + "_bwd": v.num_layers, "layer_norm_bwd": ln - 2,
-                     "bilinear_resize_sum": 1})
+        # every LayerNorm backward but those off the graph; the
+        # resize-sum's backward is plain math
+        want.update({"layer_norm_bwd": ln - off_graph, "bilinear_resize_sum": 1})
     else:
         k8 = fused_head and not d.head_lowres
         want.update({"block_tail": nfe * stages,
@@ -3282,6 +3315,313 @@ def dp_phase(dev, kind, smi, schedule):
     log(f"[dp] phase {time.perf_counter() - t0:.1f} s (references {t_ref:.1f} s)")
 
 
+MODES_ITERS = 3  # timed DDIM runs per model and turn, two turns
+MODES_TRAIN_ITERS = 2  # timed steps per model and turn, two turns
+
+
+def no_cls_config(with_cls_token: bool = False):
+    """Phase 17's visual-only model: phase 9's (cls stream) with or without
+    MViT's cls token."""
+    cfg = visual_config(True)
+    return dataclasses.replace(cfg, visual=dataclasses.replace(
+        cfg.visual, with_cls_token=with_cls_token))
+
+
+def ablation_config(audio: bool, hw=(224, 384), dtype: str = "bfloat16"):
+    """The random-pyramid ablation (`visual=None`): the decoder alone, or
+    with VGGish and AudioAttnNet."""
+    from diff_sal_tpu_torch.config import (AudioAttnConfig, ModelConfig, SalUNetConfig,
+                                           VGGishConfig)
+
+    return ModelConfig(visual=None, audio=VGGishConfig() if audio else None,
+                       spatiotemp=AudioAttnConfig() if audio else None,
+                       decoder=SalUNetConfig(img_size=hw), compute_dtype=dtype)
+
+
+def timed_turns(fns, iters):
+    """ms per call of each named thunk by CUDA events, in two turns (each
+    thunk `iters` times in a row per turn, the order reversed in the
+    second): {name: [ms per turn]}."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    times = {n: [] for n in fns}
+    for names in (list(fns)[::-1], list(fns)):
+        for n in names:
+            start.record()
+            for i in range(iters):
+                fns[n](i)
+            end.record()
+            torch.cuda.synchronize()
+            times[n].append(start.elapsed_time(end) / iters)
+    return times
+
+
+def modes_phase(dev, kind, smi, schedule, data_cfg):
+    """Phase 17: MViT without its cls token and the random pyramid. (1)
+    The visual-only model without MViT's cls token at full width in bf16
+    (its attention in plain torch, 5 LayerNorms per block): DDIM NFE 1 at
+    B=2 and the training step at B=4, maps, gradients, launches against
+    `path_launches`, ms per run and per step, device time and the step's
+    peak memory beside the cls-token model on the same weights; (2) the same mode small in f32, the card against the
+    CPU (phase 10's bounds); (3) the random-pyramid ablation (`visual=None`)
+    at full width in bf16: the pyramid's shapes, dtypes and draws, the
+    decoder-only forward at B=2 and its backward at B=4, the AV ablation's
+    forward at B=2, launches against `path_launches`; both packages'
+    `sample_saliency` and train step raise for it, and the port's do here."""
+    from diff_sal_tpu_torch.config import (ExperimentConfig, ModelConfig, MViTConfig,
+                                           SalUNetConfig, SamplingConfig)
+    from diff_sal_tpu_torch.inference import sample_saliency
+    from diff_sal_tpu_torch.models.diff_model import (PYRAMID_DIMS, VideoSaliencyModel,
+                                                      build_model)
+    from diff_sal_tpu_torch.ops import kernels
+    from diff_sal_tpu_torch.train.optim import make_optimizer
+    from diff_sal_tpu_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    # -- (1) the visual-only model without its cls token, full width -------
+    cfgs = {"no_cls": no_cls_config(False), "cls": no_cls_config(True)}
+    models = {"no_cls": build_model(cfgs["no_cls"], seed=40, device=dev)}
+    models["cls"] = VideoSaliencyModel(cfgs["cls"]).eval()  # one parameter tree
+    models["cls"].load_state_dict(models["no_cls"].state_dict())
+    models["cls"].to(dev)
+    (H, W), T = cfgs["no_cls"].decoder.img_size, cfgs["no_cls"].visual.temporal_size
+    g = torch.Generator(device=dev).manual_seed(41)
+    inputs = [(torch.randn(B, T, H, W, 3, generator=g, device=dev) * 0.5,
+               torch.randn(B, H, W, 1, generator=g, device=dev)) for _ in range(3)]
+    sampling = SamplingConfig()
+
+    def run(what, i=0):
+        rgb, noise = inputs[i % len(inputs)]
+        return sample_saliency(models[what], schedule, sampling, data_cfg, rgb, noise=noise)
+
+    for what in cfgs:
+        run(what)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = run("no_cls")
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    assert tuple(out.shape) == (B, H, W, 1), out.shape
+    assert bool(torch.isfinite(out).all()), "no cls token: non-finite map"
+    lo, hi, std = float(out.min()), float(out.max()), float(out.std())
+    assert 0.0 <= lo and hi <= 1.0 and std > 0.0, (lo, hi, std)
+    check_launches(counts, path_launches(cfgs["no_cls"], 1), "no cls token DDIM run")
+    log(f"[modes] no cls token: map min {lo:.4f} max {hi:.4f} std {std:.5f}; launches per run "
+        + json.dumps({n: k for n, k in counts.items() if k}) + f"; peak memory {peak:.2f} GiB")
+    for what, ts in timed_turns({w: functools.partial(run, w) for w in cfgs},
+                                MODES_ITERS).items():
+        ms = sum(ts) / len(ts)
+        log(f"[modes] {what}: {ms:.2f} ms per B={B} DDIM run (turns "
+            + ", ".join(f"{t:.2f}" for t in ts) + f"), {1000.0 * B / ms:.2f} clips/s on {kind} "
+            f"[{smi}]")
+
+    gen = torch.Generator(device=dev).manual_seed(42)
+    batches = [{"rgb": torch.randn(B_TRAIN, T, H, W, 3, generator=gen, device=dev) * 0.5,
+                "salmap": torch.rand(B_TRAIN, H, W, 1, generator=gen, device=dev)}
+               for _ in range(3)]
+    steps = {}
+    for what, cfg in cfgs.items():
+        m = models[what]
+        ecfg = ExperimentConfig(model=cfg)
+        opt = make_optimizer(m, ecfg.optim, steps_per_epoch=1000, n_epochs=4)
+        step = make_train_step(m, schedule, ecfg)
+        steps[what] = (opt, step)
+        met = step(opt, batches[0], gen)
+        torch.cuda.synchronize()
+        loss, gn = float(met["total"]), float(met["grad_norm"])
+        assert np.isfinite(loss) and loss > 0 and np.isfinite(gn) and gn > 0, (what, loss, gn)
+        params = dict(m.named_parameters())
+        off_graph = {n for n, p in params.items() if p.requires_grad and p.grad is None}
+        # without the token nothing reads `cls_token`
+        assert off_graph == {"visual_net.norm0.weight", "visual_net.norm0.bias"} | (
+            {"visual_net.cls_token"} if what == "no_cls" else set()), (what, off_graph)
+        assert all(bool(torch.isfinite(p.grad).all()) for p in params.values()
+                   if p.grad is not None), what
+        for sub in ("visual_net", "decoder_net"):
+            assert any(p.grad is not None and float(p.grad.abs().max()) > 0
+                       for n, p in params.items() if n.startswith(sub + ".")), (what, sub)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        met = step(opt, batches[1], gen)
+        torch.cuda.synchronize()
+        tcounts = kernels.launch_counts()
+        tpeak = torch.cuda.max_memory_allocated() / 2**30
+        assert np.isfinite(float(met["total"])), met
+        check_launches(tcounts, path_launches(cfg, train=True), f"{what} train step")
+        log(f"[modes] {what} train step: first loss {loss:.4f}, grad_norm {gn:.4f}; launches "
+            "per step " + json.dumps({n: k for n, k in tcounts.items() if k})
+            + f"; peak memory {tpeak:.2f} GiB")
+
+    def train(what, i):
+        opt, step = steps[what]
+        return step(opt, batches[i % len(batches)], gen)
+
+    for what, ts in timed_turns({w: functools.partial(train, w) for w in cfgs},
+                                MODES_TRAIN_ITERS).items():
+        ms = sum(ts) / len(ts)
+        log(f"[modes] {what}: {ms:.2f} ms per B={B_TRAIN} step (turns "
+            + ", ".join(f"{t:.2f}" for t in ts) + f"), {1000.0 * B_TRAIN / ms:.2f} clips/s on "
+            f"{kind} [{smi}]")
+    # device time (profiler: every kernel, memcpy and memset) of one run and
+    # one step of each model, which the plain attention's logits move
+    for what in cfgs:
+        run_ms, n_run = device_ms([functools.partial(run, what, 1)])
+        step_ms, n_step = device_ms([functools.partial(train, what, 2)])
+        log(f"[modes] {what}: device time {run_ms:.3f} ms per DDIM run ({n_run} events), "
+            f"{step_ms:.3f} ms per step ({n_step} events) on {kind} [{smi}]")
+    del models, steps, batches, inputs
+    torch.cuda.empty_cache()
+    log(f"[modes] (1) {time.perf_counter() - t0:.1f} s")
+
+    # -- (2) the same mode small, f32, the card against the CPU --------------
+    t1 = time.perf_counter()
+    hw = (128, 96)
+    small = ModelConfig(visual=MViTConfig.tiny(spatial_size=hw, with_cls_token=False),
+                        audio=None, spatiotemp=None,
+                        decoder=SalUNetConfig(img_size=hw, dropout=0.0,
+                                              drop_path_rate=(0.0,) * 4))
+    gc = torch.Generator().manual_seed(43)
+    rgb, noise = torch.randn(2, 16, *hw, 3, generator=gc), torch.randn(2, *hw, 1, generator=gc)
+    cpu_model = build_model(small, seed=44, device="cpu")
+    ref = sample_saliency(cpu_model, schedule, sampling, data_cfg, rgb, noise=noise)
+    sd = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+    card = VideoSaliencyModel(small).eval()
+    card.load_state_dict(sd)
+    card.to(dev)
+    kernels.reset_launch_counts()
+    got = sample_saliency(card, schedule, sampling, data_cfg, rgb.to(dev), noise=noise)
+    torch.cuda.synchronize()
+    c = kernels.launch_counts()
+    check_launches(c, f32_launches(small, 1), "f32 no cls token DDIM run")
+    err = float((got.cpu() - ref).abs().max())
+    assert err <= F32_MAP_TOL, err
+    batch = {"rgb": rgb, "salmap": torch.rand(2, *hw, 1, generator=gc)}
+    draws = {"deq": torch.randn(2, *hw, 1, generator=gc),
+             "noise": torch.randn(2, *hw, 1, generator=gc), "t": torch.tensor(300)}
+
+    def small_step(device):
+        m = VideoSaliencyModel(small).train()
+        m.load_state_dict(sd)
+        m.to(device)
+        ecfg = ExperimentConfig(model=small)
+        met = make_train_step(m, schedule, ecfg)(make_optimizer(m, ecfg.optim, 10, 2),
+                                                 batch, draws=draws)
+        return float(met["total"]), {n: p.grad.cpu() for n, p in m.named_parameters()
+                                     if p.grad is not None}
+
+    l_cpu, g_cpu = small_step("cpu")
+    kernels.reset_launch_counts()
+    l_card, g_card = small_step(dev)
+    tc = kernels.launch_counts()
+    check_launches(tc, f32_launches(small, train=True), "f32 no cls token train step")
+    stats, worst = grad_agreement(g_card, g_cpu)
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    log(f"[modes] no cls token f32 small: map card vs CPU max|d| {err:.3e} (limit "
+        f"{F32_MAP_TOL}); step loss card {l_card:.6f} CPU {l_cpu:.6f} (rel {loss_err:.3e}); "
+        "gradients (relative L2, cosine) " + json.dumps(stats) + f"; worst tensor {worst} "
+        f"(limit {F32_GRAD_TOL})")
+    assert set(g_card) == set(g_cpu), set(g_card) ^ set(g_cpu)
+    assert loss_err <= F32_MAP_TOL and worst[0] <= F32_GRAD_TOL, (loss_err, worst)
+    del cpu_model, card
+    log(f"[modes] (2) {time.perf_counter() - t1:.1f} s")
+
+    # -- (3) the random-pyramid ablation at full width -----------------------
+    t1 = time.perf_counter()
+    cfg = ablation_config(False)
+    model = build_model(cfg, seed=45, device=dev)
+    assert model.visual_net is None
+    (H, W) = cfg.decoder.img_size
+    want = [(B, T // 2, (H // 4) >> (3 - i), (W // 4) >> (3 - i), c)
+            for i, c in enumerate(PYRAMID_DIMS)]
+    gen = torch.Generator(device=dev)
+    rgb = torch.randn(B, T, H, W, 3, device=dev)
+    for x, dtype in ((rgb, torch.float32), (rgb.to(torch.bfloat16), torch.bfloat16),
+                     (torch.zeros(B, T, H, W, 3, dtype=torch.uint8, device=dev), torch.float32)):
+        pyr = model.encode_visual(x, gen.manual_seed(1))
+        assert [tuple(p.shape) for p in pyr] == want, [tuple(p.shape) for p in pyr]
+        assert all(p.dtype == dtype and p.device == x.device for p in pyr), (x.dtype, dtype)
+    a, a2, b = (model.encode_visual(rgb, gen.manual_seed(seed)) for seed in (1, 1, 2))
+    assert all(torch.equal(p, q) for p, q in zip(a, a2))
+    assert not any(torch.equal(p, q) for p, q in zip(a, b))
+    for fn in (lambda: model.encode_visual(rgb),
+               lambda: sample_saliency(model, schedule, sampling, data_cfg, rgb)):
+        try:
+            fn()
+        except ValueError as e:
+            assert "generator" in str(e), e
+        else:
+            raise AssertionError("the random pyramid drew without a generator")
+    del a, a2, b, pyr
+    log(f"[modes] random pyramid: shapes {want}, the rgb's dtype (f32, bf16; uint8 -> f32), "
+        "equal per seed, fresh per seed; no generator raises (encode_visual, sample_saliency)")
+
+    x = torch.randn(B, H, W, 1, device=dev)
+    t = torch.tensor([10.0, 700.0], device=dev)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        out = model({"rgb": rgb, "input": x}, t, pyramid_generator=gen.manual_seed(3))
+        torch.cuda.synchronize()
+    c = kernels.launch_counts()
+    assert tuple(out.shape) == (B, H, W, 1) and bool(torch.isfinite(out).all()), out.shape
+    check_launches(c, path_launches(cfg, 1), "decoder-only ablation forward")
+    log("[modes] decoder-only ablation: forward B=2 finite; launches " + json.dumps(
+        {n: k for n, k in c.items() if k}))
+
+    model.train()
+    ecfg = ExperimentConfig(model=cfg)
+    try:
+        make_train_step(model, schedule, ecfg)(make_optimizer(model, ecfg.optim, 10, 2),
+                                               {"rgb": rgb, "salmap": x.sigmoid()})
+    except ValueError as e:
+        assert "generator" in str(e), e
+    else:
+        raise AssertionError("the train step drew a random pyramid without a generator")
+    model.zero_grad(set_to_none=True)
+    g4 = torch.Generator(device=dev).manual_seed(46)
+    rgb4 = torch.randn(B_TRAIN, T, H, W, 3, generator=g4, device=dev)
+    x0 = torch.rand(B_TRAIN, H, W, 1, generator=g4, device=dev) * 2 - 1
+    xt = torch.randn(B_TRAIN, H, W, 1, generator=g4, device=dev)
+    t4 = torch.randint(0, 1000, (B_TRAIN,), generator=g4, device=dev).float()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    pred = model({"rgb": rgb4, "input": xt}, t4, train=True, generator=g4, pyramid_generator=g4)
+    loss = torch.mean((pred.float() - x0) ** 2)
+    loss.backward()
+    torch.cuda.synchronize()
+    c = kernels.launch_counts()
+    tpeak = torch.cuda.max_memory_allocated() / 2**30
+    check_launches(c, path_launches(cfg, train=True), "decoder-only ablation backward")
+    params = dict(model.named_parameters())
+    mse = float(loss.detach())
+    assert np.isfinite(mse), mse
+    assert all(bool(torch.isfinite(p.grad).all()) for p in params.values() if p.grad is not None)
+    assert any(p.grad is not None and float(p.grad.abs().max()) > 0 for p in params.values())
+    log(f"[modes] decoder-only ablation: MSE on x0 {mse:.4f} at B={B_TRAIN}, "
+        "gradients finite; launches " + json.dumps({n: k for n, k in c.items() if k})
+        + f"; peak memory {tpeak:.2f} GiB")
+    del model, pred, loss, params
+
+    cfg = ablation_config(True)
+    model = build_model(cfg, seed=47, device=dev)
+    audio = torch.randn(B, 9, H // 2, W // 2, 1, device=dev)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        out = model({"rgb": rgb, "input": x, "audio": audio}, t,
+                    pyramid_generator=gen.manual_seed(4))
+        torch.cuda.synchronize()
+    c = kernels.launch_counts()
+    assert tuple(out.shape) == (B, H, W, 1) and bool(torch.isfinite(out).all()), out.shape
+    check_launches(c, path_launches(cfg, 1), "AV ablation forward")
+    log("[modes] AV ablation: forward B=2 finite; launches " + json.dumps(
+        {n: k for n, k in c.items() if k}))
+    del model
+    torch.cuda.empty_cache()
+    log(f"[modes] (3) {time.perf_counter() - t1:.1f} s; phase {time.perf_counter() - t0:.1f} s")
+
+
 def resize_add_phase(k4_call, recorders, plain):
     """K10, which no model path calls: the four task maps K4 summed in the
     main path's run added one by one into a zero bf16 accumulator (counts
@@ -3644,6 +3984,9 @@ def main() -> int:
 
     # -- phase 16: data parallelism over torch.distributed -------------------
     dp_phase(dev, kind, smi, schedule)
+
+    # -- phase 17: MViT without its cls token, the random-pyramid ablation ---
+    modes_phase(dev, kind, smi, schedule, data_cfg)
 
     log("[device time] profiler sessions " + json.dumps(DEVICE_MS_TALLY))
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

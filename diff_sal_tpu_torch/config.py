@@ -145,6 +145,9 @@ class MViTConfig:
     adaptive_kv_stride: Tuple[int, int, int] = (1, 8, 8)
     rel_pos_embed: bool = True
     residual_pooling: bool = True
+    # False: no cls token; the blocks take the spatial tokens alone and the
+    # attention runs in plain torch (JAX's einsum path), whatever
+    # `cls_stream` and `pool_mode` say, as in JAX
     with_cls_token: bool = True
     mlp_ratio: float = 4.0
     qkv_bias: bool = True
@@ -256,6 +259,7 @@ class ModelConfig:
     """Top-level VideoSaliencyModel composition (reference
     `models/diff_model.py:8-114`)."""
 
+    # None: the random-pyramid ablation (no MViT; `models/diff_model.py`)
     visual: Optional[MViTConfig] = dataclasses.field(default_factory=MViTConfig.small)
     audio: Optional[VGGishConfig] = None
     spatiotemp: Optional[AudioAttnConfig] = None

@@ -10,6 +10,20 @@ the training step calls with `train=True`. Inputs are channel-last: rgb
 224, 384, 1), t (B,). The VGGish trunk is frozen: its parameters do not
 require grad and it runs under no_grad (JAX `diff_model.py:110` stops
 its gradient).
+
+With `visual=None` (the decoder-only ablation, and the ablation with the
+audio path) there is no `visual_net`: `encode_visual` draws a fresh
+random pyramid at the shapes MViT would emit, as JAX's
+`_random_pyramid` does (`diff_model.py:55-107`, reference
+`diff_model.py:100-109`): four standard-normal tensors, coarse first,
+(B, T/2, H/4 >> (3-i), W/4 >> (3-i), c) with c = 768, 384, 192, 96, in the
+dtype of the (normalised) rgb. JAX takes them from a 'pyramid' rng and
+raises without one; the port takes an explicit `torch.Generator` on the
+rgb's device (`encode_visual(rgb, generator)`, `forward(...,
+pyramid_generator=)`) and raises `ValueError` without one. RNGs differ,
+so the parity tests hand JAX's pyramid to `denoise`. Neither package's
+`sample_saliency` nor train step passes one, so both raise there for this
+config.
 """
 
 from __future__ import annotations
@@ -29,13 +43,31 @@ from diff_sal_tpu_torch.models.sal_unet import SalUNet
 from diff_sal_tpu_torch.models.vggish import VGGish
 
 
+# the random pyramid's channels, coarse first (JAX diff_model.py:87)
+PYRAMID_DIMS = (768, 384, 192, 96)
+
+
+def random_pyramid(rgb: torch.Tensor,
+                   generator: Optional[torch.Generator]) -> List[torch.Tensor]:
+    """The `visual=None` ablation's feature pyramid (JAX `_random_pyramid`,
+    diff_model.py:75-107): fresh standard-normal draws from `generator` at
+    MViT's output shapes, in rgb's dtype on rgb's device."""
+    if generator is None:
+        raise ValueError("visual=None (random-pyramid ablation) requires a generator for the "
+                         "pyramid: encode_visual(rgb, generator) or forward(..., "
+                         "pyramid_generator=g)")
+    B, T, H, W = rgb.shape[:4]
+    t4, h4, w4 = T // 2, H // 4, W // 4
+    return [torch.randn((B, t4, h4 >> (3 - i), w4 >> (3 - i), c), generator=generator,
+                        dtype=rgb.dtype, device=rgb.device)
+            for i, c in enumerate(PYRAMID_DIMS)]
+
+
 class VideoSaliencyModel(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        if cfg.visual is None:
-            raise NotImplementedError("the visual=None random-pyramid mode is not ported yet")
         self.cfg = cfg
-        self.visual_net = MViT(cfg.visual)
+        self.visual_net = MViT(cfg.visual) if cfg.visual is not None else None
         self.audio_net = VGGish(cfg.audio).requires_grad_(False) if cfg.audio else None
         self.spatiotemp_net = AudioAttnNet(cfg.spatiotemp) if cfg.spatiotemp else None
         self.decoder_net = SalUNet(cfg.decoder, with_audio=cfg.audio is not None)
@@ -54,11 +86,16 @@ class VideoSaliencyModel(nn.Module):
         name = self.cfg.compute_dtype
         return None if name in (None, "float32") else getattr(torch, name)
 
-    def encode_visual(self, rgb: torch.Tensor) -> List[torch.Tensor]:
+    def encode_visual(self, rgb: torch.Tensor,
+                      generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         """rgb (B, T, H, W, 3) -> coarse-first 4-scale pyramid; uint8 input
-        is normalized on the device first."""
+        is normalized on the device first. Without a `visual_net` the
+        pyramid is `random_pyramid(rgb, generator)`, which raises without a
+        generator (JAX raises without its 'pyramid' rng)."""
         if rgb.dtype == torch.uint8:
             rgb = normalize_rgb_u8(rgb, stats=self.cfg.uint8_norm)
+        if self.visual_net is None:
+            return random_pyramid(rgb, generator)
         return self.visual_net(rgb, self.compute_dtype)
 
     def encode_audio(self, audio: torch.Tensor, train: bool = False,
@@ -80,15 +117,18 @@ class VideoSaliencyModel(nn.Module):
                                 generator)
 
     def forward(self, data: dict, t: torch.Tensor, train: Optional[bool] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                pyramid_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """data {"rgb", "input": x_t[, "audio"]}, t (B,) -> the denoiser's
         output (B, H, W, 1). `train` defaults to the module's training
-        mode; dropout and DropPath masks come from `generator`."""
+        mode; dropout and DropPath masks come from `generator`, the
+        `visual=None` ablation's pyramid from `pyramid_generator` (JAX's
+        'pyramid' rng, a stream of its own)."""
         train = self.training if train is None else train
         audio_feat = None
         if self.audio_net is not None and data.get("audio") is not None:
             audio_feat = self.encode_audio(data["audio"], train, generator)
-        feat_list = self.encode_visual(data["rgb"])
+        feat_list = self.encode_visual(data["rgb"], pyramid_generator)
         return self.denoise(data["input"], t, feat_list, audio_feat, train, generator)
 
 

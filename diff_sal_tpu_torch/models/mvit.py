@@ -4,27 +4,36 @@
 3D patch embed (k=(3,7,7), s=(2,4,4)), pooled multi-head attention with
 decomposed (T, H, W) rel-pos and residual pooling, channel/head doubling
 and 2x query pooling at the downscale blocks, and the coarse-first
-4-scale pyramid. The cls token rides a separate (B, 1, C) stream between
-blocks. With `cls_stream` (the default) the spatial query rows go through
-kernel K1 (`ops/attention.py`) and the single cls query row attends in
-plain torch (as at JAX `mvit.py:1122-1131`); with `cls_stream=False` the
-attention runs on JAX's token-concat layout (`mvit.py:807-837`), cls at
-row 0 of every head, through kernel K12. Both layouts compute one
-function with one parameter tree. Every LayerNorm runs through kernel K2;
-with `pool_mode="pallas"` (and `cls_stream`, as in JAX) the depthwise
-attention pools run through kernel K11 (`ops/pool.py`) on the qkv columns
-in place, else through cuDNN's grouped conv3d. With `mlp_quant` ("w8" /
-"w8a8", eval only) every block's MLP holds int8 weights
-(`ops/quant.QuantLinear`) and takes the cls rows with the spatial rows in
-one product. With `remat`, each block's forward runs again in the
-backward pass (`torch.utils.checkpoint`, JAX's `nn.remat`,
-mvit.py:1550), so a training step saves only the blocks' inputs and
-launches MViT's forward kernels twice. Parameter names are the
-reference's (`patch_embed.projection`, `cls_token`, `blocks.{i}.*`,
-`norm{s}`).
+4-scale pyramid. With its cls token (`with_cls_token`, the default) the
+token rides a separate (B, 1, C) stream between blocks. With `cls_stream`
+(the default) the spatial query rows go through kernel K1
+(`ops/attention.py`) and the single cls query row attends in plain torch
+(as at JAX `mvit.py:1122-1131`); with `cls_stream=False` the attention
+runs on JAX's token-concat layout (`mvit.py:807-837`), cls at row 0 of
+every head, through kernel K12. Both layouts compute one function with
+one parameter tree. Without its cls token (`with_cls_token=False`) the
+blocks run on the spatial tokens alone, as JAX's encoder does
+(`mvit.py:1498-1620`): the attention is JAX's einsum path (`mvit.py:
+838-851`, which JAX takes for every MViT without the token), in plain
+torch with the rel-pos bias added to the full logits in f32
+(`ops/rel_pos.add_decomposed_rel_pos`) and the residual `+ q` on every
+row; `cls_stream` and `pool_mode` then change nothing, as in JAX
+(`mvit.py:1509, 1577`), so K1, K11 and K12 are not launched; the
+`cls_token` parameter is still created (JAX `mvit.py:1527`) and never
+read. Every LayerNorm runs through kernel K2; with `pool_mode="pallas"`
+(and `cls_stream`, as in JAX) the depthwise attention pools run through
+kernel K11 (`ops/pool.py`) on the qkv columns in place, else through
+cuDNN's grouped conv3d. With `mlp_quant` ("w8" / "w8a8", eval only) every
+block's MLP holds int8 weights (`ops/quant.QuantLinear`) and takes the
+cls rows, where there are any, with the spatial rows in one product.
+With `remat`, each block's forward runs again in the backward pass
+(`torch.utils.checkpoint`, JAX's `nn.remat`, mvit.py:1552), so a training
+step saves only the blocks' inputs and launches MViT's forward kernels
+twice. Parameter names are the reference's (`patch_embed.projection`,
+`cls_token`, `blocks.{i}.*`, `norm{s}`).
 
 Shapes for rgb (B, 16, 224, 384, 3):
-  tokens (B, 8*56*96, 96) + cls (B, 1, 96)
+  tokens (B, 8*56*96, 96) + cls (B, 1, 96) (no cls without the token)
   pyramid [(B,8,7,12,768), (B,8,14,24,384), (B,8,28,48,192), (B,8,56,96,96)]
 """
 
@@ -45,7 +54,8 @@ from diff_sal_tpu_torch.ops import layernorm as ln_ops
 from diff_sal_tpu_torch.ops import pool as pool_ops
 from diff_sal_tpu_torch.ops.kernels import acc_dtype
 from diff_sal_tpu_torch.ops.quant import QUANT_MODES
-from diff_sal_tpu_torch.ops.rel_pos import rel_pos_parts, rel_pos_terms
+from diff_sal_tpu_torch.ops.rel_pos import (add_decomposed_rel_pos, rel_pos_parts,
+                                             rel_pos_terms)
 
 
 # "stencil" is JAX's shifted-multiply-add lowering of the conv's function
@@ -170,14 +180,15 @@ class MultiScaleAttention(nn.Module):
                               n.weight, n.bias, n.eps)
         return y.reshape(B, L, -1)
 
-    def forward(self, sp: torch.Tensor, cls: torch.Tensor, in_size, dt: Dtype = None):
+    def forward(self, sp: torch.Tensor, cls: Optional[torch.Tensor], in_size,
+                dt: Dtype = None):
         """sp (B, L, C_in) normed spatial tokens over the in_size grid, cls
-        (B, 1, C_in). Returns (out_sp (B, L', C), out_cls (B, 1, C), q_shape)."""
+        (B, 1, C_in), or None without a cls token. Returns (out_sp (B, L', C),
+        out_cls (B, 1, C) or None, q_shape)."""
         B = sp.shape[0]
         C, H, hd = self.out_dims, self.num_heads, self.head_dim
         T, Hh, Ww = in_size
         qkv = dense(sp, self.qkv, dt).reshape(B, T, Hh, Ww, 3 * C)
-        qkv_cls = dense(cls, self.qkv, dt)
         d = qkv.dtype
         if self.stride_q == self.stride_kv:
             pooled = self._pool(qkv, "qkv", self.stride_q, d)
@@ -189,12 +200,17 @@ class MultiScaleAttention(nn.Module):
             k_sp, v_sp = kv.split(C, dim=-1)
             q_shape, k_shape = tuple(q_sp.shape[1:4]), tuple(kv.shape[1:4])
         Lq = q_shape[0] * q_shape[1] * q_shape[2]
-        cq, ck, cv = qkv_cls.split(C, dim=-1)
+        scale = hd ** -0.5
+        if cls is None:
+            q2, k2, v2 = (self._norm(t.reshape(B, -1, C), p)
+                          for t, p in ((q_sp, "q"), (k_sp, "k"), (v_sp, "v")))
+            out = self._einsum_attention(q2, k2, v2, q_shape, k_shape, scale)
+            return dense(out, self.proj, d), None, q_shape
+        cq, ck, cv = dense(cls, self.qkv, dt).split(C, dim=-1)
         # LayerNorm is per row: cls and spatial rows share one launch
         q_all = self._norm(torch.cat([cq, q_sp.reshape(B, Lq, C)], 1), "q")
         k2 = self._norm(torch.cat([ck, k_sp.reshape(B, -1, C)], 1), "k")
         v2 = self._norm(torch.cat([cv, v_sp.reshape(B, -1, C)], 1), "v")
-        scale = hd ** -0.5
         if not self.cls_stream:
             out = dense(self._token_concat(q_all, k2, v2, q_shape, k_shape, scale), self.proj, d)
             return out[:, 1:], out[:, :1], q_shape
@@ -217,6 +233,34 @@ class MultiScaleAttention(nn.Module):
         cp = torch.softmax(cs, dim=-1).to(d)
         out_cls = torch.einsum("bhqk,bkhd->bqhd", cp, v4).reshape(B, 1, C)
         return dense(out, self.proj, d), dense(out_cls, self.proj, d), q_shape
+
+    def _einsum_attention(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_shape,
+                          k_shape, scale: float) -> torch.Tensor:
+        """The attention without a cls token, in plain torch as JAX's einsum
+        path computes it (`mvit.py:838-851`, which every MViT without its cls
+        token takes): q (B, Lq, C), k and v (B, Lk, C); scores of the
+        compute-dtype q * scale and k in that dtype, the rel-pos bias added in
+        f32 (the f32 tables promote it, `ops/rel_pos.add_decomposed_rel_pos`
+        with `with_cls_token=False`), softmax and the product with v in f32,
+        the residual `+ q` on every row. Returns (B, Lq, C) in f32 (bf16 in,
+        without the bias: bf16), rounded once by the caller's `proj`."""
+        B, Lq, C = q.shape
+        H, hd = self.num_heads, self.head_dim
+
+        def heads(t):
+            return t.reshape(B, t.shape[1], H, hd).transpose(1, 2)
+
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        attn = torch.matmul(qh * scale, kh.transpose(-1, -2))
+        if self.rel_pos_embed:
+            attn = add_decomposed_rel_pos(attn, qh, q_shape, k_shape, self.rel_pos_t,
+                                          self.rel_pos_h, self.rel_pos_w, with_cls_token=False)
+        attn = torch.softmax(attn, dim=-1)
+        f = torch.promote_types(attn.dtype, vh.dtype)
+        out = torch.matmul(attn.to(f), vh.to(f))
+        if self.residual_pooling:
+            out = out + qh
+        return out.transpose(1, 2).reshape(B, Lq, C)
 
     def _token_concat(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_shape,
                       k_shape, scale: float) -> torch.Tensor:
@@ -253,32 +297,39 @@ class MultiScaleBlock(nn.Module):
         in_dims, out_dims = plan["in_dims"], plan["out_dims"]
         self.stride_q = tuple(plan["stride_q"])
         self.norm1 = FusedLayerNorm(in_dims)
+        # the cls stream, and with it K11's pools, needs the cls token (JAX
+        # mvit.py:1509, 1577)
+        stream = cfg.cls_stream and cfg.with_cls_token
         self.attn = MultiScaleAttention(
             in_dims, out_dims, plan["num_heads"], plan["stride_q"],
             plan["stride_kv"], plan["rel_pos_dims"], cfg.pool_kernel,
             cfg.qkv_bias, cfg.rel_pos_embed, cfg.residual_pooling,
-            cfg.pool_mode if cfg.cls_stream else "conv", cfg.cls_stream,
+            cfg.pool_mode if stream else "conv", stream,
         )
         self.norm2 = FusedLayerNorm(out_dims)
         self.mlp = Mlp(out_dims, int(out_dims * cfg.mlp_ratio), act=cfg.gelu,
                        quant=cfg.mlp_quant)
         self.proj = nn.Linear(in_dims, out_dims) if in_dims != out_dims else None
 
-    def forward(self, sp: torch.Tensor, cls: torch.Tensor, in_size, dt: Dtype = None):
+    def forward(self, sp: torch.Tensor, cls: Optional[torch.Tensor], in_size,
+                dt: Dtype = None):
+        """sp (B, L, C_in) over the in_size grid, cls (B, 1, C_in) or None
+        without a cls token (JAX's blocks then run on the spatial tokens
+        alone, mvit.py:1372-1381). Returns (sp, cls or None, out_size)."""
         B = sp.shape[0]
-        sp_n, cls_n = self.norm1(sp), self.norm1(cls)
+        sp_n = self.norm1(sp)
+        cls_n = None if cls is None else self.norm1(cls)
         attn_sp, attn_cls, out_size = self.attn(sp_n, cls_n, in_size, dt)
-        if self.proj is not None:
-            skip_sp, skip_cls = dense(sp_n, self.proj, dt), dense(cls_n, self.proj, dt)
-        else:
-            skip_sp, skip_cls = sp, cls
+        skip_sp = sp if self.proj is None else dense(sp_n, self.proj, dt)
         if any(s > 1 for s in self.stride_q):
             kernel = tuple(s + 1 if s > 1 else s for s in self.stride_q)
             x5 = skip_sp.reshape((B,) + tuple(in_size) + (-1,)).permute(0, 4, 1, 2, 3)
             x5 = F.max_pool3d(x5, kernel, self.stride_q, tuple(k // 2 for k in kernel))
             skip_sp = x5.permute(0, 2, 3, 4, 1).reshape(B, -1, x5.shape[1])
         sp = skip_sp + attn_sp
-        cls = skip_cls + attn_cls
+        if cls is None:
+            return sp + self.mlp(self.norm2(sp), dt), None, out_size
+        cls = (cls if self.proj is None else dense(cls_n, self.proj, dt)) + attn_cls
         if self.mlp.quant != "none":
             # the quantised MLP works row by row: the cls rows join the
             # spatial rows in one int8 product (torch._int_mm takes more
@@ -308,8 +359,6 @@ class MViT(nn.Module):
 
     def __init__(self, cfg: MViTConfig):
         super().__init__()
-        if not cfg.with_cls_token:
-            raise NotImplementedError("the port builds MViT with its cls token")
         if cfg.mlp_quant not in QUANT_MODES:
             raise ValueError(f"mlp_quant={cfg.mlp_quant!r}; expected one of {QUANT_MODES}")
         if cfg.gelu not in ("tanh", "exact"):
@@ -317,6 +366,9 @@ class MViT(nn.Module):
         self.cfg = cfg
         self.plans = block_plan(cfg)
         self.patch_embed = PatchEmbed3D(cfg.in_channels, cfg.embed_dims)
+        # kept without the cls token too, as JAX creates it (mvit.py:1527):
+        # the parameter tree, the bridge and strict loads are the same in
+        # every mode; then nothing reads it and its gradient stays None
         self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.embed_dims))
         self.blocks = nn.ModuleList([MultiScaleBlock(p, cfg) for p in self.plans])
         for p in self.plans:
@@ -327,7 +379,7 @@ class MViT(nn.Module):
     def forward(self, x: torch.Tensor, dt: Dtype = None) -> List[torch.Tensor]:
         B = x.shape[0]
         sp, size = self.patch_embed(x, dt)
-        cls = self.cls_token.to(sp.dtype).expand(B, 1, -1)
+        cls = self.cls_token.to(sp.dtype).expand(B, 1, -1) if self.cfg.with_cls_token else None
         outs = []
         remat = self.cfg.remat and torch.is_grad_enabled()
         for blk, plan in zip(self.blocks, self.plans):

@@ -5,8 +5,10 @@ The learned (L, C) tables are linearly resized to length 2*max(q, k) - 1
 with the half-pixel matrix of `ops/resize.py` (torch's
 `F.interpolate(mode='linear', align_corners=False)`) and gathered at static (q, k) relative
 coordinates; `add_decomposed_rel_pos` adds the resulting bias to full
-attention logits. MViT's hot path does not materialize that bias: it
-hands the per-axis terms to kernel K1 (`ops/attention.py`).
+attention logits, as MViT without its cls token does (JAX's einsum path,
+`models/mvit.py:838-851`). MViT's cls-token layouts do not materialize
+that bias: they hand the per-axis terms to kernel K1 or K12
+(`ops/attention.py`).
 """
 
 from __future__ import annotations
@@ -78,7 +80,10 @@ def add_decomposed_rel_pos(attn: torch.Tensor, q: torch.Tensor, q_shape, k_shape
                            rel_pos_t, rel_pos_h, rel_pos_w,
                            with_cls_token: bool = True) -> torch.Tensor:
     """Add the decomposed bias to logits attn (B, heads, Lq, Lk), q (B,
-    heads, Lq, C); cls rows and columns (index 0) get no bias."""
+    heads, Lq, C); cls rows and columns (index 0) get no bias. Types
+    follow JAX: the compute-dtype q meets the f32 tables (f64 for f64
+    ones) and the bias is in f32; without a cls token bf16 logits promote
+    to f32 with it, with one they keep their dtype."""
     sp = 1 if with_cls_token else 0
     qt, qh, qw = q_shape
     kt, kh, kw = k_shape
@@ -86,12 +91,15 @@ def add_decomposed_rel_pos(attn: torch.Tensor, q: torch.Tensor, q_shape, k_shape
     Rt = resize_rel_pos(rel_pos_t, qt, kt)
     Rh = resize_rel_pos(rel_pos_h, qh, kh)
     Rw = resize_rel_pos(rel_pos_w, qw, kw)
-    r_q = q[:, :, sp:].reshape(B, H, qt, qh, qw, C).float()
-    rel_t = torch.einsum("bythwc,tkc->bythwk", r_q, Rt)
-    rel_h = torch.einsum("bythwc,hkc->bythwk", r_q, Rh)
-    rel_w = torch.einsum("bythwc,wkc->bythwk", r_q, Rw)
+    f = torch.promote_types(q.dtype, Rt.dtype)
+    r_q = q[:, :, sp:].reshape(B, H, qt, qh, qw, C).to(f)
+    rel_t = torch.einsum("bythwc,tkc->bythwk", r_q, Rt.to(f))
+    rel_h = torch.einsum("bythwc,hkc->bythwk", r_q, Rh.to(f))
+    rel_w = torch.einsum("bythwc,wkc->bythwk", r_q, Rw.to(f))
     bias = (rel_t[..., :, None, None] + rel_h[..., None, :, None]
             + rel_w[..., None, None, :]).reshape(B, H, qt * qh * qw, kt * kh * kw)
+    if not sp:
+        return attn + bias
     attn = attn.clone()
-    attn[:, :, sp:, sp:] += bias.to(attn.dtype)
+    attn[:, :, sp:, sp:] += bias.to(attn.dtype)  # JAX's `.at[].add` keeps attn's dtype
     return attn

@@ -1705,3 +1705,120 @@ def test_device_metrics_on_the_card_match_the_cpu(card, hw):
         got = fn(*(a.cuda() for a in args))
         assert got.device.type == "cuda"
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6, equal_nan=True)
+
+
+# ------------------------------- MViT without cls token, random pyramid ---
+
+
+def test_no_cls_token_model_on_card_matches_the_cpu(card):
+    """The small visual-only model with `with_cls_token=False`, f32: its
+    attention in plain torch (no K1, K11 or K12 launch), every LayerNorm
+    through K2 and K6; one DDIM run (map within 1e-4) and one training step
+    (loss 1e-5 relative, every gradient tensor not zero up to rounding
+    within 1e-2 relative L2), the
+    card against the CPU on the same weights, inputs and draws: phase 10's
+    bounds."""
+    from diff_sal_tpu_torch.config import (DataTransformConfig, ExperimentConfig, ModelConfig,
+                                           MViTConfig, SalUNetConfig, SamplingConfig)
+    from diff_sal_tpu_torch.diffusion.schedule import make_schedule
+    from diff_sal_tpu_torch.inference import sample_saliency
+    from diff_sal_tpu_torch.models.diff_model import VideoSaliencyModel, build_model
+    from diff_sal_tpu_torch.train.optim import make_optimizer
+    from diff_sal_tpu_torch.train.train_step import make_train_step
+
+    hw = (64, 96)
+    cfg = ModelConfig(visual=MViTConfig.tiny(spatial_size=hw, with_cls_token=False,
+                                             pool_mode="pallas"),
+                      decoder=SalUNetConfig(img_size=hw, dropout=0.0, drop_path_rate=(0.0,) * 4))
+    g = torch.Generator().manual_seed(18)
+    rgb, noise = torch.randn(2, 16, *hw, 3, generator=g), torch.randn(2, *hw, 1, generator=g)
+    args = (make_schedule(), SamplingConfig(), DataTransformConfig())
+    cpu = build_model(cfg, 18, device="cpu")
+    ref = sample_saliency(cpu, *args, rgb, noise=noise)
+    gpu = VideoSaliencyModel(cfg).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(card)
+    K.reset_launch_counts()
+    out = sample_saliency(gpu, *args, rgb.to(card), noise=noise)
+    counts = K.launch_counts()
+    assert counts["layer_norm"] == 5 * 10 + 4 + 5 * 4 and counts["block_tail_f32"] == 4, counts
+    assert all(counts[n] == 0 for n in ("bias_attention_f32", "fused_bias_attention_f32",
+                                        "depthwise_pool3d")), counts
+    assert float((out.cpu() - ref).abs().max()) <= 1e-4
+
+    batch = {"rgb": rgb, "salmap": torch.rand(2, *hw, 1, generator=g)}
+    draws = {"deq": torch.randn(2, *hw, 1, generator=g),
+             "noise": torch.randn(2, *hw, 1, generator=g), "t": torch.tensor(300)}
+    sd = cpu.state_dict()
+
+    def step(device):
+        m = VideoSaliencyModel(cfg).train()
+        m.load_state_dict(sd)
+        m.to(device)
+        ecfg = ExperimentConfig(model=cfg)
+        met = make_train_step(m, make_schedule(), ecfg)(make_optimizer(m, ecfg.optim, 10, 2),
+                                                         batch, draws=draws)
+        return float(met["total"]), {n: p.grad.cpu() for n, p in m.named_parameters()
+                                     if p.grad is not None}
+
+    l_cpu, g_cpu = step("cpu")
+    K.reset_launch_counts()
+    l_card, g_card = step(card)
+    counts = K.launch_counts()
+    assert counts["layer_norm_bwd"] > 0 and counts["fused_bias_attention_bwd_f32"] == 0, counts
+    assert abs(l_card - l_cpu) <= 1e-5 * abs(l_cpu), (l_card, l_cpu)
+    assert set(g_card) == set(g_cpu) and "visual_net.cls_token" not in g_card
+    # tensors whose gradient is zero up to rounding (the key-side norm
+    # biases, which the softmax ignores) are left out, as phase 10 does
+    top = max(float(b.abs().max()) for b in g_cpu.values())
+    for n, a in g_card.items():
+        b = g_cpu[n]
+        if float(b.abs().max()) > 1e-6 * top:
+            assert float((a - b).norm() / b.norm()) <= 1e-2, n
+
+
+def test_random_pyramid_model_on_card_matches_the_cpu(card):
+    """The decoder-only ablation (`visual=None`), f32: the pyramid drawn on
+    the card from a CUDA generator (JAX's shapes, the rgb's dtype, fresh per
+    draw, equal per seed, `ValueError` without a generator), then one
+    denoiser call on a pyramid drawn on the CPU, card against CPU within
+    1e-4, and one backward through it with K6 launched."""
+    from diff_sal_tpu_torch.config import ModelConfig, SalUNetConfig
+    from diff_sal_tpu_torch.models.diff_model import VideoSaliencyModel, build_model
+
+    hw = (64, 96)
+    cfg = ModelConfig(visual=None, decoder=SalUNetConfig(img_size=hw, dropout=0.0,
+                                                         drop_path_rate=(0.0,) * 4))
+    cpu = build_model(cfg, 19, device="cpu")
+    gpu = VideoSaliencyModel(cfg).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(card)
+    rgb = torch.zeros(2, 16, *hw, 3, device=card)
+    with pytest.raises(ValueError):
+        gpu.encode_visual(rgb)
+    a = gpu.encode_visual(rgb, torch.Generator(device=card).manual_seed(1))
+    a2 = gpu.encode_visual(rgb, torch.Generator(device=card).manual_seed(1))
+    b = gpu.encode_visual(rgb.to(torch.bfloat16), torch.Generator(device=card).manual_seed(2))
+    assert [tuple(p.shape) for p in a] == [(2, 8, 2, 3, 768), (2, 8, 4, 6, 384),
+                                           (2, 8, 8, 12, 192), (2, 8, 16, 24, 96)]
+    assert all(p.device.type == "cuda" and p.dtype == torch.float32 for p in a)
+    assert all(p.dtype == torch.bfloat16 for p in b)
+    assert all(torch.equal(p, q) for p, q in zip(a, a2))
+
+    g = torch.Generator().manual_seed(20)
+    feats = cpu.encode_visual(torch.zeros(2, 16, *hw, 3), g)
+    x, t = torch.randn(2, *hw, 1, generator=g), torch.tensor([10.0, 700.0])
+    with torch.no_grad():
+        ref = cpu.denoise(x, t, feats)
+        K.reset_launch_counts()
+        out = gpu.denoise(x.to(card), t.to(card), [f.to(card) for f in feats])
+    counts = K.launch_counts()
+    assert counts["block_tail_f32"] == 4 and counts["bilinear_resize_sum"] == 1, counts
+    assert float((out.cpu() - ref).abs().max()) <= 1e-4
+    gpu.train()
+    K.reset_launch_counts()
+    y = gpu.denoise(x.to(card), t.to(card), [f.to(card) for f in feats], train=True)
+    ((y - x.to(card)) ** 2).mean().backward()
+    counts = K.launch_counts()
+    assert counts["layer_norm_bwd"] == 6 * 4 and counts["block_tail_f32"] == 0, counts
+    assert all(bool(torch.isfinite(p.grad).all()) for p in gpu.parameters() if p.grad is not None)

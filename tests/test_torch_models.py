@@ -70,7 +70,7 @@ def random_variables(shapes, seed: int):
 def full_model_variables(cfg: jc.ModelConfig, seed: int = 0):
     model = JModel(cfg)
     h, w = cfg.decoder.img_size
-    t = cfg.visual.temporal_size
+    t = cfg.visual.temporal_size if cfg.visual is not None else 16
     ah, aw = h // 2, w // 2
     shapes = jax.eval_shape(
         model.init, jax.random.PRNGKey(0),
@@ -84,7 +84,7 @@ def full_model_variables(cfg: jc.ModelConfig, seed: int = 0):
 def port_model(cfg: jc.ModelConfig, variables) -> VideoSaliencyModel:
     """The port's model with the flax variables loaded strictly."""
     model = VideoSaliencyModel(pc.from_fields(cfg)).eval()
-    sd = bridge.state_dict_from_flax(variables, cfg.visual.num_layers)
+    sd = bridge.state_dict_from_flax(variables, cfg.visual.num_layers if cfg.visual else 0)
     model.load_state_dict(sd, strict=True)
     return model
 
@@ -165,7 +165,7 @@ def test_bridge_agrees_with_convert_exporters_key_for_key():
     the whole model's state_dict loads strictly."""
     cfg = small_av_config()
     _, variables = full_model_variables(cfg, seed=8)
-    sd = bridge.state_dict_from_flax(variables, cfg.visual.num_layers)
+    sd = bridge.state_dict_from_flax(variables, cfg.visual.num_layers if cfg.visual else 0)
     params, stats = variables["params"], variables["batch_stats"]
     ref = {f"visual_net.{k}": v for k, v in
            convert.export_mvit(params["visual_net"], cfg.visual.num_layers).items()}
