@@ -6,8 +6,8 @@ tree on disk to its checkpoints, the entry points: the CLI, the device
 metrics, adaptive DPM-Solver and the int8 MLPs, the import of the
 reference's released checkpoints and MViT's `remat`, data parallelism
 over torch.distributed, MViT without its cls token and the random-pyramid
-ablation) on one NVIDIA GPU and hold each of
-its hand-written kernels (thirteen in bf16 and the
+ablation, tensor parallelism on a ('data', 'model') mesh) on one NVIDIA
+GPU and hold each of its hand-written kernels (thirteen in bf16 and the
 seven f32 instances an f32 model runs) against its plain PyTorch version.
 
     python3 chip_smoke.py [--iters N] [--profile]
@@ -260,6 +260,22 @@ Phases (each prints its wall time; any failure raises and exits non-zero):
      forward at B=2 and one backward of the MSE on x0 at B=4 in train mode
      (gradients finite, peak memory), the AV ablation's forward at B=2,
      each with its launches against `path_launches`;
+ 18. tensor parallelism (`tp_phase`): four ranks sharing the one card
+     through gloo (this script with `--tp-spec`, subprocesses on a free
+     port) as a (2 data x 2 model) mesh (`parallel/mesh.make_device_mesh`),
+     phase 3's model with JAX's rule's parameters sharded on 'model'
+     (`parallel/tensor.shard_model`, min_dim 256: 107 weights). (a) DDIM
+     NFE 1 on phase 3's inputs and noise, one row per data rank: each
+     rank's map against its row of phase 3's map within TP_MAP_TOL; (b)
+     every rank's launches per run against `path_launches` (K1-K4 run on
+     the gathered activations, K3 on gathered weights); (c) each rank's
+     parameter and buffer bytes against the rule's prediction and the whole
+     model's; (d) one bf16 loss backward (MSE on x0 at TP_STEP, phase 16's
+     config) at B=2 on the mesh, the gradients averaged over 'data' and the
+     shards gathered, against one process's on the same batch: cosine >=
+     LAYOUT_GRAD_COS per sub-network, the replicated gradients bitwise equal
+     down each model column; ms per DDIM run by events of one process (B=2)
+     and of each rank (B=1), as a record;
 then prints the `kernels` JSON line, the nvidia-smi line and, last, the
 result line {"ok": true, "device": {...}}. The f32 instances' bound takes
 their matrix products at split TF32's rate (495 / 3 TFLOP/s: f32's accuracy
@@ -3622,6 +3638,269 @@ def modes_phase(dev, kind, smi, schedule, data_cfg):
     log(f"[modes] (3) {time.perf_counter() - t1:.1f} s; phase {time.perf_counter() - t0:.1f} s")
 
 
+TP_MESH = (2, 2)         # (data, model): four gloo ranks sharing the one card
+TP_ITERS = 3             # timed DDIM runs per rank
+TP_MAP_TOL = 3e-2        # the bf16 layout bound of phases 8, 9 and 16
+TP_TIMEOUT_S = 300       # the launch, as a whole
+TP_GROUP_TIMEOUT_S = 240
+TP_STEP = 300            # the backward's timestep
+
+
+def tp_train_batch(cfg, dev):
+    """The backward's global batch (B=2) and its x_T noise."""
+    batch = train_batch(B, cfg.model, 18, dev)
+    g = torch.Generator(device=dev).manual_seed(19)
+    batch["noise"] = torch.randn(batch["salmap"].shape, generator=g, device=dev)
+    return batch
+
+
+def tp_backward(model, cfg, schedule, batch):
+    """One bf16 loss backward of the MSE on x0 at TP_STEP in train mode
+    (phase 16's config: dropout and DropPath 0), as the training step
+    computes it without the optimizer."""
+    from diff_sal_tpu_torch.diffusion.schedule import q_sample
+    from diff_sal_tpu_torch.train.losses import training_loss
+
+    x0 = batch["salmap"].float()
+    t = torch.full((x0.shape[0],), TP_STEP, device=x0.device)
+    x_noisy = q_sample(schedule, x0, t.long(), batch["noise"].float())
+    pred = model({"rgb": batch["rgb"], "input": x_noisy, "audio": batch["audio"]}, t,
+                 train=True)
+    loss = training_loss(cfg.loss, pred, x0)["total"]
+    loss.backward()
+    return float(loss.detach())
+
+
+def tp_worker(spec_path: str, rank: int) -> int:
+    """A rank of phase 18: joins the group on the one card, builds the
+    ('data', 'model') mesh, shards phase 3's model and runs DDIM NFE 1 on
+    its data row of phase 3's inputs and noise (launches counted in the
+    second run, then TP_ITERS timed runs), then one bf16 loss backward on
+    its row of the backward's batch; writes its results under
+    spec["out"]."""
+    import gc
+    import hashlib
+    import os
+
+    import torch.distributed as dist
+
+    from diff_sal_tpu_torch.config import DataTransformConfig, SamplingConfig
+    from diff_sal_tpu_torch.diffusion.schedule import make_schedule
+    from diff_sal_tpu_torch.inference import sample_saliency
+    from diff_sal_tpu_torch.models.diff_model import build_model
+    from diff_sal_tpu_torch.ops import kernels
+    from diff_sal_tpu_torch.parallel import mesh, multihost, tensor
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    world = TP_MESH[0] * TP_MESH[1]
+    dev = torch.device(DEVICE)
+    dev = torch.device("cuda", 0) if dev.type == "cuda" else dev  # every rank on the one card
+    multihost.initialize(init_method=f"tcp://127.0.0.1:{spec['port']}", world_size=world,
+                         rank=rank, local_rank=rank, local_world_size=world, device=dev,
+                         timeout_s=TP_GROUP_TIMEOUT_S)
+    try:
+        dmesh = mesh.make_device_mesh(*TP_MESH, device_type=dev.type)
+        data = dmesh.get_group("data")
+        d = dmesh.get_coordinate()[0]
+        res = {"rank": rank, "backend": dist.get_backend(), "coord": list(dmesh.get_coordinate())}
+        cfg, schedule = main_config(), make_schedule()
+        model = tensor.shard_model(build_model(cfg, seed=0, device=dev), dmesh)
+        res["local_bytes"] = tensor.local_bytes(model)
+        res["sharded"] = sum(tensor.is_sharded(p) for p in model.parameters())
+        # phase 3's inputs and x_T (its run(0)), this data rank's row
+        g = torch.Generator(device=dev).manual_seed(0)
+        (H, W), T = cfg.decoder.img_size, cfg.visual.temporal_size
+        rgb = torch.randn(B, T, H, W, 3, generator=g, device=dev) * 0.5
+        audio = torch.randn(B, 9, H // 2, W // 2, 1, generator=g, device=dev)
+        noise = torch.randn((B, H, W, 1), generator=torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        rows = [t[d::TP_MESH[0]] for t in (rgb, audio, noise)]
+
+        def run():
+            with torch.no_grad():
+                return sample_saliency(model, schedule, SamplingConfig(), DataTransformConfig(),
+                                       rows[0], rows[1], noise=rows[2])
+
+        run()  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        res["launches"] = kernels.launch_counts()
+        torch.save(out.float().cpu(), os.path.join(spec["out"], f"map_{rank}.pt"))
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(TP_ITERS + 1)]
+        ev[0].record()
+        for i in range(TP_ITERS):
+            run()
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        res["ms"] = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (d): one bf16 loss backward on this rank's row ----------------------
+        tcfg = dp_config("bfloat16")
+        model = tensor.shard_model(build_model(tcfg.model, seed=0, device=dev, train=True),
+                                   dmesh)
+        model.set_stats_group(data)
+        batch = {k: v[d::TP_MESH[0]] for k, v in tp_train_batch(tcfg, dev).items()}
+        torch.cuda.reset_peak_memory_stats()
+        res["loss"] = tp_backward(model, tcfg, schedule, batch)
+        mesh.average_gradients(list(model.parameters()), data)
+        with torch.no_grad():
+            grads = {n: tensor.full(p.grad).float().cpu() for n, p in model.named_parameters()
+                     if p.grad is not None}
+        torch.cuda.synchronize()
+        res["backward_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        digest = hashlib.sha256()
+        for n in sorted(grads):
+            if not tensor.is_sharded(model.get_parameter(n)):
+                digest.update(n.encode() + grads[n].numpy().tobytes())
+        res["replicated_digest"] = digest.hexdigest()
+        if rank == 0:
+            torch.save(grads, os.path.join(spec["out"], "grads_0.pt"))
+        mesh.barrier(dist.group.WORLD)
+        res["seconds"] = time.perf_counter() - t_start
+        with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        multihost.shutdown()
+    return 0
+
+
+def tp_phase(dev, kind, smi, schedule, data_cfg, main_map):
+    """Phase 18: tensor parallelism (see the module docstring)."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    from diff_sal_tpu_torch.config import SamplingConfig
+    from diff_sal_tpu_torch.inference import sample_saliency
+    from diff_sal_tpu_torch.models.diff_model import build_model
+    from diff_sal_tpu_torch.parallel import tensor
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    world = TP_MESH[0] * TP_MESH[1]
+    try:
+        # -- the one-process references: ms per DDIM run, the backward ------
+        cfg = main_config()
+        model = build_model(cfg, seed=0, device=dev)
+        whole = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+        axes = tensor.tensor_parallel_axes(model, TP_MESH[1])
+        sd = model.state_dict()
+        sharded_bytes = sum(sd[n].numel() * sd[n].element_size()
+                            for n, a in axes.items() if a is not None)
+        predicted = whole - sharded_bytes + sharded_bytes // TP_MESH[1]
+        g = torch.Generator(device=dev).manual_seed(0)
+        (H, W), T = cfg.decoder.img_size, cfg.visual.temporal_size
+        rgb = torch.randn(B, T, H, W, 3, generator=g, device=dev) * 0.5
+        audio = torch.randn(B, 9, H // 2, W // 2, 1, generator=g, device=dev)
+        sampling = SamplingConfig()
+
+        def run(i=0):
+            with torch.no_grad():
+                return sample_saliency(model, schedule, sampling, data_cfg, rgb, audio,
+                                       generator=torch.Generator(device=dev).manual_seed(i))
+
+        run()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(TP_ITERS + 1)]
+        ev[0].record()
+        for i in range(TP_ITERS):
+            run(i)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        plain_ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+        del model, sd
+        tcfg = dp_config("bfloat16")
+        model = build_model(tcfg.model, seed=0, device=dev, train=True)
+        ref_loss = tp_backward(model, tcfg, schedule, tp_train_batch(tcfg, dev))
+        ref = {n: p.grad.float().cpu() for n, p in model.named_parameters()
+               if p.grad is not None}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        t_ref = time.perf_counter() - t0
+
+        # -- the four ranks ----------------------------------------------------
+        spec = os.path.join(tmp, "tp.json")
+        with open(spec, "w") as f:
+            json.dump({"port": free_port(), "out": tmp}, f)
+        me = os.path.abspath(__file__)
+        secs = dp_launch([[sys.executable, me, "--tp-spec", spec, "--tp-rank", str(r)]
+                          for r in range(world)],
+                         [os.path.join(tmp, f"tp_{r}.log") for r in range(world)], TP_TIMEOUT_S)
+        res = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res.append(json.load(f))
+        assert [r["backend"] for r in res] == ["gloo"] * world, res
+        assert [tuple(r["coord"]) for r in res] == [
+            (r // TP_MESH[1], r % TP_MESH[1]) for r in range(world)], res
+        # (a) the maps: data rank d's row of phase 3's map (each model rank
+        # computes the same row)
+        ref_map = main_map.float().cpu()
+        d_map = 0.0
+        for r in range(world):
+            got = torch.load(os.path.join(tmp, f"map_{r}.pt"), weights_only=True)
+            d = r // TP_MESH[1]
+            assert tuple(got.shape) == (1, H, W, 1) and bool(torch.isfinite(got).all()), r
+            d_map = max(d_map, float((got - ref_map[d::TP_MESH[0]]).abs().max()))
+        log(f"[tp] {TP_MESH[0]} x {TP_MESH[1]} ('data', 'model') mesh: {world} gloo ranks on "
+            f"the one card, phase 3's model and inputs, {res[0]['sharded']} parameters sharded "
+            f"on 'model' by JAX's rule (min_dim 256); (a) DDIM NFE 1, one row per data rank: "
+            f"maps vs phase 3's rows max|d| {d_map:.3e} (bound {TP_MAP_TOL}); launch "
+            f"{secs:.1f} s")
+        assert d_map <= TP_MAP_TOL, d_map
+        # (b) every rank launches K1-K4 as one process does per run
+        want = path_launches(cfg, 1)
+        for r in res:
+            check_launches(r["launches"], want, f"tp rank {r['rank']}")
+        log("[tp] (b) launches per run on every rank = path_launches(cfg, 1) "
+            + json.dumps({k: v for k, v in res[0]["launches"].items() if v}))
+        # (c) each rank's parameters and buffers
+        mib = [r["local_bytes"] / 2**20 for r in res]
+        log(f"[tp] (c) parameters and buffers per rank {', '.join(f'{m:.2f}' for m in mib)} "
+            f"MiB (the rule's prediction {predicted / 2**20:.2f}) against {whole / 2**20:.2f} "
+            f"MiB whole")
+        assert all(r["local_bytes"] == predicted for r in res), (mib, predicted)
+        # (d) the backward against one process
+        got = torch.load(os.path.join(tmp, "grads_0.pt"), weights_only=True)
+        assert set(got) == set(ref), set(got) ^ set(ref)
+        stats, worst = grad_agreement(got, ref)
+        losses = [r["loss"] for r in res]
+        columns = {m: {res[d * TP_MESH[1] + m]["replicated_digest"] for d in range(TP_MESH[0])}
+                   for m in range(TP_MESH[1])}
+        rows_equal = len({r["replicated_digest"] for r in res}) == 1
+        log(f"[tp] (d) one bf16 loss backward at B={B} (a row per data rank): losses "
+            + json.dumps([round(x, 6) for x in losses]) + f" (one process {ref_loss:.6f}, "
+            f"the mean over data ranks is its loss); gathered gradients vs one process's "
+            f"(relative L2, cosine) " + json.dumps(stats) + f" worst tensor {worst} (bound "
+            f"per sub-network: cosine >= {LAYOUT_GRAD_COS}); replicated gradients bitwise "
+            f"equal down each model column {all(len(c) == 1 for c in columns.values())}, "
+            f"across all ranks {rows_equal}; backward peak "
+            + ", ".join(f"{r['backward_peak_gib']:.2f}" for r in res) + " GiB per rank")
+        for sub, (_, cos) in stats.items():
+            assert cos >= LAYOUT_GRAD_COS, (sub, cos)
+        assert all(len(c) == 1 for c in columns.values()), columns
+        fmt = lambda ms: ", ".join(f"{t:.2f}" for t in ms)  # noqa: E731
+        log(f"[tp] ms per DDIM run by CUDA events ({TP_ITERS} runs after a warm-up; a record, "
+            f"not a claim: gloo moves every gather through host memory): one process B={B} "
+            f"{fmt(plain_ms)}; each rank B=1 " + "; ".join(
+                f"rank {r['rank']} {fmt(r['ms'])}" for r in res)
+            + f"; rank seconds " + ", ".join(f"{r['seconds']:.1f}" for r in res)
+            + f" on {kind} [{smi}]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[tp] phase {time.perf_counter() - t0:.1f} s (references {t_ref:.1f} s)")
+
+
 def resize_add_phase(k4_call, recorders, plain):
     """K10, which no model path calls: the four task maps K4 summed in the
     main path's run added one by one into a zero bf16 accumulator (counts
@@ -3664,11 +3943,16 @@ def main() -> int:
                          "training step in each layout, each attention kernel's "
                          "recorded calls by CUDA kernel, and one epoch of the "
                          "trainer's fit")
-    # phase 16's own processes: a rank of (a)-(c), and (d)'s torchrun rank
+    # phase 16's own processes: a rank of (a)-(c), and (d)'s torchrun rank;
+    # phase 18's ranks
     ap.add_argument("--dp-spec", help=argparse.SUPPRESS)
     ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-cli", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-spec", help=argparse.SUPPRESS)
+    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
     cli = ap.parse_args()
+    if cli.tp_spec is not None:
+        return tp_worker(cli.tp_spec, cli.tp_rank)
     if cli.dp_spec is not None:
         return dp_worker(cli.dp_spec, cli.dp_rank)
     if cli.dp_cli is not None:
@@ -3987,6 +4271,9 @@ def main() -> int:
 
     # -- phase 17: MViT without its cls token, the random-pyramid ablation ---
     modes_phase(dev, kind, smi, schedule, data_cfg)
+
+    # -- phase 18: tensor parallelism on a ('data', 'model') mesh -------------
+    tp_phase(dev, kind, smi, schedule, data_cfg, main_map)
 
     log("[device time] profiler sessions " + json.dumps(DEVICE_MS_TALLY))
     log(f"[total] {time.perf_counter() - t_all:.1f} s")

@@ -23,10 +23,17 @@ plus the inverses of the JAX package's `convert_vggish` and
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
+
+# the flax -> torch axis orders of the rules above (`np.transpose`'s axes:
+# torch axis j holds flax axis ORDER[j])
+LINEAR = (1, 0)
+CONV2D = (3, 2, 0, 1)
+CONV3D = (4, 3, 0, 1, 2)
 
 
 def _np(x) -> np.ndarray:
@@ -34,19 +41,19 @@ def _np(x) -> np.ndarray:
 
 
 def _inv_linear(k):
-    return _np(k).T
+    return _np(k).transpose(LINEAR)
 
 
 def _inv_conv2d(k):
-    return _np(k).transpose(3, 2, 0, 1)
+    return _np(k).transpose(CONV2D)
 
 
 def _inv_conv3d(k):
-    return _np(k).transpose(4, 3, 0, 1, 2)
+    return _np(k).transpose(CONV3D)
 
 
 def _inv_dw2d_to_3d_center(k, kt=3):
-    k2 = _np(k).transpose(3, 2, 0, 1)  # (C, 1, kh, kw)
+    k2 = _np(k).transpose(CONV2D)  # (C, 1, kh, kw)
     out = np.zeros((k2.shape[0], 1, kt, k2.shape[2], k2.shape[3]), k2.dtype)
     out[:, :, kt // 2] = k2
     return out
@@ -219,3 +226,43 @@ def state_dict_from_flax(variables: Mapping, num_mvit_layers: int) -> Dict[str, 
         if name in params:
             sd.update({f"{name}.{k}": v for k, v in export(params[name]).items()})
     return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in sd.items()}
+
+
+def flax_layouts(model: nn.Module) -> Dict[str, Tuple[Tuple[int, ...], Optional[int]]]:
+    """For each entry of `model.state_dict()` (parameters and buffers), the
+    shape of its flax counterpart under the rules above and the torch axis
+    that holds that leaf's last axis (None for a 0-d entry): Linear and
+    quantised Linear kernels by LINEAR, Conv2d by CONV2D, Conv3d by CONV3D,
+    the CvT projections' Conv3d from their 2-D depthwise kernels (kh, kw,
+    1, C) by CONV2D with the temporal axis inserted, every other entry as
+    it is (flax keeps norms, biases, statistics, rel-pos tables and the cls
+    token in the torch shape)."""
+    from diff_sal_tpu_torch.models.sal_unet import CvTAttention
+    from diff_sal_tpu_torch.ops.quant import QuantLinear
+
+    cvt = {id(m.conv) for m in model.modules() if isinstance(m, CvTAttention._ConvProj)}
+    out: Dict[str, Tuple[Tuple[int, ...], Optional[int]]] = {}
+    for mod_name, mod in model.named_modules():
+        entries = list(mod.named_parameters(recurse=False)) + list(mod.named_buffers(recurse=False))
+        for leaf, t in entries:
+            shape = tuple(t.shape)
+            order = tuple(range(len(shape)))
+            if leaf == "weight" and isinstance(mod, nn.Linear):
+                order = LINEAR
+            elif leaf == "weight_q" and isinstance(mod, QuantLinear):
+                order = LINEAR
+            elif leaf == "weight" and isinstance(mod, nn.Conv2d):
+                order = CONV2D
+            elif leaf == "weight" and id(mod) in cvt:
+                shape, order = (shape[0], shape[1]) + shape[3:], CONV2D  # the centre slice
+            elif leaf == "weight" and isinstance(mod, nn.Conv3d):
+                order = CONV3D
+            flax = [0] * len(shape)
+            for j, i in enumerate(order):
+                flax[i] = shape[j]
+            axis = order.index(len(shape) - 1) if shape else None
+            if id(mod) in cvt and axis >= 2:
+                axis += 1  # past the temporal axis
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            out[name] = (tuple(flax), axis)
+    return out

@@ -138,7 +138,7 @@ def _setup(args, cfg):
     if multihost.initialize(device=dev) is None:
         return dev, None
     args.joined_group = True  # main() leaves it
-    return dev, mesh.make_mesh(cfg.mesh.num_data, cfg.mesh.num_model)
+    return dev, mesh.make_mesh(cfg.mesh.num_data)  # no model axis, as JAX's trainer
 
 
 def _loader(ds, cfg, group, **kw):

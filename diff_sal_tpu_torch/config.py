@@ -282,21 +282,17 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """The parallel layout (JAX `config.py:464-477`): the reference's one
-    strategy, data parallelism over its ranks (train_dhf1k.py:38-61,
-    model.py:13-15). `num_data=-1` takes every rank of the process group;
-    the model axis is one wide, since tensor-parallel sharding is not
-    ported: `num_model` above 1 raises."""
+    strategy is data parallelism over its ranks (train_dhf1k.py:38-61,
+    model.py:13-15). `num_data=-1` takes every rank of the process group.
+    `num_model` is the width of the ('data', 'model') mesh's model axis,
+    which `parallel/mesh.make_device_mesh` builds and `parallel/tensor.
+    shard_model` shards large weights over. As in JAX, the trainer and the
+    CLI read no `num_model`: they run data-parallel over every rank."""
 
     data_axis: str = "data"
     model_axis: str = "model"
     num_data: int = -1  # -1 => all ranks
     num_model: int = 1
-
-    def __post_init__(self):
-        if self.num_model != 1:
-            raise NotImplementedError(
-                f"num_model={self.num_model}: tensor-parallel sharding is not ported; "
-                "the port's ranks split the batch only")
 
 
 @dataclasses.dataclass(frozen=True)

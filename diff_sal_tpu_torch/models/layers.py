@@ -25,6 +25,7 @@ from diff_sal_tpu_torch.ops.kernels import acc_dtype
 from diff_sal_tpu_torch.ops.mlp import gelu
 from diff_sal_tpu_torch.ops.quant import QuantLinear
 from diff_sal_tpu_torch.ops import resize as resize_ops
+from diff_sal_tpu_torch.parallel import tensor as tp
 
 Dtype = Optional[torch.dtype]
 Pad = Union[int, Sequence[Tuple[int, int]]]
@@ -72,8 +73,13 @@ def _dt(x: torch.Tensor, w: torch.Tensor, dt: Dtype) -> torch.dtype:
 
 
 def dense(x: torch.Tensor, lin: nn.Linear, dt: Dtype = None) -> torch.Tensor:
+    """flax Dense; a weight sharded on its output features (`parallel/
+    tensor.py`) runs as a column-parallel product."""
     d = _dt(x, lin.weight, dt)
     b = None if lin.bias is None else lin.bias.to(d)
+    if tp.is_sharded(lin.weight):
+        return tp.column_parallel(x.to(d), lin.weight, b,
+                                  lambda xi, w, bi: F.linear(xi, w.to(d), bi))
     return F.linear(x.to(d), lin.weight.to(d), b)
 
 
@@ -93,6 +99,19 @@ def _pads(padding: Pad):
     return 0, flat
 
 
+def _sharded_conv(conv, x: torch.Tensor, weight, bias: Optional[torch.Tensor],
+                  groups: int) -> torch.Tensor:
+    """`conv(x, w, b, groups)` with `weight` sharded on its output channels
+    (`parallel/tensor.py`): column-parallel, or per channel where the conv
+    is depthwise."""
+    if groups == 1:
+        return tp.column_parallel(x, weight, bias, lambda xi, w, bi: conv(xi, w, bi, 1))
+    if groups == weight.shape[0] == x.shape[-1] and weight.shape[1] == 1:
+        return tp.depthwise_parallel(x, weight, bias, conv)
+    raise ValueError(f"a sharded grouped conv with groups={groups}: only depthwise convs "
+                     "are split by channel")
+
+
 def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
            dt: Dtype = None, stride=1, padding: Pad = 0, dilation=1,
            groups: int = 1) -> torch.Tensor:
@@ -100,12 +119,16 @@ def conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     kw) weight; returns (N, H', W', O)."""
     d = _dt(x, weight, dt)
     pad, explicit = _pads(padding)
-    xc = x.to(d).permute(0, 3, 1, 2)
-    if explicit is not None:
-        xc = F.pad(xc, explicit)
-    y = F.conv2d(xc, weight.to(d), None if bias is None else bias.to(d),
-                 stride, pad, dilation, groups)
-    return y.permute(0, 2, 3, 1)
+
+    def conv(xi, w, b, g):
+        xc = xi.permute(0, 3, 1, 2)
+        if explicit is not None:
+            xc = F.pad(xc, explicit)
+        y = F.conv2d(xc, w.to(d), None if b is None else b.to(d), stride, pad, dilation, g)
+        return y.permute(0, 2, 3, 1)
+    if tp.is_sharded(weight):
+        return _sharded_conv(conv, x.to(d), weight, bias, groups)
+    return conv(x.to(d), weight, bias, groups)
 
 
 def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
@@ -118,12 +141,16 @@ def conv3d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
     the contiguous copy (see PERF.md)."""
     d = _dt(x, weight, dt)
     pad, explicit = _pads(padding)
-    xc = x.to(d).permute(0, 4, 1, 2, 3).contiguous()
-    if explicit is not None:
-        xc = F.pad(xc, explicit)
-    y = F.conv3d(xc, weight.to(d), None if bias is None else bias.to(d),
-                 stride, pad, 1, groups)
-    return y.permute(0, 2, 3, 4, 1)
+
+    def conv(xi, w, b, g):
+        xc = xi.permute(0, 4, 1, 2, 3).contiguous()
+        if explicit is not None:
+            xc = F.pad(xc, explicit)
+        y = F.conv3d(xc, w.to(d), None if b is None else b.to(d), stride, pad, 1, g)
+        return y.permute(0, 2, 3, 4, 1)
+    if tp.is_sharded(weight):
+        return _sharded_conv(conv, x.to(d), weight, bias, groups)
+    return conv(x.to(d), weight, bias, groups)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -285,7 +312,7 @@ class ConvBNRelu(nn.Sequential):
         f = acc_dtype(conv.weight.dtype)
         a = bn.weight.to(f) * torch.rsqrt(bn.running_var.to(f) + 1e-5)
         b = (conv.bias.to(f) - bn.running_mean.to(f)) * a + bn.bias.to(f)
-        k = conv.weight.to(f).permute(2, 3, 1, 0) * a
+        k = tp.full(conv.weight).to(f).permute(2, 3, 1, 0) * a
         return k.to(dt).contiguous(), b
 
     def forward(self, tasks, out_hw, dt: Dtype = None, train: bool = False):

@@ -56,6 +56,7 @@ from diff_sal_tpu_torch.ops.kernels import acc_dtype
 from diff_sal_tpu_torch.ops.quant import QUANT_MODES
 from diff_sal_tpu_torch.ops.rel_pos import (add_decomposed_rel_pos, rel_pos_parts,
                                              rel_pos_terms)
+from diff_sal_tpu_torch.parallel import tensor as tp
 
 
 # "stencil" is JAX's shifted-multiply-add lowering of the conv's function
@@ -146,7 +147,7 @@ class MultiScaleAttention(nn.Module):
         H = self.num_heads
         if self.pool_mode == "pallas":
             return pool_ops.depthwise_pool3d(x.to(dt), self._pool_weight(parts), stride)
-        w = torch.cat([getattr(self, f"pool_{p}").weight.repeat(H, 1, 1, 1, 1)
+        w = torch.cat([tp.full(getattr(self, f"pool_{p}").weight).repeat(H, 1, 1, 1, 1)
                        for p in parts], 0)
         return conv3d(x, w, None, dt, stride=stride,
                       padding=tuple(k // 2 for k in self.pool_kernel),
@@ -158,7 +159,7 @@ class MultiScaleAttention(nn.Module):
         the gradients reach `pool_*.weight`; otherwise (eval) one copy per
         `parts` is kept and built again when a pool weight changes (its
         version counter, storage, device or dtype)."""
-        ws = [getattr(self, f"pool_{p}").weight for p in parts]
+        ws = [tp.full(getattr(self, f"pool_{p}").weight) for p in parts]
 
         def build():
             return torch.cat([w[:, 0].permute(1, 2, 3, 0).repeat(1, 1, 1, self.num_heads)
@@ -171,6 +172,10 @@ class MultiScaleAttention(nn.Module):
             with torch.no_grad():
                 kept = self._pool_weights[parts] = (state, build())
         return kept[1]
+
+    def _rel_tables(self):
+        """The (T, H, W) rel-pos tables, whole (gathered where sharded)."""
+        return tp.full(self.rel_pos_t), tp.full(self.rel_pos_h), tp.full(self.rel_pos_w)
 
     def _norm(self, t: torch.Tensor, part: str) -> torch.Tensor:
         """Per-head LayerNorm of a (B, L, heads*hd) tensor."""
@@ -218,8 +223,7 @@ class MultiScaleAttention(nn.Module):
 
         kt, kh, kw = k_shape
         if self.rel_pos_embed:
-            rel = rel_pos_terms(q2.reshape(B, Lq, H, hd), q_shape, k_shape,
-                                self.rel_pos_t, self.rel_pos_h, self.rel_pos_w)
+            rel = rel_pos_terms(q2.reshape(B, Lq, H, hd), q_shape, k_shape, *self._rel_tables())
         else:
             rel = torch.zeros((B, Lq, H, kt + kh + kw), dtype=d, device=sp.device)
         out = attn_ops.bias_attention(q2, k2, v2, rel.contiguous(), k_shape, H,
@@ -253,8 +257,8 @@ class MultiScaleAttention(nn.Module):
         qh, kh, vh = heads(q), heads(k), heads(v)
         attn = torch.matmul(qh * scale, kh.transpose(-1, -2))
         if self.rel_pos_embed:
-            attn = add_decomposed_rel_pos(attn, qh, q_shape, k_shape, self.rel_pos_t,
-                                          self.rel_pos_h, self.rel_pos_w, with_cls_token=False)
+            attn = add_decomposed_rel_pos(attn, qh, q_shape, k_shape, *self._rel_tables(),
+                                          with_cls_token=False)
         attn = torch.softmax(attn, dim=-1)
         f = torch.promote_types(attn.dtype, vh.dtype)
         out = torch.matmul(attn.to(f), vh.to(f))
@@ -277,8 +281,7 @@ class MultiScaleAttention(nn.Module):
 
         qh, kh, vh = (heads(t).contiguous() for t in (q, k, v))
         if self.rel_pos_embed:
-            rels = rel_pos_parts(qh[:, 1:], q_shape, k_shape, self.rel_pos_t, self.rel_pos_h,
-                                 self.rel_pos_w)
+            rels = rel_pos_parts(qh[:, 1:], q_shape, k_shape, *self._rel_tables())
         else:
             rels = [torch.zeros((B * H, L, n), dtype=acc_dtype(q.dtype), device=q.device)
                     for n in k_shape]
@@ -379,7 +382,8 @@ class MViT(nn.Module):
     def forward(self, x: torch.Tensor, dt: Dtype = None) -> List[torch.Tensor]:
         B = x.shape[0]
         sp, size = self.patch_embed(x, dt)
-        cls = self.cls_token.to(sp.dtype).expand(B, 1, -1) if self.cfg.with_cls_token else None
+        cls = (tp.full(self.cls_token).to(sp.dtype).expand(B, 1, -1)
+               if self.cfg.with_cls_token else None)
         outs = []
         remat = self.cfg.remat and torch.is_grad_enabled()
         for blk, plan in zip(self.blocks, self.plans):

@@ -44,6 +44,7 @@ from diff_sal_tpu_torch.models.layers import (BatchNorm, ConvBNRelu, Dtype,
 from diff_sal_tpu_torch.ops import attention as attn_ops
 from diff_sal_tpu_torch.ops import mlp as mlp_ops
 from diff_sal_tpu_torch.ops.resize import bilinear_resize, nearest_upsample
+from diff_sal_tpu_torch.parallel import tensor as tp
 
 
 class TimestepMLP(nn.Module):
@@ -216,10 +217,11 @@ class TransformerBlock(nn.Module):
             return tokens.reshape(B, T, H, W, C)
         d = attn_out.dtype
         m = self.mlp
+        # K3 takes whole weights: sharded ones are gathered just before it
         out = mlp_ops.block_tail(
             tokens.reshape(-1, C).to(d).contiguous(), attn_out.reshape(-1, C).contiguous(),
-            self.norm2.weight, self.norm2.bias, m.fc1.weight.to(d), m.fc1.bias,
-            m.fc2.weight.to(d), m.fc2.bias, self.norm2.eps, self.act,
+            self.norm2.weight, self.norm2.bias, tp.full(m.fc1.weight.to(d)), m.fc1.bias,
+            tp.full(m.fc2.weight.to(d)), m.fc2.bias, self.norm2.eps, self.act,
         )
         return out.reshape(B, T, H, W, C)
 

@@ -635,6 +635,7 @@ def bias_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernel K1 on CUDA (bf16, or its f32 instance for f32), the plain
     version on the CPU; no autograd. With `return_lse`, (out, lse): each
     row's logsumexp (B, H, Lq), f32 from the kernel."""
+    K.refuse_dtensor("bias_attention", q, k, v, rel)
     if q.device.type == "cpu":
         return bias_attention_plain(q, k, v, rel, k_shape, num_heads, scale, residual,
                                     return_lse)
@@ -703,6 +704,7 @@ def bias_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv, drel) of K1: kernel K5 on CUDA (bf16, or its f32
     instance for f32; `lse` the forward's (B, H, Lq) logsumexp), the plain
     version on the CPU."""
+    K.refuse_dtensor("bias_attention_bwd", q, k, v, rel, g, lse)
     if q.device.type == "cpu":
         return bias_attention_bwd_plain(q, k, v, rel, g, k_shape, num_heads, scale, residual)
     K.require_cuda(q, "bias_attention_bwd")
@@ -852,6 +854,7 @@ def fused_bias_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Kernel K12 on CUDA (q, k, v bf16, or f32 for its f32 instance; rel
     f32), the plain version on the CPU; no autograd. With `return_lse`,
     (out, lse): each row's logsumexp (BH, Lq), f32 from the kernel."""
+    K.refuse_dtensor("fused_bias_attention", q, k, v, rel_t, rel_h, rel_w)
     if q.device.type == "cpu":
         return fused_bias_attention_plain(q, k, v, rel_t, rel_h, rel_w, k_shape, scale,
                                           residual, return_lse)
@@ -883,6 +886,7 @@ def fused_bias_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA (q, k, v, g bf16, or f32 for the f32 instance; f32 rel and d-rel;
     `lse` the forward's (BH, Lq) logsumexp), the plain version on the
     CPU."""
+    K.refuse_dtensor("fused_bias_attention_bwd", q, k, v, rel_t, rel_h, rel_w, g, lse)
     if q.device.type == "cpu":
         return fused_bias_attention_bwd_plain(q, k, v, rel_t, rel_h, rel_w, g, k_shape, scale,
                                               residual)
@@ -1136,6 +1140,7 @@ def cvt_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("cvt_cross_attention (kernel K7) is eval-only and has no "
                            "backward; call it under torch.no_grad() or take the einsum path")
+    K.refuse_dtensor("cvt_cross_attention", q, k, v)
     if q.device.type == "cpu":
         return reference_cvt_attention(q, k, v, num_heads, scale)
     K.require_cuda(q, "cvt_cross_attention")

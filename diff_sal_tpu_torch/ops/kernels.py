@@ -34,6 +34,7 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -215,6 +216,17 @@ def acc_dtype(dt: torch.dtype) -> torch.dtype:
     in: f32, or f64 for f64 inputs (gradient checks, and a whole step run
     in f64 as the reference for f32 rounding)."""
     return torch.float64 if dt == torch.float64 else torch.float32
+
+
+def refuse_dtensor(what: str, *tensors):
+    """A kernel wrapper takes plain tensors (lists of them too): a weight
+    sharded by tensor parallelism (a DTensor) is gathered by its caller
+    first (`parallel/tensor.full`)."""
+    for t in tensors:
+        for u in (t if isinstance(t, (list, tuple)) else (t,)):
+            if isinstance(u, DTensor):
+                raise TypeError(f"{what}: a DTensor argument; kernel wrappers take plain "
+                                "tensors (gather a sharded weight with parallel.tensor.full)")
 
 
 def require_cuda(t: torch.Tensor, what: str):

@@ -280,6 +280,7 @@ def _check_rows(name: str, x: torch.Tensor, real_dim):
 def layer_norm_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                    eps: float = 1e-6, real_dim: Optional[int] = None) -> torch.Tensor:
     """Kernel K2 on CUDA, the plain version on the CPU; no autograd."""
+    K.refuse_dtensor("layer_norm", x, weight, bias)
     if x.device.type == "cpu":
         return layer_norm_plain(x, weight, bias, eps, real_dim)
     K.require_cuda(x, "layer_norm")
@@ -302,6 +303,7 @@ def layer_norm_bwd(x: torch.Tensor, g: torch.Tensor, weight: torch.Tensor,
                    eps: float = 1e-6, real_dim: Optional[int] = None):
     """(dx, dweight, dbias) of `layer_norm`: kernel K6 on CUDA, the plain
     version on the CPU."""
+    K.refuse_dtensor("layer_norm_bwd", x, g, weight)
     if x.device.type == "cpu":
         return layer_norm_bwd_plain(x, g, weight, eps, real_dim)
     K.require_cuda(x, "layer_norm_bwd")

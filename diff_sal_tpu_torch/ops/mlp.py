@@ -277,6 +277,7 @@ def block_tail(skip: torch.Tensor, attn: torch.Tensor, ln_w: torch.Tensor,
     if act_mode not in ACT_MODES:
         raise ValueError(f"unknown activation mode {act_mode!r}")
     args = (skip, attn, ln_w, ln_b, w1, b1, w2, b2)
+    K.refuse_dtensor("block_tail", *args)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         raise RuntimeError("block_tail (kernel K3) is eval-only and has no backward; "
                            "call it under torch.no_grad() or take the module path")

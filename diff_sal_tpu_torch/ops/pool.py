@@ -126,6 +126,7 @@ def pool_bwd(x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, int, int],
 def pool_fwd(x: torch.Tensor, w: torch.Tensor,
              stride: Tuple[int, int, int]) -> torch.Tensor:
     """Kernel K11 on CUDA, the plain version on the CPU; no autograd."""
+    K.refuse_dtensor("depthwise_pool3d", x, w)
     if x.device.type == "cpu":
         return pool_plain(x, w, stride)
     K.require_cuda(x, "depthwise_pool3d")

@@ -30,6 +30,7 @@ import torch
 import torch.nn as nn
 
 from diff_sal_tpu_torch.ops.kernels import acc_dtype
+from diff_sal_tpu_torch.parallel import tensor as tp
 
 QUANT_MODES = ("none", "w8", "w8a8")
 
@@ -93,14 +94,15 @@ class QuantLinear(nn.Module):
             x = x.to(dt)
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
+        w = tp.full(self.weight_q)  # whole where tensor-parallel sharding split it
         if self.mode == "w8":
             # the weight in the activation dtype (exact) and the products
             # summed in f32: an f32 product of the two is the same sum
             f = acc_dtype(x2.dtype)
-            y = (x2.to(f) @ self.weight_q.to(x2.dtype).to(f).t()) * self.weight_scale
+            y = (x2.to(f) @ w.to(x2.dtype).to(f).t()) * self.weight_scale
         else:
             xq, xs = _quant_rows(x2)
-            y = int_mm(xq, self.weight_q).float() * xs * self.weight_scale
+            y = int_mm(xq, w).float() * xs * self.weight_scale
         y = y + self.bias
         return y.to(x.dtype).reshape(*lead, self.out_features)
 

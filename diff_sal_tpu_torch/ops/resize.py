@@ -394,6 +394,7 @@ def bilinear_resize_sum_fwd(xs: Sequence[torch.Tensor],
                             out_hw: Tuple[int, int]) -> torch.Tensor:
     """Kernel K4 on CUDA, the plain version on the CPU; no autograd."""
     xs = list(xs)
+    K.refuse_dtensor("bilinear_resize_sum", xs)
     if xs[0].device.type == "cpu":
         return bilinear_resize_sum_plain(xs, out_hw)
     K.require_cuda(xs[0], "bilinear_resize_sum")
@@ -464,6 +465,7 @@ def bilinear_resize_add_plain(acc: torch.Tensor, x: torch.Tensor) -> torch.Tenso
 def bilinear_resize_add_fwd(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Kernel K10 on CUDA (acc and x bf16 or f32 each, C % 8 == 0), the
     plain version on the CPU; no autograd."""
+    K.refuse_dtensor("bilinear_resize_add", acc, x)
     if acc.device.type == "cpu":
         return bilinear_resize_add_plain(acc, x)
     K.require_cuda(acc, "bilinear_resize_add")
@@ -557,6 +559,7 @@ def resize_sum_conv_relu(xs: Sequence[torch.Tensor], out_hw: Tuple[int, int],
     its f32 instance; C % 16 == 0, O % 16 == 0, O <= 128), the plain
     version on the CPU. Eval only."""
     xs = list(xs)
+    K.refuse_dtensor("resize_sum_conv_relu", xs, kernel, bias)
     _check_eval_only("resize_sum_conv_relu (kernel K8)", *xs, kernel, bias)
     if xs[0].device.type == "cpu":
         return resize_sum_conv_relu_plain(xs, out_hw, kernel, bias)
@@ -672,6 +675,7 @@ def resize_sum_conv_relu_phase(xs: Sequence[torch.Tensor], out_hw: Tuple[int, in
     (bf16 or f32, O % 8 == 0 (bf16) or O % 4 == 0 (f32), O <= 128), the
     plain version on the CPU. Eval only."""
     xs = list(xs)
+    K.refuse_dtensor("resize_sum_conv_relu_phase", xs, kernel, bias)
     _check_eval_only("resize_sum_conv_relu_phase (kernel K9)", *xs, kernel, bias)
     if xs[0].device.type == "cpu":
         return resize_sum_conv_relu_lowres(xs, out_hw, kernel, bias)

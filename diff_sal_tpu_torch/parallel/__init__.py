@@ -1,1 +1,2 @@
-"""Data parallelism over torch.distributed (JAX package `parallel/`)."""
+"""Data and tensor parallelism over torch.distributed (JAX package
+`parallel/`)."""

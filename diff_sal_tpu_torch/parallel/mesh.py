@@ -24,8 +24,14 @@ holds the whole model and steps on its rows of the global batch.
 
 JAX's `make_mesh_for_batch` shrinks the mesh to gcd(batch, devices) with a
 warning; a torch rank cannot sit out a step, so here an indivisible batch
-raises. `tensor_parallel_param_shardings` (the 'model' axis) is not
-ported: `MeshConfig` refuses `num_model` above 1.
+raises.
+
+The ('data', 'model') mesh of tensor parallelism is `make_device_mesh`, a
+`DeviceMesh` whose 'data' group plays the part of `make_mesh`'s group
+(`shard_batch`, `average_gradients`, the BatchNorm statistics) and whose
+'model' group the sharded weights live on (`parallel/tensor.py`). JAX's
+`make_mesh` takes the first num_data x num_model devices; here the mesh
+must cover every rank, since a torch rank cannot sit out.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from diff_sal_tpu_torch.config import MeshConfig
+from diff_sal_tpu_torch.parallel.tensor import is_sharded
 
 Group = Optional[dist.ProcessGroup]
 
@@ -53,8 +59,10 @@ def make_mesh(num_data: int = -1, num_model: int = 1, group: Group = None) -> Gr
     """The data ranks' process group: `group`, or the default group where
     the process group is initialized; None in one process without one.
     `num_data` is -1 (every rank) or the world size: a rank cannot sit a
-    step out."""
-    MeshConfig(num_data=num_data, num_model=num_model)
+    step out. A model axis wider than 1 is `make_device_mesh`'s."""
+    if num_model != 1:
+        raise ValueError(f"num_model={num_model}: make_mesh returns the data ranks' group; "
+                         "the ('data', 'model') mesh is make_device_mesh(num_data, num_model)")
     if group is None and not dist.is_initialized():
         if num_data not in (-1, 1):
             raise ValueError(f"num_data={num_data} without a process group: one process")
@@ -76,6 +84,30 @@ def make_mesh_for_batch(batch_size: int, num_model: int = 1, group: Group = None
         raise ValueError(f"batch_size={batch_size} does not divide over {w} data-parallel "
                          f"ranks; pick a multiple of {w}")
     return group
+
+
+def make_device_mesh(num_data: int = -1, num_model: int = 1,
+                     device_type: Optional[str] = None):
+    """The ('data', 'model') mesh over every rank of the initialized process
+    group (JAX `make_mesh`): rank r sits at (r // num_model, r % num_model),
+    JAX's `reshape(num_data, num_model)` of its device list; `num_data=-1`
+    means world / num_model. Raises where num_data x num_model is not the
+    world size. `device_type` is "cuda" unless the caller asks for "cpu"."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not dist.is_initialized():
+        raise ValueError("make_device_mesh needs the process group (multihost.initialize)")
+    world = dist.get_world_size()
+    if num_model < 1 or world % num_model:
+        raise ValueError(f"num_model={num_model} does not divide the {world} ranks")
+    if num_data == -1:
+        num_data = world // num_model
+    if num_data * num_model != world:
+        raise ValueError(f"a {num_data} x {num_model} mesh over {world} ranks: the mesh must "
+                         "cover every rank (a torch rank cannot sit out)")
+    return DeviceMesh(device_type or "cuda",
+                      torch.arange(world).reshape(num_data, num_model),
+                      mesh_dim_names=("data", "model"))
 
 
 def shard_batch(batch: Mapping, group: Group) -> Dict:
@@ -112,12 +144,16 @@ def all_reduce_sum(x: torch.Tensor, group: Group) -> torch.Tensor:
 def average_gradients(params: Iterable[torch.Tensor], group: Group):
     """Replace every parameter's gradient by its mean over the ranks: one
     flat all-reduce per dtype, summed and then divided by W. The ranks hold
-    the same model, so the same parameters have gradients on each."""
+    the same model, so the same parameters have gradients on each. A
+    sharded parameter's gradient (a DTensor, `parallel/tensor.py`) is
+    averaged in place as this rank's slice, so `group` is the 'data' group
+    of the mesh there."""
     w = world_size(group)
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for p in params:
         if p.grad is not None:
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+            g = p.grad.to_local() if is_sharded(p.grad) else p.grad
+            by_dtype.setdefault(g.dtype, []).append(g)
     for grads in by_dtype.values():
         flat = torch.cat([g.reshape(-1) for g in grads])
         dist.all_reduce(flat, group=group)

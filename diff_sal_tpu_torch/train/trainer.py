@@ -71,10 +71,11 @@ class Trainer:
                  n_epochs: Optional[int] = None, device="cuda", group: mesh.Group = None):
         """`group`: the data-parallel ranks' process group (`parallel/mesh.
         make_mesh`), or None for one process; `cfg.training.batch_size` is
-        the global batch, which must divide by the ranks."""
+        the global batch, which must divide by the ranks. Every rank is a
+        data rank: `cfg.mesh.num_model` is not read, as JAX's trainer builds
+        its mesh from the batch alone (its trainer.py:80)."""
         self.cfg = cfg
-        self.group = (mesh.make_mesh_for_batch(cfg.training.batch_size, cfg.mesh.num_model,
-                                               group)
+        self.group = (mesh.make_mesh_for_batch(cfg.training.batch_size, group=group)
                       if group is not None else None)
         self.rank = mesh.rank(self.group)
         self.is_main = self.rank == 0
@@ -286,7 +287,7 @@ def rank_loader_kwargs(cfg: ExperimentConfig, group: mesh.Group = None) -> dict:
     global batch, `batch_size // W` of them."""
     if group is None:
         return {"batch_size": cfg.training.batch_size}
-    group = mesh.make_mesh_for_batch(cfg.training.batch_size, cfg.mesh.num_model, group)
+    group = mesh.make_mesh_for_batch(cfg.training.batch_size, group=group)
     return {"batch_size": cfg.training.batch_size // mesh.world_size(group),
             "process_index": mesh.rank(group), "process_count": mesh.world_size(group)}
 

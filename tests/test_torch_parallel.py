@@ -677,8 +677,8 @@ def test_make_mesh_for_batch_in_one_process():
     assert mesh.make_mesh() is None and mesh.make_mesh_for_batch(3) is None
     with pytest.raises(ValueError):
         mesh.make_mesh(num_data=2)
-    with pytest.raises(NotImplementedError):
-        mesh.make_mesh(num_model=2)
+    with pytest.raises(ValueError, match="make_device_mesh"):
+        mesh.make_mesh(num_model=2)  # the model axis is the 2-D mesh's
     assert mesh.shard_batch({"x": [1, 2, 3]}, None) == {"x": [1, 2, 3]}
 
 
